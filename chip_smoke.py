@@ -4,15 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the port's main
-path — the fleet route build `SpfSolver.fleet_route_dbs` over the
-100k-node WAN of BASELINE config #3 (`benchmarks/synthetic.wan(100_000,
-chords=2, seed=0)`) with 1024 prefix advertisers — checks its routes
-against the host Dijkstra, and times the phases.  Each phase prints one
-JSON line; the line before the last is the `kernels` record, and the
-last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, when CUDA is not available or any check fails.  Imports nothing
-of JAX.
+against its plain PyTorch version on the card, and drives the port's two
+paths of the fleet route build `SpfSolver.fleet_route_dbs`, each with
+1024 prefix advertisers, its routes checked against the host Dijkstra
+and its phases timed:
+
+- the fused rung (kernel K1, the fused epilogue) over the 100k-node WAN
+  of BASELINE config #3 (`benchmarks/synthetic.wan(100_000, chords=2,
+  seed=0)`), pinned to that rung by raising the engine's
+  `blocked.node_shard_threshold` to its node count;
+- the blocked APSP rung (kernel K2, the rank-B outer update) over the
+  fat-tree of BASELINE config #2 (4 planes of 24 spines, 4 fabric and
+  100 rack switches per pod) with 315 pods, 32 856 nodes: the smallest
+  fabric of that shape that the rung takes under its default threshold.
+
+Each phase prints one JSON line; the line before the last is the
+`kernels` record, and the last line is {"ok": true, "device": {...}}.
+Exits non-zero, printing no result, when CUDA is not available or any
+check fails.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +37,15 @@ N_NODES = 100_000
 N_ADVERTISERS = 1024
 N_ROUTERS = 32
 N_CHECKED = 4
+# the blocked rung's fabric: BASELINE config #2's shape with 315 pods
+# (96 + 315 * 104 = 32 856 nodes > 2^15), and its own 96-pod, 10 080-node
+# fabric for the kernel-against-plain closure
+FABRIC = dict(n_planes=4, n_fsw_per_pod=4, n_rsw_per_pod=100, n_ssw_per_plane=24)
+FABRIC_PODS = 315
+CHECK_PODS = 96
+# random tile cases of K2 (S, T, B): every B the rung and the tests use;
+# with B = 8 and 16, Np is not a multiple of the kernel's 64-wide tile
+OUTER_CASES = ((1, 13, 8), (2, 9, 16), (1, 3, 128), (2, 2, 128))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32 rate
 # outside the tensor cores, taken as the scalar integer ALU rate
 HBM_BYTES_PER_S = 3.35e12
@@ -41,6 +59,13 @@ KERNEL = {
     "source": "openr_tpu_torch/ops/csrc/fused_epilogue.cu",
     "replaces": "openr_tpu/ops/pallas_kernels.py:240",
 }
+OUTER_KERNEL = {
+    "name": "blocked_outer",
+    "route": "cuda",
+    "source": "openr_tpu_torch/ops/csrc/blocked_outer.cu",
+    "replaces": "openr_tpu/ops/pallas_kernels.py:401",
+}
+NO_LIBRARY = "no single PyTorch call computes this function"
 
 
 def emit(record: dict) -> None:
@@ -175,6 +200,7 @@ def kernel_vs_plain_small(device, kernel, plain) -> list[dict]:
         records.append(
             {
                 "phase": "kernel_vs_plain",
+                "rung": "fused",
                 "graph": name,
                 "shape": list(d.shape),
                 "groups": int(groups[0].shape[0]),
@@ -275,66 +301,86 @@ def route_sets(db):
     return unicast, mpls
 
 
-def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
-    """Phase 3: the fleet route build at full width, with its kernel
-    launches counted, its routes checked against the host Dijkstra, and
-    its kernel held against the plain epilogue on the same product."""
-    import torch
+def fleet_inputs(make_dbs, n_routers):
+    """LinkState, CSR mirror, prefixes and routers of a route build.
+    `make_dbs()` returns (AdjacencyDatabases in node-id order, advertiser
+    ids); each advertiser gets one /64 and carries a node label.  The
+    database and LinkState build is timed as one host phase."""
+    from types import SimpleNamespace
 
     from openr_tpu_torch.decision.csr import CsrTopology
-    from openr_tpu_torch.decision.fleet import FleetViewCache, fleet_destinations
     from openr_tpu_torch.decision.prefix_state import PrefixState
-    from openr_tpu_torch.decision.spf_solver import SpfSolver
-    from openr_tpu_torch.ops import epilogue as ep
-    from openr_tpu_torch.ops.banded import make_dist0_orig
     from openr_tpu_torch.types import PrefixEntry
-    from openr_tpu_torch.utils import topo
 
-    rng = np.random.default_rng(7)
-    adv_ids = np.sort(
-        rng.choice(n_nodes, size=n_advertisers, replace=False)
-    ).astype(np.int32)
     t0 = time.perf_counter()
-    dbs = topo.wan_topology(n_nodes, chords=2, seed=0, labeled=adv_ids)
+    dbs, adv_ids = make_dbs()
     ls = link_state_of(dbs)
     t_ls = time.perf_counter() - t0
     t0 = time.perf_counter()
     csr = CsrTopology.from_link_state(ls)
     t_csr = time.perf_counter() - t0
     names = ls.node_names
+    if names != [db.this_node_name for db in dbs]:
+        raise AssertionError("databases are not in node-id order")
     advertisers = [names[i] for i in adv_ids]
     prefixes = [f"fc00:{i >> 16:x}:{i & 0xFFFF:x}::/64" for i in adv_ids]
-    labels = [16 + int(i) for i in adv_ids]
     ps = PrefixState()
     for node, prefix in zip(advertisers, prefixes):
         ps.update_prefix(node, "0", PrefixEntry(prefix=prefix))
-    routers = [names[i * n_nodes // n_routers] for i in range(n_routers)]
-    solver = SpfSolver(names[0], device=device)
-    area = {"0": ls}
+    n = len(names)
+    return SimpleNamespace(
+        ls=ls,
+        csr=csr,
+        names=names,
+        advertisers=advertisers,
+        prefixes=prefixes,
+        labels=[16 + int(i) for i in adv_ids],
+        ps=ps,
+        area={"0": ls},
+        routers=[names[i * n // n_routers] for i in range(n_routers)],
+        t_ls=t_ls,
+        t_csr=t_csr,
+    )
 
-    # the counted run of the main path
+
+def counted_route_build(solver, inp, timer):
+    """One route build of the path, with every kernel's launch count set
+    to 0 just before it and read just after: (route DBs, seconds,
+    launches by kernel, engine counters, the view that served it)."""
+    import torch
+
+    from openr_tpu_torch.decision.fleet import fleet_destinations
+    from openr_tpu_torch.ops import blocked_outer as bo
+    from openr_tpu_torch.ops import epilogue as ep
+
     ep.fused_epilogue.launches = 0
+    bo.blocked_outer.launches = 0
     t0 = time.perf_counter()
-    dbs_out = solver.fleet_route_dbs(area, ps, nodes=routers)
+    dbs_out = solver.fleet_route_dbs(inp.area, inp.ps, nodes=inp.routers)
     if timer.cuda:
         torch.cuda.synchronize()
-    t_main = time.perf_counter() - t0
-    launches = ep.fused_epilogue.launches
-    main_counters = dict(solver.engine.counters)
-    view = solver.fleet.view(ls, fleet_destinations(ls, ps), engine=solver.engine)
-    if launches < 1 or main_counters["device.engine.kernel_launches"] < 1:
-        raise AssertionError(
-            f"main path launched the epilogue kernel {launches} times"
-        )
-    if not view.converged or sorted(dbs_out) != sorted(routers):
-        raise AssertionError("main path: view not converged or routers missing")
+    seconds = time.perf_counter() - t0
+    launches = {
+        KERNEL["name"]: ep.fused_epilogue.launches,
+        OUTER_KERNEL["name"]: bo.blocked_outer.launches,
+    }
+    counters = dict(solver.engine.counters)
+    view = solver.fleet.view(
+        inp.ls, fleet_destinations(inp.ls, inp.ps), engine=solver.engine
+    )
+    if not view.converged or sorted(dbs_out) != sorted(inp.routers):
+        raise AssertionError("route build: view not converged or routers missing")
+    return dbs_out, seconds, launches, counters, view
 
-    # routes of a few routers against the host Dijkstra
-    t0 = time.perf_counter()
+
+def check_routes(inp, dbs_out, view, n_routers, n_checked) -> list[str]:
+    """Routes and distances of a few routers, the last router among them,
+    against the host Dijkstra."""
+    step = max(1, n_routers // n_checked)
     checked = []
-    for router in routers[:: max(1, n_routers // n_checked)][:n_checked]:
+    for router in inp.routers[::step][: n_checked - 1] + inp.routers[-1:]:
         want_u, want_m, want_d = expected_routes(
-            ls, router, advertisers, prefixes, labels
+            inp.ls, router, inp.advertisers, inp.prefixes, inp.labels
         )
         got_u, got_m = route_sets(dbs_out[router])
         if got_u != want_u or got_m != want_m:
@@ -343,6 +389,53 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
             if view.dist(router, t) != metric:
                 raise AssertionError(f"dist({router}, {t}) differs")
         checked.append(router)
+    return checked
+
+
+def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
+    """Phase 3: the fleet route build at full width on the fused rung, with
+    its kernel launches counted, its routes checked against the host
+    Dijkstra, and its kernel held against the plain epilogue on the same
+    product."""
+    import torch
+
+    from openr_tpu_torch.decision.fleet import FleetViewCache
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.ops.banded import make_dist0_orig
+    from openr_tpu_torch.utils import topo
+
+    rng = np.random.default_rng(7)
+    adv_ids = np.sort(
+        rng.choice(n_nodes, size=n_advertisers, replace=False)
+    ).astype(np.int32)
+    inp = fleet_inputs(
+        lambda: (
+            topo.wan_topology(n_nodes, chords=2, seed=0, labeled=adv_ids),
+            adv_ids,
+        ),
+        n_routers,
+    )
+    ls, csr = inp.ls, inp.csr
+    solver = SpfSolver(inp.names[0], device=device)
+    # this path is the fused rung's: at 100k nodes the default policy
+    # would take the blocked rung (ROADMAP: the threshold on this card)
+    solver.engine.blocked.node_shard_threshold = n_nodes
+
+    # the counted run of the path
+    dbs_out, t_main, launches, main_counters, view = counted_route_build(
+        solver, inp, timer
+    )
+    if launches[KERNEL["name"]] < 1 or main_counters["device.engine.kernel_launches"] < 1:
+        raise AssertionError(
+            f"main path launched the epilogue kernel {launches} times"
+        )
+    if view.node_sharded or launches[OUTER_KERNEL["name"]]:
+        raise AssertionError("main path left the fused rung")
+
+    # routes of a few routers against the host Dijkstra
+    t0 = time.perf_counter()
+    checked = check_routes(inp, dbs_out, view, n_routers, n_checked)
     t_oracle = time.perf_counter() - t0
 
     # the kernel against the plain epilogue on the main path's product
@@ -367,8 +460,8 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
         return d
 
     times = {
-        "host_link_state_s": t_ls,
-        "host_csr_s": t_csr,
+        "host_link_state_s": inp.t_ls,
+        "host_csr_s": inp.t_csr,
         "main_path_first_run_s": t_main,
         "view_compute_ms": timer.ms(view_compute, reps=1),
         "supersweeps": runner.hint,
@@ -380,7 +473,7 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
             lambda: ep.fused_epilogue_reference(dist, *groups, n_words), reps=3
         ),
         "route_builds_ms": timer.ms(
-            lambda: solver.fleet_route_dbs(area, ps, nodes=routers),
+            lambda: solver.fleet_route_dbs(inp.area, inp.ps, nodes=inp.routers),
             reps=1,
             warmup=0,
         ),
@@ -393,7 +486,7 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
     ops_ms = n * p * g * EPILOGUE_OPS / SCALAR_OPS_PER_S * 1e3
     kernel_record = {
         **KERNEL,
-        "launches": launches,
+        "launches": launches[KERNEL["name"]],
         "parity": True,
         "max_abs_err": parity["max_abs_err"],
         "ms": times["epilogue_kernel_ms"],
@@ -401,10 +494,13 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "library_note": NO_LIBRARY,
         "shape": {"N": n, "P": p, "W": n_words, "G": g},
     }
     record = {
         "phase": "main_path",
+        "rung": "fused",
+        "node_sharded": view.node_sharded,
         "nodes": n_nodes,
         "directed_edges": csr.n_edges,
         "advertisers": n_advertisers,
@@ -413,6 +509,7 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
         "checked_routers": checked,
         "unicast_routes": sum(len(db.unicast_routes) for db in dbs_out.values()),
         "mpls_routes": sum(len(db.mpls_routes) for db in dbs_out.values()),
+        "launches": launches,
         "engine_counters": main_counters,
         "chord_mode": runner.chord_mode,
         "band_offsets": list(runner.bg.offsets),
@@ -424,28 +521,362 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
     return record, kernel_record
 
 
+def fabric_dbs(pods: int, n_advertisers: int):
+    """The fat-tree of BASELINE config #2 with `pods` pods, and
+    `n_advertisers` rack switches drawn with np.random.default_rng(7):
+    (databases in node-id order, advertiser ids).  Advertisers carry the
+    node label 16 + id, every other node none."""
+    from openr_tpu_torch.utils import topo
+
+    dbs = topo.fat_tree_topology(pods, **FABRIC)
+    racks = [i for i, db in enumerate(dbs) if db.this_node_name.startswith("rsw-")]
+    rng = np.random.default_rng(7)
+    adv_ids = np.sort(
+        rng.choice(racks, size=n_advertisers, replace=False)
+    ).astype(np.int32)
+    labeled = set(adv_ids.tolist())
+    for i, db in enumerate(dbs):
+        db.node_label = 16 + i if i in labeled else 0
+    return dbs, adv_ids
+
+
+def fabric_rounds(device, pods: int) -> tuple[int, int]:
+    """(tile B, rounds T) of the blocked closure of a `pods`-pod fabric."""
+    from openr_tpu_torch.parallel.blocked import BlockedApspEngine
+
+    n = FABRIC["n_planes"] * FABRIC["n_ssw_per_plane"] + pods * (
+        FABRIC["n_fsw_per_pod"] + FABRIC["n_rsw_per_pod"]
+    )
+    b = BlockedApspEngine(device=device).tile_for(n)
+    return b, -(-n // b)
+
+
+def outer_bound_ms(s: int, np_: int, b: int, drained: int) -> tuple[float, str]:
+    """Least time of one K2 launch: each element of d read and written
+    once plus the panels and drain flags read once, against the
+    2 * (B - drained) add-and-min operations per element."""
+    bytes_ms = (2 * s * np_ * np_ * 4 + 2 * s * np_ * b * 4 + b) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * (b - drained) * s * np_ * np_ / SCALAR_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def blocked_kernel_vs_plain(device, outer, t_main: int, b_main: int, timer):
+    """K2 against `blocked_outer_reference`, bit for bit: random tile
+    tensors (values below 2^20, 10% INF, 20% drained lanes) for every
+    round k of OUTER_CASES, then three launches (k = 0, T/2, T-1) at the
+    blocked main path's full [Np, Np] shape, which are also timed (the
+    kernel's work does not depend on the values).  Returns (phase record,
+    timing at the main path's shape)."""
+    import torch
+
+    from openr_tpu_torch.ops import blocked_outer as bo
+    from openr_tpu_torch.ops.sssp import INF32
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def tiles(s, t, b):
+        def randint(*shape):
+            return torch.randint(
+                0, 1 << 20, shape, dtype=torch.int32, device=device, generator=gen
+            )
+
+        d = randint(s, t, b, t, b)
+        d.masked_fill_(torch.rand(d.shape, device=device, generator=gen) < 0.1, INF32)
+        ov = torch.rand(t * b, device=device, generator=gen) < 0.2
+        return d, randint(s, b, t, b), randint(s, t, b, b), ov
+
+    def same(d, row, col, ov, k) -> None:
+        got = outer(d.clone(), row, col, ov, k)
+        want = bo.blocked_outer_reference(d.clone(), row, col, ov, k)
+        if timer.cuda:
+            torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(
+                f"K2 and its plain version disagree at {bad} elements "
+                f"(S, T, B = {tuple(d.shape[:3])}, k = {k})"
+            )
+
+    cases = []
+    for s, t, b in OUTER_CASES:
+        d, row, col, ov = tiles(s, t, b)
+        for k in range(t):
+            same(d, row, col, ov, k)
+        cases.append({"S": s, "T": t, "B": b, "Np": t * b, "rounds": t})
+    d, row, col, ov = tiles(1, t_main, b_main)
+    ks = sorted({0, t_main // 2, t_main - 1})
+    for k in ks:
+        same(d, row, col, ov, k)
+    k = t_main // 2
+    x = d.clone()
+    del d
+    ms = timer.ms(lambda: outer(x, row, col, ov, k), reps=20)
+    plain_ms = timer.ms(
+        lambda: bo.blocked_outer_reference(x, row, col, ov, k), reps=2
+    )
+    drained = int(ov[k * b_main : (k + 1) * b_main].sum())
+    np_ = t_main * b_main
+    bound_ms, bound_by = outer_bound_ms(1, np_, b_main, drained)
+    del x
+    record = {
+        "phase": "blocked_kernel_vs_plain",
+        "rung": "blocked",
+        "tile_cases": cases,
+        "full_shape": {"S": 1, "T": t_main, "B": b_main, "Np": np_, "k": ks},
+        "max_abs_err": 0,
+    }
+    timing = {
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "shape": {"S": 1, "Np": np_, "B": b_main, "T": t_main, "drained_lanes": drained},
+    }
+    return record, timing
+
+
+def blocked_closure_vs_plain(device, pods: int, n_advertisers: int, timer) -> dict:
+    """The whole closure of a `pods`-pod fabric through the blocked rung
+    (threshold pinned to 0 for this phase only), once with K2 and once
+    with its plain version: distances and bitmap bit for bit."""
+    import torch
+
+    from openr_tpu_torch.decision.csr import CsrTopology
+    from openr_tpu_torch.decision.fleet import FleetViewCache
+    from openr_tpu_torch.device.engine import DeviceResidencyEngine
+    from openr_tpu_torch.ops import allsources as asrc
+    from openr_tpu_torch.ops import blocked_outer as bo
+
+    dbs, adv_ids = fabric_dbs(pods, n_advertisers)
+    ls = link_state_of(dbs)
+    csr = CsrTopology.from_link_state(ls)
+    engine = DeviceResidencyEngine(device)
+    engine.blocked.node_shard_threshold = 0
+    dests = [ls.node_names[i] for i in adv_ids]
+
+    def synced(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if timer.cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    view, t_kernel = synced(
+        lambda: FleetViewCache().view(ls, dests, csr=csr, engine=engine)
+    )
+    if not view.node_sharded:
+        raise AssertionError("the pinned threshold did not engage the rung")
+    out = asrc.build_out_ell(
+        csr.edge_src, csr.edge_dst, csr.n_edges, csr.n_nodes, csr.out_slot
+    )
+    (drev, bitmap, _), t_plain = synced(
+        lambda: engine.blocked.fleet_product(
+            csr, adv_ids, out, outer=bo.blocked_outer_reference
+        )
+    )
+    if not torch.equal(drev, view._dist_dev) or not torch.equal(
+        bitmap, view._bitmap_dev
+    ):
+        raise AssertionError("closure with K2 differs from the plain closure")
+    if tuple(drev.shape) != (csr.n_nodes, len(dests)) or not bool(
+        (drev < (1 << 30)).all()
+    ):
+        raise AssertionError("the fabric's closure is not finite everywhere")
+    return {
+        "phase": "blocked_closure_vs_plain",
+        "rung": "blocked",
+        "nodes": csr.n_nodes,
+        "destinations": len(dests),
+        "n_words": out.n_words,
+        "node_sharded": view.node_sharded,
+        "all_reachable": True,
+        "k2_launches": engine.counters["device.engine.kernel_launches.blocked_outer"],
+        "max_abs_err": 0,
+        "closure_with_kernel_s": t_kernel,
+        "closure_with_plain_s": t_plain,
+    }
+
+
+def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
+                      timer, outer_timing, threshold=None):
+    """The fleet route build over the `pods`-pod fabric under the default
+    policy (a rehearsal may pin `threshold`): it must take the blocked
+    rung with one K2 launch per round, and its routes must equal the host
+    Dijkstra's.  Returns (phase record, K2's kernels record)."""
+    import torch
+
+    from openr_tpu_torch.decision.fleet import FleetViewCache
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.ops import allsources as asrc
+    from openr_tpu_torch.parallel.blocked import (
+        blocked_diag,
+        blocked_extract,
+        blocked_panels,
+    )
+
+    inp = fleet_inputs(lambda: fabric_dbs(pods, n_advertisers), n_routers)
+    ls, csr = inp.ls, inp.csr
+    # the last router is a spine: the most out-slots, every bitmap word
+    inp.routers[-1] = inp.names[-1]
+    solver = SpfSolver(inp.names[0], device=device)
+    blocked = solver.engine.blocked
+    if threshold is not None:
+        blocked.node_shard_threshold = threshold
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dbs_out, t_main, launches, main_counters, view = counted_route_build(
+        solver, inp, timer
+    )
+    peak = torch.cuda.max_memory_allocated() if timer.cuda else None
+    n = csr.n_nodes
+    b = blocked.tile_for(n)
+    t = -(-n // b)
+    np_ = t * b
+    k2 = OUTER_KERNEL["name"]
+    if not view.node_sharded:
+        raise AssertionError("the blocked main path did not take the rung")
+    if (
+        launches[k2] != t
+        or main_counters[f"device.engine.kernel_launches.{k2}"] != t
+        or launches[KERNEL["name"]]
+    ):
+        raise AssertionError(
+            f"blocked main path: launches {launches}, engine "
+            f"{main_counters}, expected {t} K2 launches per closure"
+        )
+    blocked_counters = blocked.get_counters()
+    t0 = time.perf_counter()
+    checked = check_routes(inp, dbs_out, view, n_routers, n_checked)
+    t_oracle = time.perf_counter() - t0
+
+    # phase times at this path's shapes, each after one warm-up
+    def stage():
+        return blocked.dense_dist0(
+            n, np_, csr.edge_src, csr.edge_dst, csr.edge_metric,
+            csr.edge_up, csr.n_edges,
+        )
+
+    staging_ms = timer.ms(stage, reps=1)
+    d5 = stage().view(1, t, b, t, b)
+    ov = torch.zeros(np_, dtype=torch.bool, device=d5.device)
+    ov[:n] = torch.from_numpy(csr.node_overloaded[:n].astype(bool))
+    k = t // 2
+    closed = blocked_diag(d5, ov, k)
+    dest = torch.as_tensor(
+        [csr.node_id[d] for d in view.dest_names], dtype=torch.int64,
+        device=d5.device,
+    )
+    out = asrc.build_out_ell(
+        csr.edge_src, csr.edge_dst, csr.n_edges, n, csr.out_slot
+    )
+    round_ms = {
+        "diag": timer.ms(lambda: blocked_diag(d5, ov, k), reps=20),
+        "panels": timer.ms(lambda: blocked_panels(d5, closed, ov, k), reps=20),
+        "outer_kernel": outer_timing["ms"],
+    }
+    times = {
+        "host_link_state_s": inp.t_ls,
+        "host_csr_s": inp.t_csr,
+        "main_path_first_run_s": t_main,
+        "dense_staging_ms": staging_ms,
+        "round_ms": round_ms,
+        "rounds": t,
+        "rounds_x_round_ms": {key: v * t for key, v in round_ms.items()},
+        "extract_ms": timer.ms(lambda: blocked_extract(d5, dest, n), reps=5),
+        "bitmap_ms": timer.ms(
+            lambda: asrc.ecmp_bitmap_from_reverse_dist(
+                view._dist_dev, out, csr.edge_metric, csr.edge_up,
+                csr.node_overloaded, out.n_words,
+            ),
+            reps=1,
+        ),
+    }
+    del d5, closed
+    times["view_compute_ms"] = timer.ms(
+        lambda: FleetViewCache().view(
+            ls, view.dest_names, csr=csr, engine=solver.engine
+        ),
+        reps=1,
+        warmup=0,
+    )
+    times["route_builds_ms"] = timer.ms(
+        lambda: solver.fleet_route_dbs(inp.area, inp.ps, nodes=inp.routers),
+        reps=1,
+        warmup=0,
+    )
+    times["oracle_check_s"] = t_oracle
+    record = {
+        "phase": "blocked_main_path",
+        "rung": "blocked",
+        "node_sharded": view.node_sharded,
+        "nodes": n,
+        "directed_edges": csr.n_edges,
+        "tile": b,
+        "padded_nodes": np_,
+        "advertisers": n_advertisers,
+        "destinations": len(view.dest_names),
+        "n_words": int(view._bitmap_dev.shape[2]),
+        "routers": n_routers,
+        "checked_routers": checked,
+        "unicast_routes": sum(len(db.unicast_routes) for db in dbs_out.values()),
+        "mpls_routes": sum(len(db.mpls_routes) for db in dbs_out.values()),
+        "launches": launches,
+        "engine_counters": main_counters,
+        "blocked_counters": blocked_counters,
+        "times": times,
+    }
+    if peak is not None:
+        record["peak_device_bytes"] = peak
+    kernel_record = {
+        **OUTER_KERNEL,
+        "launches": launches[k2],
+        "parity": True,
+        "max_abs_err": 0,
+        "ms": outer_timing["ms"],
+        "plain_ms": outer_timing["plain_ms"],
+        "bound_ms": outer_timing["bound_ms"],
+        "bound_by": outer_timing["bound_by"],
+        "library_ms": None,
+        "library_note": NO_LIBRARY + " (a min-plus product)",
+        "shape": outer_timing["shape"],
+    }
+    return record, kernel_record
+
+
 def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
-        n_routers=N_ROUTERS, n_checked=N_CHECKED, kernel=None, emit=emit):
+        n_routers=N_ROUTERS, n_checked=N_CHECKED, kernel=None,
+        outer_kernel=None, fabric_pods=FABRIC_PODS, check_pods=CHECK_PODS,
+        node_shard_threshold=None, emit=emit):
     """Every phase on `device`, each phase record passed to `emit` as it
-    completes; returns the kernels record.  `kernel` replaces the
-    epilogue kernel (a rehearsal on the CPU passes a counting
-    stand-in)."""
+    completes; returns the kernels record.  `kernel` and `outer_kernel`
+    replace the two kernels' wrappers in the kernel-against-plain phases
+    (a rehearsal on the CPU passes counting stand-ins); a rehearsal also
+    shrinks the fabrics and pins the blocked main path's
+    `node_shard_threshold`."""
     from openr_tpu_torch.ops import _build
+    from openr_tpu_torch.ops import blocked_outer as bo
     from openr_tpu_torch.ops import epilogue as ep
 
     timer = Timer(device)
     if timer.cuda:
-        build_s = _build.build([KERNEL["name"]])
-        log = _build.library_path(KERNEL["name"]).with_suffix(".log")
+        names = [KERNEL["name"], OUTER_KERNEL["name"]]
+        build_s = _build.build(names)
         emit(
             {
                 "phase": "build",
                 "seconds": build_s,
-                "ptxas": [
-                    line.strip()
-                    for line in log.read_text().splitlines()
-                    if "registers" in line or "spill" in line
-                ],
+                "ptxas": {
+                    name: [
+                        line.strip()
+                        for line in _build.library_path(name)
+                        .with_suffix(".log")
+                        .read_text()
+                        .splitlines()
+                        if "registers" in line or "spill" in line
+                    ]
+                    for name in names
+                },
             }
         )
     for record in kernel_vs_plain_small(
@@ -456,7 +887,18 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         device, n_nodes, n_advertisers, n_routers, n_checked, timer
     )
     emit(main)
-    return {"kernels": [kernel_record]}
+    b_main, t_main = fabric_rounds(device, fabric_pods)
+    record, outer_timing = blocked_kernel_vs_plain(
+        device, outer_kernel or bo.blocked_outer, t_main, b_main, timer
+    )
+    emit(record)
+    emit(blocked_closure_vs_plain(device, check_pods, n_advertisers, timer))
+    blocked, outer_record = blocked_main_path(
+        device, fabric_pods, n_advertisers, n_routers, n_checked, timer,
+        outer_timing, threshold=node_shard_threshold,
+    )
+    emit(blocked)
+    return {"kernels": [kernel_record, outer_record]}
 
 
 def main() -> int:

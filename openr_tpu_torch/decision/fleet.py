@@ -10,6 +10,12 @@ over advertisers) and LFA-free ECMP (link me -> u is a next hop toward p
 iff metric + dist(u -> p) == dist(me -> p), Decision.cpp:1296-1300,
 with the drain exception) — all reads of the same [N, P] product.
 
+Above the engine's node threshold the view is served instead by the
+blocked APSP rung (parallel.blocked): the dense closure of the forward
+graph, its destination columns and the ECMP bitmap derived from them.
+It is also the only device path for topologies without bands, such as
+fat-trees.
+
 A view is a snapshot of one LinkState version; the cache recomputes it
 cold when the version or the destination set changes.  The warm-start
 gates and the incremental delta rung come in a later slice.
@@ -89,11 +95,16 @@ class FleetRouteView:
         self._bitmap_dev: Optional[torch.Tensor] = None  # [N, P, W] int32
         self._rows: dict[int, np.ndarray] = {}  # node id -> [P] int32
         self.converged = False
+        # True when the blocked APSP rung served this view
+        self.node_sharded = False
 
     def compute(self) -> None:
-        """One device round: the P-source reverse relax to its fixed point
-        and the fused verify + bitmap epilogue.  Raises when the product
-        does not converge."""
+        """One device round.  Above the engine's node threshold (or with
+        OPENR_NODE_SHARD=1) the blocked APSP rung serves it; a failure
+        there raises, counted in `mesh.blocked.fallbacks` — the port
+        never swaps the rung for another path.  Otherwise the P-source
+        reverse relax runs to its fixed point, then the fused verify +
+        bitmap epilogue; raises when that product does not converge."""
         dest_ids = np.asarray(
             [self._node_id[d] for d in self.dest_names], dtype=np.int32
         )
@@ -104,6 +115,18 @@ class FleetRouteView:
             self.csr.n_nodes,
             out_slot=self.csr.out_slot,
         )
+        blocked = self._engine.blocked
+        if blocked.should_engage(self.csr.n_nodes):
+            try:
+                dist, bitmap, _ = blocked.fleet_product(self.csr, dest_ids, out)
+            except Exception:
+                blocked._bump("mesh.blocked.fallbacks")
+                raise
+            self._dist_dev = dist
+            self._bitmap_dev = bitmap
+            self.converged = True
+            self.node_sharded = True
+            return
         runner = _reverse_runner(self.csr)
         self._engine.stage(runner)
         dist, bitmap, ok = self._engine.dispatch(

@@ -2,9 +2,10 @@
 
 Minimal counterpart of `openr_tpu.device.engine.DeviceResidencyEngine`:
 it holds the device the port computes on, stages a view's reversed
-runner arrays once, and counts dispatches and kernel launches.  The
-reference engine's masked incremental sync, rewire replay, S-bucket
-program cache, snapshots and chaos seams come in later slices.
+runner arrays once, owns the blocked APSP rung (`blocked`), and counts
+dispatches and kernel launches, in all and per kernel.  The reference
+engine's masked incremental sync, rewire replay, S-bucket program
+cache, snapshots and chaos seams come in later slices.
 """
 
 from __future__ import annotations
@@ -13,11 +14,16 @@ from typing import Callable, Union
 
 import torch
 
+from ..ops import blocked_outer as _outer
 from ..ops import epilogue as _epilogue
+from ..parallel.blocked import BlockedApspEngine
+
+KERNELS = ("fused_epilogue", "blocked_outer")
 
 ENGINE_COUNTER_KEYS = (
     "device.engine.dispatches",
     "device.engine.kernel_launches",
+    *(f"device.engine.kernel_launches.{name}" for name in KERNELS),
 )
 
 
@@ -37,6 +43,10 @@ class DeviceResidencyEngine:
     def __init__(self, device: Union[str, torch.device, None] = None) -> None:
         self.device = resolve_device(device)
         self.counters = {k: 0 for k in ENGINE_COUNTER_KEYS}
+        # third dispatch rung (delta < fused full < blocked); it reads
+        # this engine's device and launches phase 3 through
+        # `blocked_outer` below
+        self.blocked = BlockedApspEngine(parent=self)
 
     def stage(self, runner) -> None:
         """Pin a runner's tables and runtime arrays on this device."""
@@ -47,12 +57,28 @@ class DeviceResidencyEngine:
         self.counters["device.engine.dispatches"] += 1
         return fn(*args, **kwargs)
 
+    def _launch(self, name: str, kernel: Callable, *args):
+        """Call a kernel wrapper and count the launches it made."""
+        before = kernel.launches
+        out = kernel(*args)
+        launched = kernel.launches - before
+        self.counters["device.engine.kernel_launches"] += launched
+        self.counters[f"device.engine.kernel_launches.{name}"] += launched
+        return out
+
     def epilogue(self, d, idx, w, ov, slot, n_words: int):
         """ops.epilogue.fused_epilogue, counting the kernel launches."""
-        before = _epilogue.fused_epilogue.launches
-        out = _epilogue.fused_epilogue(d, idx, w, ov, slot, n_words)
-        self.counters["device.engine.kernel_launches"] += (
-            _epilogue.fused_epilogue.launches - before
+        return self._launch(
+            "fused_epilogue",
+            _epilogue.fused_epilogue,
+            d, idx, w, ov, slot, n_words,
         )
-        return out
+
+    def blocked_outer(self, dist, row_p, col_p, node_overloaded, k: int):
+        """ops.blocked_outer.blocked_outer, counting the kernel launches."""
+        return self._launch(
+            "blocked_outer",
+            _outer.blocked_outer,
+            dist, row_p, col_p, node_overloaded, k,
+        )
 

@@ -12,8 +12,10 @@ out-edges, so "metric(v, u) + dist(u, p) == dist(v, p)"
 The fast path runs the progressive banded relax to its fixed point and
 then the fused verify + bitmap epilogue (ops.epilogue), which reads the
 [N, P] product once for both the convergence verdict and the bitmap.
-The ELL fallback for topologies without bands, the fixed-sweep
-(`n_sweeps`) and unfused paths and warm starts come in later slices.
+`ecmp_bitmap_from_reverse_dist` derives the same bitmap from distances
+alone; the blocked APSP rung (parallel.blocked) uses it.  The ELL
+fallback for topologies without bands, the fixed-sweep (`n_sweeps`)
+and unfused paths and warm starts come in later slices.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from .banded import BandedGraph, SpfRunner, _RelaxOps, make_dist0_orig
-from .epilogue import build_epilogue_groups, fused_epilogue
+from .epilogue import _BITS, build_epilogue_groups, fused_epilogue
+from .sssp import INF32
 
 
 class OutEll(NamedTuple):
@@ -79,6 +82,60 @@ def build_out_ell(
     return OutEll(
         nbr=nbr, eid=eid, slot=slot, n_words=max(1, -(-max_slots // 32))
     )
+
+
+def ecmp_bitmap_from_reverse_dist(
+    drev: torch.Tensor,
+    out: OutEll,
+    edge_metric,
+    edge_up,
+    node_overloaded,
+    n_words: int,
+) -> torch.Tensor:
+    """[N, P, W] int32 (uint32 bit patterns): bit s of (v, p) is set iff
+    out-slot s of router v is an ECMP next hop toward destination p —
+    the LFA-free condition metric(v, u) + dist(u, p) == dist(v, p)
+    (Decision.cpp:1296-1300), evaluated fleet-wide from the reverse
+    distances `drev` [N*, P] int32 (drev[v, p] = dist(v -> p), INF32
+    unreachable; N* >= N rows).  An overloaded neighbour u is a next hop
+    only as the destination itself (d(u, p) == 0), the drain rule of the
+    relax.  Edge and node arrays are numpy or tensors.
+
+    Plain PyTorch, one out-slot k at a time and only over the routers
+    that have a k-th out-edge: each slot's bit is ORed into its word (one
+    statement for the reference's single- and multi-word paths), so no
+    [N, P, K] or per-slot [N, P, W] temporary exists (a fat-tree spine
+    has hundreds of slots, most routers a handful)."""
+    n, k_pad = out.nbr.shape
+    p = drev.shape[1]
+    device = drev.device
+
+    def tensor(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+    metric = tensor(edge_metric, torch.int32)
+    up = tensor(edge_up, torch.bool)
+    overloaded = tensor(node_overloaded, torch.bool)
+    bits = torch.from_numpy(_BITS).to(device)
+    bitmap = torch.zeros((n, p, n_words), dtype=torch.int32, device=device)
+    for k in range(k_pad):
+        rows = np.flatnonzero(out.eid[:, k] >= 0)
+        if rows.size == 0:
+            continue
+        r = torch.from_numpy(rows).to(device)
+        eid = tensor(out.eid[rows, k], torch.int64)
+        nbr = tensor(out.nbr[rows, k], torch.int64)
+        slot = tensor(out.slot[rows, k], torch.int64)
+        d_nbr = drev.index_select(0, nbr)  # [R, P]
+        on = (
+            up[eid][:, None]
+            & (d_nbr < INF32)
+            & (d_nbr + metric[eid][:, None] == drev.index_select(0, r))
+            & (~overloaded[nbr][:, None] | (d_nbr == 0))
+        )
+        bit = torch.where(slot >= 0, bits[slot.clamp(min=0) % 32], 0)
+        bitmap[r, :, slot.clamp(min=0) // 32] |= torch.where(on, bit[:, None], 0)
+    return bitmap
 
 
 class EpilogueMaps(NamedTuple):

@@ -1,7 +1,7 @@
 """Topology generators emitting AdjacencyDatabases.
 
-`ring_topology` and `grid_topology` are `openr_tpu.utils.topo`'s
-generators.  `wan_topology` emits the links and metrics of
+`ring_topology`, `grid_topology` and `fat_tree_topology` are
+`openr_tpu.utils.topo`'s generators.  `wan_topology` emits the links and metrics of
 `benchmarks/synthetic.wan` (the 100k-node small-world WAN of BASELINE
 config #3) for the same seed, with zero-padded node names so that the
 name-sorted node ids equal the generator's indices.  `hub_topology` is a
@@ -66,6 +66,38 @@ def grid_topology(
             if r + 1 < n_side:
                 m = metric_fn(r, c, "v") if metric_fn else 1
                 _bidir(edges, name(r, c), name(r + 1, c), m)
+    return _to_dbs(edges, area)
+
+
+def fat_tree_topology(
+    n_pods: int,
+    n_planes: int = 2,
+    n_fsw_per_pod: int = 2,
+    n_rsw_per_pod: int = 4,
+    n_ssw_per_plane: int | None = None,
+    area: str = "0",
+) -> list[AdjacencyDatabase]:
+    """Three-tier fabric: spine (ssw) planes — fabric (fsw) — rack (rsw)
+    (reference: createFabric, RoutingBenchmarkUtils.h:320).  fsw f of a
+    pod uplinks to every spine of plane f % n_planes; with the default
+    n_ssw_per_plane (== n_fsw_per_pod) this matches the reference's
+    square wiring, and an explicit value gives the benchmark fabrics'
+    rectangular spine planes."""
+    edges: dict[str, list[Adjacency]] = {}
+    if n_ssw_per_plane is None:
+        n_ssw_per_plane = n_fsw_per_pod
+    for plane in range(n_planes):
+        for s in range(n_ssw_per_plane):
+            edges.setdefault(f"ssw-{plane}-{s}", [])
+    for pod in range(n_pods):
+        for f in range(n_fsw_per_pod):
+            fsw = f"fsw-{pod}-{f}"
+            edges.setdefault(fsw, [])
+            plane = f % n_planes
+            for s in range(n_ssw_per_plane):
+                _bidir(edges, fsw, f"ssw-{plane}-{s}")
+            for r in range(n_rsw_per_pod):
+                _bidir(edges, fsw, f"rsw-{pod}-{r}")
     return _to_dbs(edges, area)
 
 

@@ -150,7 +150,10 @@ def test_fleet_route_dbs_match_reference_every_node(name):
     got = solver.fleet_route_dbs({"0": ls}, ps)
     assert solver.engine.counters == {
         "device.engine.dispatches": 1,
-        "device.engine.kernel_launches": 0,  # CPU tensors: plain version
+        # CPU tensors: plain versions, no kernel launched
+        "device.engine.kernel_launches": 0,
+        "device.engine.kernel_launches.fused_epilogue": 0,
+        "device.engine.kernel_launches.blocked_outer": 0,
     }
     jsolver = JSpfSolver(names[0])
     assert sorted(got) == names
