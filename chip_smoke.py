@@ -46,13 +46,33 @@ CHECK_PODS = 96
 # random tile cases of K2 (S, T, B): every B the rung and the tests use;
 # with B = 8 and 16, Np is not a multiple of the kernel's 64-wide tile
 OUTER_CASES = ((1, 13, 8), (2, 9, 16), (1, 3, 128), (2, 2, 128))
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32 rate
-# outside the tensor cores, taken as the scalar integer ALU rate
+# random-table cases of K1 (N, P, W, residual groups, bands?): node
+# counts that are no multiple of any node tile, P ragged against 4 (1001,
+# 37: the kernel's scalar path) and against the slab (1020, 36), 1, 2, 3
+# and 8 bitmap words, no groups at all, and N below the halo window (13)
+EPILOGUE_CASES = (
+    (4099, 1001, 1, 4, True),
+    (4099, 1020, 1, 4, True),
+    (4099, 37, 3, 4, True),
+    (2053, 36, 2, 4, True),
+    (777, 64, 8, 4, True),
+    (4099, 128, 1, 0, False),
+    (13, 8, 2, 2, True),
+)
+# H100 SXM (NVIDIA data sheet and architecture white paper): HBM bytes/s,
+# and 64 int32 lanes per SM per clock (the integer pipe; the float32 rate
+# of 67 TFLOP/s counts the FMA pipe's 128 lanes); the SM clock is read
+# from nvidia-smi at run time
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-# integer operations per (node, column, group) of the epilogue: add,
-# three compares, select, min, compare-and-or
-EPILOGUE_OPS = 7
+INT32_LANES_PER_SM = 64
+H100_SMS = 132
+H100_MAX_SM_MHZ = 1980
+# integer operations per (node, column, active group) of the epilogue's
+# inner loop: a three-input add (x = du + w - d), the running min of x,
+# the compare x == 0, and the predicated or of the bit.  The SASS of the built library
+# (cuobjdump -sass) shows per element and group IADD3, VIMNMX, ISETP.NE
+# and a predicated LOP3 in the unrolled W = 1 body.
+EPILOGUE_OPS = 4
 KERNEL = {
     "name": "fused_epilogue",
     "route": "cuda",
@@ -70,6 +90,27 @@ NO_LIBRARY = "no single PyTorch call computes this function"
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
+
+
+def int32_ops_per_s(cuda: bool) -> float:
+    """The card's int32 rate: SMs x 64 lanes x the maximum SM clock that
+    nvidia-smi reports (the data sheet's 1980 MHz in a CPU rehearsal)."""
+    if not cuda:
+        return H100_SMS * INT32_LANES_PER_SM * H100_MAX_SM_MHZ * 1e6
+    import torch
+
+    mhz = subprocess.run(
+        [
+            "nvidia-smi",
+            "--query-gpu=clocks.max.sm",
+            "--format=csv,noheader,nounits",
+        ],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(mhz) * 1e6
 
 
 def card_line() -> str:
@@ -125,6 +166,7 @@ def product_and_groups(csr, dest_ids, engine, epilogue):
         ops,
         torch.from_numpy(maps.resid_slot).to(engine.device),
         torch.from_numpy(maps.band_slot).to(engine.device),
+        out.n_words,
     )
     return dist, bitmap, ok, groups, out.n_words, runner, ops
 
@@ -151,12 +193,12 @@ def break_fixed_point(d, groups):
     raise AssertionError("no tight relax edge to break")
 
 
-def compare(kernel, plain, d, groups, n_words) -> dict:
-    """Kernel and plain version on the same inputs: bit-exact bitmaps and
-    equal verdicts required."""
+def compare(kernel, plain, d, groups, n_words, plan=None) -> dict:
+    """Kernel (tiled by `plan` when given) and plain version on the same
+    inputs: bit-exact bitmaps and equal verdicts required."""
     import torch
 
-    kb, kok = kernel(d, *groups, n_words)
+    kb, kok = kernel(d, *groups, n_words, **({"plan": plan} if plan else {}))
     pb, pok = plain(d, *groups, n_words)
     if d.is_cuda:
         torch.cuda.synchronize()
@@ -213,6 +255,109 @@ def kernel_vs_plain_small(device, kernel, plain) -> list[dict]:
     return records
 
 
+def random_groups(n, p, n_words, n_resid, bands, device, seed):
+    """Random epilogue tables [G, N] and a product [N, P] at their fixed
+    point, made with numpy from `seed`: band groups at offsets inside and
+    outside the halo (both wraps), `n_resid` residual groups with random
+    rows, 15% empty slots (w >= WBIG), weights 0..49, 10% overloaded
+    predecessors, 10% slot -1.  The product starts in [0, 2^20) with 10%
+    INF32 entries, 2% zeros (so overloaded rows meet d = 0) and 10% of
+    its columns INF32 throughout, and is relaxed to its fixed point with
+    the relax's own rule."""
+    import torch
+
+    from openr_tpu_torch.ops.epilogue import HALO, check_epilogue_groups
+    from openr_tpu_torch.ops.sssp import INF32, WBIG
+
+    rng = np.random.default_rng(seed)
+    v = np.arange(n)
+    offsets = sorted(
+        {c % n for c in (1, 2, HALO, HALO + 1, n // 2, n - 1, n - 2, n - HALO,
+                         n - HALO - 1)} - {0}
+    ) if bands else []
+    rows = [(v - c) % n for c in offsets]
+    rows += [rng.integers(0, n, n) for _ in range(n_resid)]
+    g = len(rows)
+    idx = np.asarray(rows, dtype=np.int64).reshape(g, n)
+    w = rng.integers(0, 50, (g, n))
+    w[rng.random((g, n)) < 0.15] = WBIG
+    w[rng.random((g, n)) < 0.02] = INF32
+    ov = (rng.random((g, n)) < 0.1).astype(np.int64)
+    slot = rng.integers(0, 32 * n_words, (g, n))
+    slot[rng.random((g, n)) < 0.1] = -1
+    d = rng.integers(0, 1 << 20, (n, p))
+    d[rng.random((n, p)) < 0.1] = INF32
+    d[rng.random((n, p)) < 0.02] = 0
+    d[:, rng.choice(p, max(1, p // 10), replace=False)] = INF32
+
+    def dev(a):
+        return torch.as_tensor(a.astype(np.int32), device=device).contiguous()
+
+    groups = tuple(dev(a) for a in (idx, w, ov, slot))
+    check_epilogue_groups(groups, n, n_words)
+    d = dev(d)
+    for _ in range(4 * n + 8):
+        vmin = d
+        for gi in range(g):
+            du = d.index_select(0, groups[0][gi])
+            wg = groups[1][gi][:, None]
+            allow = (wg < WBIG) & ((groups[2][gi] == 0)[:, None] | (du == 0))
+            vmin = torch.minimum(
+                vmin, torch.where(allow & (du < INF32), du + wg, INF32)
+            )
+        if torch.equal(vmin, d):
+            return d, groups, offsets
+        d = vmin
+    raise AssertionError(f"random product {n}x{p} did not reach its fixed point")
+
+
+def kernel_vs_plain_random(device, kernel, plain) -> list[dict]:
+    """Phase 2b: the epilogue kernel against its plain version on the
+    random tables of EPILOGUE_CASES, converged and with one entry
+    lowered, under the plan the card's L2 gives and under the main path's
+    64 x 64 and 32 x 128 (slab x tile) plans."""
+    from openr_tpu_torch.ops.epilogue import HALO, EpiloguePlan
+
+    plans = (
+        None,
+        EpiloguePlan(64, 64, HALO, (), ()),
+        EpiloguePlan(32, 128, HALO, (), ()),
+    )
+    records = []
+    for seed, (n, p, n_words, n_resid, bands) in enumerate(EPILOGUE_CASES):
+        d, groups, offsets = random_groups(n, p, n_words, n_resid, bands, device, seed)
+        err = 0
+        broken_verdicts = []
+        broken = break_fixed_point(d, groups) if groups[0].shape[0] else None
+        for plan in plans:
+            converged = compare(kernel, plain, d, groups, n_words, plan)
+            if not converged["verdict"]:
+                raise AssertionError(f"random {n}x{p}: fixed point judged broken")
+            err = max(err, converged["max_abs_err"])
+            if broken is not None:
+                out = compare(kernel, plain, broken, groups, n_words, plan)
+                if out["verdict"]:
+                    raise AssertionError(f"random {n}x{p}: broken product judged converged")
+                broken_verdicts.append(out["verdict"])
+        records.append(
+            {
+                "phase": "kernel_vs_plain",
+                "rung": "fused",
+                "graph": "random",
+                "shape": [n, p],
+                "groups": int(groups[0].shape[0]),
+                "band_offsets": offsets,
+                "n_words": n_words,
+                "inf_share": float((d >= (1 << 30)).float().mean()),
+                "plans": len(plans),
+                "max_abs_err": err,
+                "converged_verdict": True,
+                "broken_verdict": broken_verdicts[0] if broken_verdicts else None,
+            }
+        )
+    return records
+
+
 class Timer:
     """CUDA-event timing of a callable (host clock on the CPU)."""
 
@@ -240,6 +385,80 @@ class Timer:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def median_ms(self, fn, reps: int = 20) -> float:
+        """Median of `reps` calls, each between its own pair of CUDA
+        events, so the host's work in the call counts where it holds the
+        device back."""
+        import torch
+
+        fn()
+        if not self.cuda:
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times))
+        events = [
+            (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            for _ in range(reps)
+        ]
+        torch.cuda.synchronize()
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def l2_bytes(device) -> int:
+    """The card's L2 size (the H100's 50 MiB in a CPU rehearsal)."""
+    import torch
+
+    from openr_tpu_torch.ops import epilogue as ep
+
+    if torch.device(device).type != "cuda":
+        return 50 << 20
+    return ep.l2_bytes(torch.device(device).index or 0)
+
+
+def epilogue_variants(dist, groups, n_words, plan, timer) -> dict:
+    """K1 at the main path's shape, each variant the median of 20 calls:
+    as planned; with no groups at all (the stream alone: d read through
+    the windows, bitmap written); with every slot empty (each group a
+    neutral read of the node's own window row: the stream plus the group
+    work, no gathers); with every gather row moved into the halo (v - 1:
+    the same); with 256-column slabs, whose [N, 256] slab exceeds half
+    the L2; and, as a yardstick, one PyTorch copy of d (the same bytes as
+    the stream, read and written row by row)."""
+    import torch
+
+    from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.ops.sssp import WBIG
+
+    idx, w, ov, slot = groups
+    n = dist.shape[0]
+    near = torch.remainder(
+        torch.arange(n, dtype=torch.int32, device=dist.device) - 1, n
+    ).expand_as(idx).contiguous()
+    cases = {
+        "planned": (groups, plan),
+        "no_groups": (tuple(t[:0] for t in groups), plan),
+        "empty_slots": ((idx, torch.full_like(w, WBIG), ov, slot), plan),
+        "halo_only": ((near, w, ov, slot), plan),
+        "slab256": (groups, plan._replace(slab_cols=256, node_tile=16)),
+    }
+    times = {
+        name: timer.median_ms(
+            lambda g=g, pl=pl: ep.fused_epilogue(dist, *g, n_words, plan=pl)
+        )
+        for name, (g, pl) in cases.items()
+    }
+    copy = torch.empty_like(dist)
+    times["copy_of_d"] = timer.median_ms(lambda: copy.copy_(dist))
+    return times
 
 
 def expected_routes(ls, router, advertisers, prefixes, labels):
@@ -466,7 +685,7 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
         "view_compute_ms": timer.ms(view_compute, reps=1),
         "supersweeps": runner.hint,
         "supersweep_blocks_ms": timer.ms(supersweep_blocks, reps=1),
-        "epilogue_kernel_ms": timer.ms(
+        "epilogue_kernel_ms": timer.median_ms(
             lambda: ep.fused_epilogue(dist, *groups, n_words), reps=20
         ),
         "epilogue_plain_ms": timer.ms(
@@ -481,9 +700,19 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
     }
     n, p = dist.shape
     g = int(groups[0].shape[0])
+    plan = ep.epilogue_plan(
+        n, p, runner.bg.offsets, l2_bytes(dist.device), g
+    )
+    traffic = ep.epilogue_traffic(
+        groups[0].cpu().numpy(), groups[1].cpu().numpy(), p, plan
+    )
+    variants = epilogue_variants(dist, groups, n_words, plan, timer)
     bytes_moved = n * p * 4 + n * p * n_words * 4 + 16 * g * n
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * p * g * EPILOGUE_OPS / SCALAR_OPS_PER_S * 1e3
+    ops_ms = (
+        traffic["active_pairs"] * p * EPILOGUE_OPS
+        / int32_ops_per_s(timer.cuda) * 1e3
+    )
     kernel_record = {
         **KERNEL,
         "launches": launches[KERNEL["name"]],
@@ -496,6 +725,17 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
         "library_ms": None,
         "library_note": NO_LIBRARY,
         "shape": {"N": n, "P": p, "W": n_words, "G": g},
+        "slab_cols": plan.slab_cols,
+        "node_tile": plan.node_tile,
+        "halo": plan.halo,
+        "halo_groups": len(plan.halo_bands),
+        "far_band_groups": len(plan.far_bands),
+        "l2_bytes": l2_bytes(dist.device),
+        "active_pairs": traffic["active_pairs"],
+        "gather_bytes": traffic["gather_bytes"],
+        "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms,
+        "variants_ms": variants,
     }
     record = {
         "phase": "main_path",
@@ -551,12 +791,14 @@ def fabric_rounds(device, pods: int) -> tuple[int, int]:
     return b, -(-n // b)
 
 
-def outer_bound_ms(s: int, np_: int, b: int, drained: int) -> tuple[float, str]:
+def outer_bound_ms(s: int, np_: int, b: int, drained: int,
+                   ops_per_s: float) -> tuple[float, str]:
     """Least time of one K2 launch: each element of d read and written
     once plus the panels and drain flags read once, against the
-    2 * (B - drained) add-and-min operations per element."""
+    2 * (B - drained) add-and-min operations per element at the card's
+    int32 rate."""
     bytes_ms = (2 * s * np_ * np_ * 4 + 2 * s * np_ * b * 4 + b) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * (b - drained) * s * np_ * np_ / SCALAR_OPS_PER_S * 1e3
+    ops_ms = 2 * (b - drained) * s * np_ * np_ / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -617,7 +859,9 @@ def blocked_kernel_vs_plain(device, outer, t_main: int, b_main: int, timer):
     )
     drained = int(ov[k * b_main : (k + 1) * b_main].sum())
     np_ = t_main * b_main
-    bound_ms, bound_by = outer_bound_ms(1, np_, b_main, drained)
+    bound_ms, bound_by = outer_bound_ms(
+        1, np_, b_main, drained, int32_ops_per_s(timer.cuda)
+    )
     del x
     record = {
         "phase": "blocked_kernel_vs_plain",
@@ -880,6 +1124,10 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
             }
         )
     for record in kernel_vs_plain_small(
+        device, kernel or ep.fused_epilogue, ep.fused_epilogue_reference
+    ):
+        emit(record)
+    for record in kernel_vs_plain_random(
         device, kernel or ep.fused_epilogue, ep.fused_epilogue_reference
     ):
         emit(record)

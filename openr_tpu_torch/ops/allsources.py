@@ -220,6 +220,7 @@ def _fused_progressive_banded(
         ops,
         torch.from_numpy(maps.resid_slot).to(device),
         torch.from_numpy(maps.band_slot).to(device),
+        n_words,
     )
     bitmap, ok = epilogue(d, *groups, n_words)
     return d, bitmap, bool(ok), blocks

@@ -13,12 +13,16 @@ out-slot), which makes bands and residual slots the same statement.
 `fused_epilogue` launches the hand-written CUDA kernel
 (`csrc/fused_epilogue.cu`) for tensors on a CUDA device and runs the
 plain PyTorch version `fused_epilogue_reference` for tensors on the CPU.
+The kernel's tiling (column slabs sized to the L2 cache, node tiles with
+a halo of neighbouring rows in shared memory) is chosen by the plain
+function `epilogue_plan`, which the CPU tests reach.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,15 +32,29 @@ from .sssp import INF32, WBIG
 
 # the kernel keeps the bitmap words in registers, at most this many
 MAX_WORDS = 8
+# rows staged on each side of a node tile: band groups whose offset c has
+# c <= HALO or N - c <= HALO read their gather rows from shared memory
+HALO = 8
+# slab widths the kernel takes, widest first; a block covers
+# TILE_ELEMS // slab nodes of one slab
+SLAB_WIDTHS = (256, 128, 64, 32)
+TILE_ELEMS = 4096
+# the kernel's group chunk, its table entry size, and the shared memory a
+# plan aims to stay under (several blocks per SM)
+CHUNK = 2
+ENTRY_BYTES = 16
+SMEM_BUDGET = 96 * 1024
+MIN_TILE = 16
 
 _BITS = np.array([1 << i for i in range(32)], dtype=np.uint32).view(np.int32)
 
 
-def build_epilogue_groups(ops, resid_slot, band_slot):
+def build_epilogue_groups(ops, resid_slot, band_slot, n_words: int):
     """(idx, w, ov, slot), each [G, N] int32 and contiguous: one row per
     residual slot k, then one per band, from a banded `_RelaxOps`
     binding and the forward out-slot maps (ops.allsources.EpilogueMaps
-    as tensors on the same device)."""
+    as tensors on the same device).  The tables are range-checked here,
+    once per build, for `n_words` bitmap words (check_epilogue_groups)."""
     n = ops.n
     device = ops.rw.device
     ids = torch.arange(n, dtype=torch.int32, device=device)
@@ -53,10 +71,92 @@ def build_epilogue_groups(ops, resid_slot, band_slot):
         w_rows.append(w0[:, 0])
         ov_rows.append(ovb[:, 0])
         slot_rows.append(band_slot[b])
-    return tuple(
+    groups = tuple(
         torch.stack(rows).to(torch.int32).contiguous()
         for rows in (idx_rows, w_rows, ov_rows, slot_rows)
     )
+    check_epilogue_groups(groups, n, n_words)
+    return groups
+
+
+def check_epilogue_groups(groups, n: int, n_words: int) -> None:
+    """Raise ValueError unless every gather index lies in [0, n) and every
+    out-slot below 32 * n_words.  Reads three reductions back to the
+    host, so it runs where the tables are built, not per launch."""
+    idx, _, _, slot = groups
+    if not idx.numel():
+        return
+    lo, hi, top = torch.stack([idx.min(), idx.max(), slot.max()]).tolist()
+    if lo < 0 or hi >= n or top >= 32 * n_words:
+        raise ValueError(
+            f"gather index range [{lo}, {hi}] or slot {top} outside "
+            f"{n} nodes and {n_words} bitmap words"
+        )
+
+
+class EpiloguePlan(NamedTuple):
+    """The kernel's tiling: column slab width, node tile, halo rows, and
+    the band offsets it serves from the halo or gathers from L2."""
+
+    slab_cols: int
+    node_tile: int
+    halo: int
+    halo_bands: tuple
+    far_bands: tuple
+
+
+def plan_smem_bytes(node_tile: int, slab_cols: int, halo: int, n_groups: int) -> int:
+    """Shared memory of one block: two stages (the next item's copies land
+    while this one computes), each the tile's [G, tile] table entries,
+    groups padded to a chunk, and the [tile + 2 halo, slab] window of d."""
+    gpad = -(-n_groups // CHUNK) * CHUNK
+    return 2 * (gpad * node_tile * ENTRY_BYTES + (node_tile + 2 * halo) * slab_cols * 4)
+
+
+def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
+                  n_groups: int = 0) -> EpiloguePlan:
+    """The tiling of the epilogue kernel for an [n, p] product.
+
+    The slab is the widest power of two from 32 to 256 whose column slab
+    (n x slab int32) fills at most half of `l2_bytes`, and no wider than
+    p needs; 32 when none fits.  The node tile covers TILE_ELEMS elements
+    of the slab, halved (down to MIN_TILE, then the slab too) while a
+    block with `n_groups` groups would need more than SMEM_BUDGET of
+    shared memory.  A band of offset c is served from the halo when
+    c <= HALO or n - c <= HALO."""
+    need = 32
+    while need < min(p, SLAB_WIDTHS[0]):
+        need *= 2
+    slab = next(
+        (c for c in SLAB_WIDTHS if c <= need and n * c * 4 <= l2_bytes // 2),
+        SLAB_WIDTHS[-1],
+    )
+    tile = TILE_ELEMS // slab
+    while tile > MIN_TILE and plan_smem_bytes(tile, slab, HALO, n_groups) > SMEM_BUDGET:
+        tile //= 2
+    while slab > SLAB_WIDTHS[-1] and plan_smem_bytes(tile, slab, HALO, n_groups) > SMEM_BUDGET:
+        slab //= 2
+    near = tuple(c for c in band_offsets if c <= HALO or n - c <= HALO)
+    far = tuple(c for c in band_offsets if c not in near)
+    return EpiloguePlan(slab, tile, HALO, near, far)
+
+
+def epilogue_traffic(idx: np.ndarray, w: np.ndarray, p: int, plan: EpiloguePlan) -> dict:
+    """What the kernel's data needs, from host copies of the [G, N]
+    tables: the active (node, group) pairs (w < WBIG, each 4 integer
+    operations per column), and the gathers whose row falls outside the
+    block's window, which the kernel reads from global memory (L2 or
+    device memory) on top of the compulsory bytes."""
+    g, n = idx.shape
+    v = np.arange(n, dtype=np.int64)
+    v0 = v // plan.node_tile * plan.node_tile
+    r = (idx.astype(np.int64) - v0 + plan.halo) % n
+    active = w < WBIG
+    far = active & (r >= plan.node_tile + 2 * plan.halo)
+    return {
+        "active_pairs": int(active.sum()),
+        "gather_bytes": int(far.sum()) * p * 4,
+    }
 
 
 def fused_epilogue_reference(d, idx, w, ov, slot, n_words: int):
@@ -90,15 +190,32 @@ def fused_epilogue_reference(d, idx, w, ov, slot, n_words: int):
 def _library() -> ctypes.CDLL:
     lib = load("fused_epilogue")
     lib.fused_epilogue_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
     )
     lib.fused_epilogue_launch.restype = ctypes.c_int
+    lib.fused_epilogue_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_epilogue_scratch_bytes.restype = ctypes.c_longlong
+    lib.fused_epilogue_l2_bytes.argtypes = [ctypes.c_int]
+    lib.fused_epilogue_l2_bytes.restype = ctypes.c_longlong
     lib.fused_epilogue_error_string.argtypes = [ctypes.c_int]
     lib.fused_epilogue_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.cache
+def l2_bytes(device_index: int) -> int:
+    """The L2 cache size of CUDA device `device_index`, as the CUDA runtime
+    reports it."""
+    size = _library().fused_epilogue_l2_bytes(device_index)
+    if size <= 0:
+        raise RuntimeError(f"cannot read the L2 size of cuda:{device_index}")
+    return size
+
+
 def _check_args(d, tables, n_words: int) -> None:
+    """Host-side checks only (no device read): dtype, device, shape,
+    contiguity and n_words; the tables' value ranges are checked where
+    they are built (check_epilogue_groups)."""
     n, _ = d.shape
     for t in (d, *tables):
         if t.device != d.device or t.dtype != torch.int32:
@@ -116,23 +233,16 @@ def _check_args(d, tables, n_words: int) -> None:
         )
     if not 1 <= n_words <= MAX_WORDS:
         raise ValueError(f"n_words={n_words} outside 1..{MAX_WORDS}")
-    if shape[0]:
-        idx, _, _, slot = tables
-        lo, hi, top = torch.stack(
-            [idx.min(), idx.max(), slot.max()]
-        ).tolist()
-        if lo < 0 or hi >= n or top >= 32 * n_words:
-            raise ValueError(
-                f"gather index range [{lo}, {hi}] or slot {top} outside "
-                f"{n} nodes and {n_words} bitmap words"
-            )
 
 
-def fused_epilogue(d, idx, w, ov, slot, n_words: int):
+def fused_epilogue(d, idx, w, ov, slot, n_words: int, plan=None):
     """(bitmap [N, P, W] int32, converged 0-d bool tensor) of the epilogue
     over the converged product `d` [N, P] int32 and the group tables
-    [G, N] int32 (`build_epilogue_groups`).  Runs the CUDA kernel for
-    CUDA tensors and the plain version for CPU tensors."""
+    [G, N] int32 (`build_epilogue_groups`, whose range check the kernel
+    relies on).  The domain is d in [0, INF32] and weights >= 0 (every
+    product of the relax lies in it).  Runs the CUDA kernel for CUDA
+    tensors, tiled by `plan` (default: `epilogue_plan` for the card's
+    L2), with no host sync, and the plain version for CPU tensors."""
     if d.device.type == "cpu":
         return fused_epilogue_reference(d, idx, w, ov, slot, n_words)
     if d.device.type != "cuda":
@@ -141,18 +251,31 @@ def fused_epilogue(d, idx, w, ov, slot, n_words: int):
     _check_args(d, tables, n_words)
     lib = _library()
     n, p = d.shape
+    g = idx.shape[0]
+    if plan is None:
+        plan = epilogue_plan(n, p, (), l2_bytes(d.device.index), g)
     bitmap = torch.empty((n, p, n_words), dtype=torch.int32, device=d.device)
     verdict = torch.ones(1, dtype=torch.int32, device=d.device)
+    # the derived table entries of every node tile, written by the launch
+    scratch = torch.empty(
+        lib.fused_epilogue_scratch_bytes(n, g, plan.node_tile) // 4,
+        dtype=torch.int32,
+        device=d.device,
+    )
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_epilogue_launch(
             *(t.data_ptr() for t in (d, *tables)),
             n,
             p,
-            idx.shape[0],
+            g,
             n_words,
+            plan.slab_cols,
+            plan.node_tile,
+            plan.halo,
             bitmap.data_ptr(),
             verdict.data_ptr(),
+            scratch.data_ptr(),
             stream,
         )
     if rc != 0:
