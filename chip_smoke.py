@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each kernel
-against its plain PyTorch version on the card, and drives the port's two
+against its plain PyTorch version on the card, and drives the port's
 paths of the fleet route build `SpfSolver.fleet_route_dbs`, each with
 1024 prefix advertisers, its routes checked against the host Dijkstra
 and its phases timed:
@@ -13,10 +13,16 @@ and its phases timed:
   of BASELINE config #3 (`benchmarks/synthetic.wan(100_000, chords=2,
   seed=0)`), pinned to that rung by raising the engine's
   `blocked.node_shard_threshold` to its node count;
+- warm rebuilds of that WAN after four changes (a metric raised, the
+  link down, the link restored, a node drained), each bit for bit equal
+  to a cold view and launching K1 once;
+- the ELL fallback over BASELINE config #2's own 10 080-node fat-tree
+  (4 planes of 24 spines, 4 fabric and 100 rack switches per pod, 96
+  pods) under the default policy, equal bit for bit to the blocked
+  closure of the same fabric;
 - the blocked APSP rung (kernel K2, the rank-B outer update) over the
-  fat-tree of BASELINE config #2 (4 planes of 24 spines, 4 fabric and
-  100 rack switches per pod) with 315 pods, 32 856 nodes: the smallest
-  fabric of that shape that the rung takes under its default threshold.
+  same fat-tree shape with 315 pods, 32 856 nodes: the smallest fabric
+  of that shape that the rung takes under its default threshold.
 
 Each phase prints one JSON line; the line before the last is the
 `kernels` record, and the last line is {"ok": true, "device": {...}}.
@@ -39,7 +45,7 @@ N_ROUTERS = 32
 N_CHECKED = 4
 # the blocked rung's fabric: BASELINE config #2's shape with 315 pods
 # (96 + 315 * 104 = 32 856 nodes > 2^15), and its own 96-pod, 10 080-node
-# fabric for the kernel-against-plain closure
+# fabric for the kernel-against-plain closure and the ELL path
 FABRIC = dict(n_planes=4, n_fsw_per_pod=4, n_rsw_per_pod=100, n_ssw_per_plane=24)
 FABRIC_PODS = 315
 CHECK_PODS = 96
@@ -153,7 +159,8 @@ def product_and_groups(csr, dest_ids, engine, epilogue):
     maps = asrc.build_epilogue_maps(runner.bg, out)
     engine.stage(runner)
     dist, bitmap, ok = asrc.reduced_all_sources(
-        dest_ids, runner, out, maps=maps, epilogue=epilogue
+        dest_ids, runner, out, csr.edge_metric, csr.edge_up,
+        csr.node_overloaded, maps=maps, epilogue=epilogue,
     )
     ops = _RelaxOps(
         runner.bg,
@@ -562,6 +569,27 @@ def fleet_inputs(make_dbs, n_routers):
     )
 
 
+def host_tables_ms(csr) -> float:
+    """Host time of the tables a view builds before its device work: the
+    reversed runner (bands, else ELL), the out-edge table, the epilogue
+    maps (banded) and the usable-edge table of the warm-start gates."""
+    from openr_tpu_torch.decision.fleet import (
+        _reverse_runner,
+        _usable_edge_table,
+    )
+    from openr_tpu_torch.ops import allsources as asrc
+
+    t0 = time.perf_counter()
+    runner = _reverse_runner(csr)
+    out = asrc.build_out_ell(
+        csr.edge_src, csr.edge_dst, csr.n_edges, csr.n_nodes, csr.out_slot
+    )
+    if runner.bg is not None:
+        asrc.build_epilogue_maps(runner.bg, out)
+    _usable_edge_table(csr)
+    return (time.perf_counter() - t0) * 1e3
+
+
 def counted_route_build(solver, inp, timer):
     """One route build of the path, with every kernel's launch count set
     to 0 just before it and read just after: (route DBs, seconds,
@@ -592,12 +620,16 @@ def counted_route_build(solver, inp, timer):
     return dbs_out, seconds, launches, counters, view
 
 
-def check_routes(inp, dbs_out, view, n_routers, n_checked) -> list[str]:
-    """Routes and distances of a few routers, the last router among them,
-    against the host Dijkstra."""
+def checked_routers(inp, n_routers, n_checked) -> list[str]:
+    """`n_checked` of the route build's routers, the last one among them."""
     step = max(1, n_routers // n_checked)
+    return inp.routers[::step][: n_checked - 1] + inp.routers[-1:]
+
+
+def check_routes(inp, dbs_out, view, routers) -> list[str]:
+    """Routes and distances of `routers` against the host Dijkstra."""
     checked = []
-    for router in inp.routers[::step][: n_checked - 1] + inp.routers[-1:]:
+    for router in routers:
         want_u, want_m, want_d = expected_routes(
             inp.ls, router, inp.advertisers, inp.prefixes, inp.labels
         )
@@ -654,7 +686,9 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
 
     # routes of a few routers against the host Dijkstra
     t0 = time.perf_counter()
-    checked = check_routes(inp, dbs_out, view, n_routers, n_checked)
+    checked = check_routes(
+        inp, dbs_out, view, checked_routers(inp, n_routers, n_checked)
+    )
     t_oracle = time.perf_counter() - t0
 
     # the kernel against the plain epilogue on the main path's product
@@ -683,6 +717,7 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
         "host_csr_s": inp.t_csr,
         "main_path_first_run_s": t_main,
         "view_compute_ms": timer.ms(view_compute, reps=1),
+        "host_tables_ms": host_tables_ms(csr),
         "supersweeps": runner.hint,
         "supersweep_blocks_ms": timer.ms(supersweep_blocks, reps=1),
         "epilogue_kernel_ms": timer.median_ms(
@@ -758,7 +793,152 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
     }
     if timer.cuda:
         record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    return record, kernel_record
+    return record, kernel_record, (inp, solver, checked)
+
+
+def warm_rebuild(inp, solver, checked, timer) -> dict:
+    """The main path's LinkState after four changes in turn, each applied
+    through `update_adjacency_database`: (a) one link's metric raised,
+    (b) the same link down, (c) the link restored at its first metric,
+    (d) one transit node drained.  After each, the view is rebuilt
+    through the solver's warm-capable cache and cold through a fresh
+    FleetViewCache: distances and bitmaps bit for bit, K1 launched once
+    per view (its count set to 0 just before each view), (c) warm-started
+    as an improvement, and the routes of `checked` against the host
+    Dijkstra.  A worsening change whose affected set is not certified
+    cold-starts by design; its record says so (`cold_fallback`)."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.decision.csr import CsrTopology
+    from openr_tpu_torch.decision.fleet import (
+        AFFECTED_MAX_ITERS,
+        FleetViewCache,
+        _worsened_masks,
+        fleet_destinations,
+    )
+    from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.ops.banded import affected_mask
+
+    ls = inp.ls
+    dests = fleet_destinations(ls, inp.ps)
+    n = len(inp.names)
+    x, y = inp.names[n // 3], inp.names[2 * n // 3]
+    db_x = ls.get_adjacency_databases()[x]
+    db_y = ls.get_adjacency_databases()[y]
+    first = db_x.adjacencies[0]
+    raised = dataclasses.replace(first, metric=4 * first.metric + 10)
+    changes = (
+        ("metric_raised", dataclasses.replace(
+            db_x, adjacencies=[raised, *db_x.adjacencies[1:]])),
+        ("link_down", dataclasses.replace(
+            db_x, adjacencies=list(db_x.adjacencies[1:]))),
+        ("link_restored", db_x),
+        ("node_drained", dataclasses.replace(db_y, is_overloaded=True)),
+    )
+
+    def counted(fn):
+        ep.fused_epilogue.launches = 0
+        t0 = time.perf_counter()
+        view = fn()
+        if timer.cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return view, ms, ep.fused_epilogue.launches
+
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    records = []
+    for name, db in changes:
+        prev = solver.fleet._views[ls]
+        passes0 = solver.engine.counters["device.engine.affected_passes"]
+        ls.update_adjacency_database(db)
+        t0 = time.perf_counter()
+        csr = CsrTopology.from_link_state(ls)
+        t_csr = time.perf_counter() - t0
+        warm, warm_ms, k1_warm = counted(
+            lambda: solver.fleet.view(ls, dests, csr=csr, engine=solver.engine)
+        )
+        cold, cold_ms, k1_cold = counted(
+            lambda: FleetViewCache().view(
+                ls, dests, csr=csr, engine=solver.engine
+            )
+        )
+        if k1_warm != 1 or k1_cold != 1 or warm.node_sharded:
+            raise AssertionError(
+                f"{name}: K1 launched {k1_warm} / {k1_cold} times"
+            )
+        if not torch.equal(warm._dist_dev, cold._dist_dev) or not torch.equal(
+            warm._bitmap_dev, cold._bitmap_dev
+        ):
+            raise AssertionError(f"{name}: warm view differs from cold view")
+        improve = warm.warm_mode == "improve"
+        if cold.warm or (name == "link_restored" and not improve):
+            raise AssertionError(
+                f"{name}: warm_mode {warm.warm_mode}, cold warm {cold.warm}"
+            )
+        t0 = time.perf_counter()
+        dbs_out = solver.fleet_route_dbs(inp.area, inp.ps, nodes=checked)
+        routes_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check_routes(inp, dbs_out, warm, checked)
+        oracle_s = time.perf_counter() - t0
+        record = {
+            "change": name,
+            "warm": warm.warm,
+            "warm_mode": warm.warm_mode,
+            "cold_fallback": warm.cold_fallback,
+            "directed_edges": warm.csr.n_edges,
+            "k1_launches": {"warm": k1_warm, "cold": k1_cold},
+            "supersweeps": {
+                "warm": warm._runner.sweeps, "cold": cold._runner.sweeps
+            },
+            "bit_equal": True,
+            "host_csr_s": t_csr,
+            "warm_view_ms": warm_ms,
+            "cold_view_ms": cold_ms,
+            "route_build_checked_s": routes_s,
+            "oracle_check_s": oracle_s,
+        }
+        if warm.affected_passes is not None:
+            wr, wb = (
+                torch.from_numpy(m).to(warm._dist_dev.device)
+                for m in _worsened_masks(
+                    prev, warm._edge_keys, warm._edge_met, warm._overloaded
+                )
+            )
+            record["affected"] = {
+                "passes": warm.affected_passes,
+                "engine_passes": (
+                    solver.engine.counters["device.engine.affected_passes"]
+                    - passes0
+                ),
+                "share": warm.affected_share,
+                "worsened_slots": int(wr.sum()) + int(wb.sum()),
+                "ms": timer.ms(
+                    lambda: affected_mask(
+                        prev._dist_dev, prev._runner.bg,
+                        prev._runner.call_arrays(), wr, wb, AFFECTED_MAX_ITERS,
+                    ),
+                    reps=1,
+                    warmup=0,
+                ),
+            }
+        records.append(record)
+        del prev, cold, csr
+    result = {
+        "phase": "warm_rebuild",
+        "rung": "fused",
+        "nodes": n,
+        "link": [x, first.other_node_name],
+        "drained": y,
+        "checked_routers": checked,
+        "changes": records,
+    }
+    if timer.cuda:
+        result["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return result
 
 
 def fabric_dbs(pods: int, n_advertisers: int):
@@ -927,7 +1107,7 @@ def blocked_closure_vs_plain(device, pods: int, n_advertisers: int, timer) -> di
         (drev < (1 << 30)).all()
     ):
         raise AssertionError("the fabric's closure is not finite everywhere")
-    return {
+    return view.dest_names, view._dist_dev, view._bitmap_dev, {
         "phase": "blocked_closure_vs_plain",
         "rung": "blocked",
         "nodes": csr.n_nodes,
@@ -940,6 +1120,127 @@ def blocked_closure_vs_plain(device, pods: int, n_advertisers: int, timer) -> di
         "closure_with_kernel_s": t_kernel,
         "closure_with_plain_s": t_plain,
     }
+
+
+def ell_main_path(device, pods, n_advertisers, n_routers, n_checked, timer,
+                  closure):
+    """The fleet route build over the `pods`-pod fabric under the default
+    policy: below the blocked threshold a fat-tree has no bands, so the
+    view must take the ELL fallback (no K1, no K2 launch).  Its routes
+    must equal the host Dijkstra's, and its distances and bitmap the
+    blocked closure's product of the same fabric (`closure`: dest names,
+    dist, bitmap from `blocked_closure_vs_plain`), bit for bit."""
+    import torch
+
+    from openr_tpu_torch.decision.fleet import FleetViewCache
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.ops import allsources as asrc
+
+    inp = fleet_inputs(lambda: fabric_dbs(pods, n_advertisers), n_routers)
+    ls, csr = inp.ls, inp.csr
+    # the last router is a spine: the most out-slots, every bitmap word
+    inp.routers[-1] = inp.names[-1]
+    solver = SpfSolver(inp.names[0], device=device)
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dbs_out, t_main, launches, main_counters, view = counted_route_build(
+        solver, inp, timer
+    )
+    peak = torch.cuda.max_memory_allocated() if timer.cuda else None
+    runner = view._runner
+    if view.node_sharded or runner is None or runner.bg is not None:
+        raise AssertionError("the fabric's view did not take the ELL path")
+    attempts = runner.runs
+    if (
+        main_counters["device.engine.ell_sweeps"] < 1
+        or main_counters["device.engine.kernel_launches"]
+        or any(launches.values())
+    ):
+        raise AssertionError(
+            f"ELL path: launches {launches}, engine {main_counters}"
+        )
+    t0 = time.perf_counter()
+    checked = check_routes(
+        inp, dbs_out, view, checked_routers(inp, n_routers, n_checked)
+    )
+    t_oracle = time.perf_counter() - t0
+    dests, drev, bitmap = closure
+    n = csr.n_nodes
+    if dests != view.dest_names or not (
+        torch.equal(view._dist_dev[:n], drev)
+        and torch.equal(view._bitmap_dev, bitmap)
+    ):
+        raise AssertionError("ELL product differs from the blocked closure's")
+    if bool((view._dist_dev[n:] != (1 << 30)).any()):
+        raise AssertionError("a padding row of the ELL product is finite")
+
+    dest = torch.as_tensor(
+        [csr.node_id[d] for d in view.dest_names], dtype=torch.int32,
+        device=view._dist_dev.device,
+    )
+    out = asrc.build_out_ell(
+        csr.edge_src, csr.edge_dst, csr.n_edges, n, csr.out_slot
+    )
+    hint = runner.hint
+    relax_ms = timer.ms(lambda: runner.run_once(dest, hint), reps=3)
+    times = {
+        "host_link_state_s": inp.t_ls,
+        "host_csr_s": inp.t_csr,
+        "main_path_first_run_s": t_main,
+        "view_compute_ms": timer.ms(
+            lambda: FleetViewCache().view(
+                ls, view.dest_names, csr=csr, engine=solver.engine
+            ),
+            reps=1,
+        ),
+        "host_tables_ms": host_tables_ms(csr),
+        "ell_relax_ms": relax_ms,
+        "ell_sweep_ms": relax_ms / (max(hint, 2) + 1),
+        # least time of one sweep: the [N_cap, P] int32 product read once
+        # and written once at the card's memory rate
+        "ell_sweep_bound_ms": (
+            2 * view._dist_dev.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        ),
+        "bitmap_ms": timer.ms(
+            lambda: asrc.ecmp_bitmap_from_reverse_dist(
+                view._dist_dev, out, csr.edge_metric, csr.edge_up,
+                csr.node_overloaded, out.n_words,
+            ),
+            reps=1,
+        ),
+        "route_builds_ms": timer.ms(
+            lambda: solver.fleet_route_dbs(inp.area, inp.ps, nodes=inp.routers),
+            reps=1,
+            warmup=0,
+        ),
+        "oracle_check_s": t_oracle,
+    }
+    record = {
+        "phase": "ell_main_path",
+        "rung": "ell",
+        "node_sharded": view.node_sharded,
+        "nodes": n,
+        "node_capacity": csr.node_capacity,
+        "directed_edges": csr.n_edges,
+        "ell_buckets": [list(bk.nbr.shape) for bk in runner.ell.buckets],
+        "advertisers": n_advertisers,
+        "destinations": len(view.dest_names),
+        "dist_shape": list(view._dist_dev.shape),
+        "n_words": int(view._bitmap_dev.shape[2]),
+        "routers": n_routers,
+        "checked_routers": checked,
+        "equal_to_blocked_closure": True,
+        "unicast_routes": sum(len(db.unicast_routes) for db in dbs_out.values()),
+        "mpls_routes": sum(len(db.mpls_routes) for db in dbs_out.values()),
+        "launches": launches,
+        "engine_counters": main_counters,
+        "ell_attempts": attempts,
+        "sweep_hint": view.sweep_hint,
+        "times": times,
+    }
+    if peak is not None:
+        record["peak_device_bytes"] = peak
+    return record
 
 
 def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
@@ -991,7 +1292,9 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
         )
     blocked_counters = blocked.get_counters()
     t0 = time.perf_counter()
-    checked = check_routes(inp, dbs_out, view, n_routers, n_checked)
+    checked = check_routes(
+        inp, dbs_out, view, checked_routers(inp, n_routers, n_checked)
+    )
     t_oracle = time.perf_counter() - t0
 
     # phase times at this path's shapes, each after one warm-up
@@ -1131,16 +1434,28 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         device, kernel or ep.fused_epilogue, ep.fused_epilogue_reference
     ):
         emit(record)
-    main, kernel_record = main_path(
+    main, kernel_record, (inp, solver, checked) = main_path(
         device, n_nodes, n_advertisers, n_routers, n_checked, timer
     )
     emit(main)
+    emit(warm_rebuild(inp, solver, checked, timer))
+    del inp, solver
     b_main, t_main = fabric_rounds(device, fabric_pods)
     record, outer_timing = blocked_kernel_vs_plain(
         device, outer_kernel or bo.blocked_outer, t_main, b_main, timer
     )
     emit(record)
-    emit(blocked_closure_vs_plain(device, check_pods, n_advertisers, timer))
+    *closure, record = blocked_closure_vs_plain(
+        device, check_pods, n_advertisers, timer
+    )
+    emit(record)
+    emit(
+        ell_main_path(
+            device, check_pods, n_advertisers, n_routers, n_checked, timer,
+            closure,
+        )
+    )
+    del closure
     blocked, outer_record = blocked_main_path(
         device, fabric_pods, n_advertisers, n_routers, n_checked, timer,
         outer_timing, threshold=node_shard_threshold,

@@ -532,15 +532,30 @@ class SpfSolver:
         area_link_states: dict[str, LinkState],
         prefix_state: PrefixState,
     ) -> dict[str, FleetRouteView]:
-        """Per-area fleet views on this solver's device."""
+        """Per-area fleet views on this solver's device.  A view computed
+        here (not served from the cache) bumps `decision.fleet_rebuild_warm`
+        or `_cold`, `_warm_down` for a worsening warm start, and
+        `decision.fleet_warm_fallbacks` when a warm gate's designed
+        verdict sent it cold (FleetRouteView.cold_fallback)."""
         views: dict[str, FleetRouteView] = {}
         for area, ls in area_link_states.items():
             dests = fleet_destinations(ls, prefix_state)
             if not dests:
                 continue
-            if not self.fleet.is_warm(ls, dests):
-                self._bump("decision.fleet_rebuild_cold")
-            views[area] = self.fleet.view(ls, dests, engine=self.engine)
+            cached = self.fleet.is_warm(ls, dests)
+            view = self.fleet.view(ls, dests, engine=self.engine)
+            views[area] = view
+            if cached:
+                continue
+            self._bump(
+                "decision.fleet_rebuild_warm"
+                if view.warm
+                else "decision.fleet_rebuild_cold"
+            )
+            if view.warm_mode == "worsen":
+                self._bump("decision.fleet_rebuild_warm_down")
+            if view.cold_fallback:
+                self._bump("decision.fleet_warm_fallbacks")
         return views
 
     def any_node_route_db(

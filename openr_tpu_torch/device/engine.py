@@ -3,7 +3,8 @@
 Minimal counterpart of `openr_tpu.device.engine.DeviceResidencyEngine`:
 it holds the device the port computes on, stages a view's reversed
 runner arrays once, owns the blocked APSP rung (`blocked`), and counts
-dispatches and kernel launches, in all and per kernel.  The reference
+dispatches and kernel launches, in all and per kernel, and the ELL
+relax sweeps and affected-set passes the fleet view runs.  The reference
 engine's masked incremental sync, rewire replay, S-bucket program
 cache, snapshots and chaos seams come in later slices.
 """
@@ -24,6 +25,11 @@ ENGINE_COUNTER_KEYS = (
     "device.engine.dispatches",
     "device.engine.kernel_launches",
     *(f"device.engine.kernel_launches.{name}" for name in KERNELS),
+    # plain-PyTorch device work that shows which path a view took: ELL
+    # relax sweeps (verification sweeps and hint probes included) and
+    # affected-set passes of worsening warm starts
+    "device.engine.ell_sweeps",
+    "device.engine.affected_passes",
 )
 
 

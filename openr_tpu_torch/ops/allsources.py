@@ -9,13 +9,16 @@ distances: the reverse in-edges of router v are exactly v's forward
 out-edges, so "metric(v, u) + dist(u, p) == dist(v, p)"
 (Decision.cpp:1296-1300) is "this reverse relax candidate is tight".
 
-The fast path runs the progressive banded relax to its fixed point and
-then the fused verify + bitmap epilogue (ops.epilogue), which reads the
-[N, P] product once for both the convergence verdict and the bitmap.
-`ecmp_bitmap_from_reverse_dist` derives the same bitmap from distances
-alone; the blocked APSP rung (parallel.blocked) uses it.  The ELL
-fallback for topologies without bands, the fixed-sweep (`n_sweeps`)
-and unfused paths and warm starts come in later slices.
+On banded topologies the product runs the progressive banded relax to
+its fixed point, optionally warm-started from a proven upper bound
+(`init_dist`), and then the fused verify + bitmap epilogue
+(ops.epilogue), which reads the [N, P] product once for both the
+convergence verdict and the bitmap.  Topologies without bands take the
+ELL fallback: the fixed-sweep ELL relax at the runner's adaptive hint,
+then `ecmp_bitmap_from_reverse_dist`, which derives the same bitmap from
+distances alone (the blocked APSP rung, parallel.blocked, uses it too).
+The reference's explicit fixed-sweep (`n_sweeps`) and unfused bench
+paths are not ported.
 """
 
 from __future__ import annotations
@@ -182,6 +185,7 @@ def _fused_progressive_banded(
     dest_ids: torch.Tensor,
     runner: SpfRunner,
     maps: EpilogueMaps,
+    init_dist: Optional[torch.Tensor],
     n_words: int,
     check_every: int,
     max_blocks: int,
@@ -189,7 +193,8 @@ def _fused_progressive_banded(
 ):
     """Relax to the fixed point, then the fused verify + bitmap epilogue.
     Returns (dist [N, P] int32, bitmap [N, P, W] int32, converged host
-    bool, blocks run).
+    bool, blocks run).  `init_dist` [N*, P] warm-starts the relax: d0 is
+    its elementwise min with the cold dist0 (sources re-pinned to 0).
 
     The relax runs blocks of `check_every` supersweeps with one host read
     per block (the block's last supersweep left d unchanged), at most
@@ -206,6 +211,8 @@ def _fused_progressive_banded(
         runner.chord_mode,
     )
     d = make_dist0_orig(dest_ids, bg.n_nodes)
+    if init_dist is not None:
+        d = torch.minimum(d, init_dist[: bg.n_nodes])
     blocks = 0
     converged = False
     while not converged and blocks < max_blocks:
@@ -230,42 +237,72 @@ def reduced_all_sources(
     dest_ids,
     reverse_runner: SpfRunner,
     out: OutEll,
+    edge_metric,
+    edge_up,
+    node_overloaded,
+    init_dist: Optional[torch.Tensor] = None,
     maps: Optional[EpilogueMaps] = None,
     check_every: int = 4,
     max_blocks: int = 64,
     epilogue: Optional[Callable] = None,
 ):
-    """Fleet-wide route-building input: (dist [N, P] int32 tensor —
+    """Fleet-wide route-building input: (dist [N*, P] int32 tensor —
     dist[v, p] = dist(v -> dest p), INF32 unreachable; nh_bitmap
     [N, P, W] int32 tensor of uint32 bit patterns; converged host bool),
-    on the device the reverse runner is staged on.
+    on the device the reverse runner is staged on.  N* is N on the
+    banded path and N_cap (the node capacity, original ids) on the ELL
+    path; rows past N are padding.
 
     `reverse_runner` is an ops.banded.SpfRunner over the REVERSED edges,
-    staged.  `maps` (build_epilogue_maps) is built here when not
-    supplied.  `epilogue` defaults to ops.epilogue.fused_epilogue; the
-    engine passes its counting front-end.  A converged run teaches the
-    runner's fixed-sweep hint: blocks * check_every supersweeps are a
-    proven-sufficient budget for this (topology, dest-set) shape."""
-    if reverse_runner.bg is None:
-        raise NotImplementedError(
-            "topology has no banded decomposition: the ELL fallback of the "
-            "fleet product comes in a later slice of the port"
-        )
-    if maps is None:
-        maps = build_epilogue_maps(reverse_runner.bg, out)
+    staged.  `edge_metric`, `edge_up` and `node_overloaded` are the
+    FORWARD graph's runtime arrays (numpy), which the ELL path's bitmap
+    reads.
+
+    Banded: the progressive relax and the fused epilogue.  `maps`
+    (build_epilogue_maps) is built here when not supplied; `epilogue`
+    defaults to ops.epilogue.fused_epilogue (the engine passes its
+    counting front-end).  `init_dist` warm-starts the relax from a
+    caller-proven elementwise upper bound (decision.fleet's gates); a
+    converged warm round equals the cold one.  Only a converged COLD run
+    teaches the runner's fixed-sweep hint: blocks * check_every
+    supersweeps (warm runs converge in delta-sized counts).
+
+    Without bands: the fixed-sweep ELL relax through
+    `SpfRunner.adapt` (run at the hint, double on a False verdict,
+    refine down), then the bitmap from the converged distances, so a
+    failed attempt never pays a bitmap pass.  It always cold-starts:
+    `init_dist` is refused there."""
     st = reverse_runner.call_arrays()
     dest = torch.as_tensor(
         np.asarray(dest_ids, dtype=np.int32), device=st.edge_metric.device
     )
+    if reverse_runner.bg is None:
+        if init_dist is not None:
+            raise ValueError("the ELL fallback does not warm-start")
+
+        def attempt(sweeps: int):
+            return reverse_runner.run_once(dest, sweeps)
+
+        dist = reverse_runner.adapt(
+            "hint", attempt, probe=lambda sweeps: attempt(sweeps)[1]
+        )
+        bitmap = ecmp_bitmap_from_reverse_dist(
+            dist, out, edge_metric, edge_up, node_overloaded, out.n_words
+        )
+        return dist, bitmap, True
+    if maps is None:
+        maps = build_epilogue_maps(reverse_runner.bg, out)
     dist, bitmap, ok, blocks = _fused_progressive_banded(
         dest,
         reverse_runner,
         maps,
+        init_dist,
         out.n_words,
         check_every,
         max_blocks,
         epilogue if epilogue is not None else fused_epilogue,
     )
-    if ok:
+    reverse_runner.sweeps += blocks * check_every
+    if ok and init_dist is None:
         reverse_runner.hint = max(1, blocks * check_every)
     return dist, bitmap, ok

@@ -14,18 +14,23 @@ Composed band levels skip that source exception; the exact depth-0
 stages apply it, so the fixed point is exactly the reference's.
 
 Distances are int32 with INF32 unreachable and weights clamped to WBIG,
-so no sum wraps (ops.sssp).  The per-row edge exclusions of the masked
-what-if variants and the uint16 distance mode come in later slices.
+so no sum wraps (ops.sssp).  `SpfRunner` carries both decompositions of
+a reversed graph: the bands when `build_banded` finds them, else the
+bucketed ELL of ops.sssp, which it runs at a learned fixed-sweep hint
+(`adapt`, `run_once`).  `affected_mask` is the worsening-direction
+warm-start support of the fleet view.  The per-row edge exclusions of
+the masked what-if variants and the uint16 distance mode come in later
+slices.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .sssp import INF32, WBIG
+from .sssp import INF32, WBIG, EllGraph, spf_forward_ell_sweeps
 
 
 class BandedGraph:
@@ -173,14 +178,16 @@ def make_dist0_orig(dest_ids: torch.Tensor, n_nodes: int) -> torch.Tensor:
 
 
 class StagedArrays(NamedTuple):
-    """A runner's tables and runtime arrays as tensors on one device."""
+    """A runner's tables and runtime arrays as tensors on one device: the
+    banded tables when the runner has bands, else the ELL buckets."""
 
-    band_eid: torch.Tensor  # [B, N] int32
-    resid_nbr: torch.Tensor  # [N, K] int32
-    resid_eid: torch.Tensor  # [N, K] int32
+    band_eid: Optional[torch.Tensor]  # [B, N] int32
+    resid_nbr: Optional[torch.Tensor]  # [N, K] int32
+    resid_eid: Optional[torch.Tensor]  # [N, K] int32
     edge_metric: torch.Tensor  # [E_cap] int32
     edge_up: torch.Tensor  # [E_cap] bool
     node_overloaded: torch.Tensor  # [N_cap] bool
+    ell: Optional[EllGraph] = None  # tensors; None on a banded runner
 
 
 def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -307,14 +314,76 @@ class _RelaxOps:
         return v
 
 
+def affected_mask(
+    dist: torch.Tensor,
+    bg: BandedGraph,
+    st: StagedArrays,
+    worsened_resid: torch.Tensor,
+    worsened_band: torch.Tensor,
+    max_iters: int = 128,
+):
+    """Worsening-direction warm-start support (reference: ops/banded.py
+    affected_mask): the entries of the OLD fixed point `dist` [N*, S]
+    that a set of worsened edges (removed, metric-increased, or transit
+    through a newly drained node) can have invalidated.  `bg` and `st`
+    are the OLD graph's decomposition and staged arrays;
+    `worsened_resid` [N, K] and `worsened_band` [B, N] (bool) mark the
+    worsened residual slots and band positions.
+
+    aff[v, s] is set iff some old tight chain into v (a chain of relax
+    candidates achieving equality) crosses a worsened edge, propagated
+    by OR along tight edges, slot by slot and band by band within a
+    pass, until a full pass changes nothing.  Returns (aff [N, S] bool,
+    done host bool, passes run): done False means `max_iters` passes
+    ran out before the fixpoint, and the caller must cold-start.
+
+    The tight masks depend only on `dist`, so they are computed once
+    (one [N, S] bool per slot and band) and each pass is gathers and ORs
+    of bool matrices."""
+    n = bg.n_nodes
+    ops = _RelaxOps(bg, st, 0, 1, False)
+    d = dist[:n]
+    fin = d < INF32
+    resid = [
+        (
+            fin & (ops.resid_cand(d, k) == d),
+            st.resid_nbr[:, k],
+            worsened_resid[:, k][:, None],
+        )
+        for k in range(ops.n_resid)
+    ]
+    bands = [
+        (fin & (ops.band0_cand(d, b) == d), c, worsened_band[b][:, None])
+        for b, c in enumerate(bg.offsets)
+    ]
+    aff = torch.zeros(d.shape, dtype=torch.bool, device=d.device)
+    passes = 0
+    done = False
+    while not done and passes < max_iters:
+        new = aff
+        for tight, nbr, seed in resid:
+            new = new | (tight & (seed | new.index_select(0, nbr)))
+        for tight, c, seed in bands:
+            new = new | (tight & (seed | torch.roll(new, c, 0)))
+        done = torch.equal(new, aff)
+        aff = new
+        passes += 1
+    return aff, done, passes
+
+
 class SpfRunner:
-    """The banded relax's per-topology settings over one mirrored edge
-    set: composed-shift depth, chord mode, and the fixed-sweep hint the
-    progressive fleet product teaches.  `stage` pins its tables and
-    runtime arrays on a device."""
+    """The relax settings of one mirrored (reversed) edge set.  With bands
+    (`bg`): composed-shift depth, chord mode, and the fixed-sweep hint
+    the progressive fleet product teaches.  Without (`bg` None): the
+    bucketed ELL (`ell`, ops.sssp), run at the learned hint through
+    `adapt`/`run_once`.  `stage` pins its tables and runtime arrays on a
+    device.  `sweeps` counts the relax sweeps run on either path (ELL
+    sweeps, verification sweeps included, or banded supersweeps) and
+    `runs` the fixed-sweep ELL calls (attempts and probes)."""
 
     def __init__(
         self,
+        ell: Optional[EllGraph],
         bg: Optional[BandedGraph],
         edge_src,
         edge_dst,
@@ -326,6 +395,7 @@ class SpfRunner:
         depth: Optional[int] = None,
         resid_rounds: int = 1,
     ) -> None:
+        self.ell = ell
         self.bg = bg
         self.arrays = (edge_src, edge_dst, edge_metric, edge_up, node_overloaded)
         self.n_edges = n_edges
@@ -361,33 +431,90 @@ class SpfRunner:
         self.depth = depth
         self.resid_rounds = resid_rounds
         self.hint = hint
+        self.sweeps = 0
+        self.runs = 0
         self._staged: Optional[StagedArrays] = None
 
     def stage(self, device: torch.device) -> int:
-        """Pin the banded tables and runtime arrays on `device`; returns
-        the bytes staged."""
-        if self.bg is None:
-            raise NotImplementedError(
-                "no banded decomposition: the ELL relax comes in a later "
-                "slice of the port"
-            )
+        """Pin the tables (bands, else ELL buckets) and runtime arrays on
+        `device`; returns the bytes staged."""
         _, _, metric, up, overloaded = self.arrays
-        self._staged = StagedArrays(
-            *(
-                torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in (
-                    self.bg.band_eid,
-                    self.bg.resid_nbr,
-                    self.bg.resid_eid,
-                    metric,
-                    up,
-                    overloaded,
-                )
-            )
-        )
-        return sum(t.numel() * t.element_size() for t in self._staged)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        runtime = [put(a) for a in (metric, up, overloaded)]
+        if self.bg is None:
+            ell = self.ell.to(device)
+            self._staged = StagedArrays(None, None, None, *runtime, ell=ell)
+            tensors = [t for bk in ell.buckets for t in bk]
+            tensors += [ell.new_of_old, ell.old_of_new]
+        else:
+            bg = self.bg
+            tables = [
+                put(a) for a in (bg.band_eid, bg.resid_nbr, bg.resid_eid)
+            ]
+            self._staged = StagedArrays(*tables, *runtime)
+            tensors = tables
+        tensors += runtime
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def call_arrays(self) -> StagedArrays:
         if self._staged is None:
             raise RuntimeError("SpfRunner.stage(device) has not run")
         return self._staged
+
+    def adapt(self, hint_attr: str, attempt: Callable, probe: Callable):
+        """The fixed-sweep adaptation loop (reference: SpfRunner.adapt):
+        run `attempt(sweeps)` at the learned hint, double the hint on a
+        False verdict, and once a doubled run converges refine the hint
+        back down with at most 3 binary `probe(mid)` steps.  Returns the
+        converged attempt's result.
+
+        attempt(sweeps) -> (result, ok); probe(sweeps) -> ok.  The port
+        has no uint16 distance mode, so the reference's `eff_small`
+        branch (latching uint16 off after a failed run at >= 32 sweeps)
+        never applies: every failed verdict doubles."""
+        doubled_from: Optional[int] = None
+        while True:
+            sweeps = getattr(self, hint_attr)
+            result, ok = attempt(sweeps)
+            if ok:
+                if doubled_from is not None:
+                    lo, hi = doubled_from, sweeps
+                    probes = 0
+                    while hi - lo > 1 and probes < 3:
+                        probes += 1
+                        mid = (lo + hi) // 2
+                        if probe(mid):
+                            hi = mid
+                        else:
+                            lo = mid
+                    setattr(self, hint_attr, hi)
+                return result
+            doubled_from = sweeps
+            setattr(self, hint_attr, sweeps * 2)
+
+    def run_once(self, sources: torch.Tensor, n_sweeps: int):
+        """One fixed-sweep ELL relax from `sources` [S] (original ids):
+        (dist [N_cap, S] int32 in original ids, converged host bool), at
+        least 2 sweeps as in the reference.  Banded runners serve the
+        fleet product through the progressive relax
+        (ops.allsources), not through fixed sweeps."""
+        if self.bg is not None:
+            raise NotImplementedError(
+                "the fixed-sweep banded relax (spf_forward_banded) is not "
+                "ported; banded runners run the progressive relax"
+            )
+        st = self.call_arrays()
+        n_sweeps = max(n_sweeps, 2)
+        self.sweeps += n_sweeps + 1
+        self.runs += 1
+        return spf_forward_ell_sweeps(
+            sources,
+            st.ell,
+            st.edge_metric,
+            st.edge_up,
+            st.node_overloaded,
+            n_sweeps,
+        )

@@ -270,7 +270,8 @@ def test_kernel_matches_reference_on_card():
     maps = asrc.build_epilogue_maps(runner.bg, out)
     runner.stage(torch.device("cuda"))
     dist, _, ok = asrc.reduced_all_sources(
-        CASES["hub_w2"], runner, out, maps=maps,
+        CASES["hub_w2"], runner, out, csr.edge_metric, csr.edge_up,
+        csr.node_overloaded, maps=maps,
         epilogue=ep.fused_epilogue_reference,
     )
     assert ok

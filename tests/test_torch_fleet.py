@@ -115,7 +115,9 @@ def test_reduced_all_sources_matches_reference(name):
     out = asrc.build_out_ell(
         csr.edge_src, csr.edge_dst, csr.n_edges, csr.n_nodes, csr.out_slot
     )
-    dist, bitmap, ok = asrc.reduced_all_sources(dests, runner, out)
+    dist, bitmap, ok = asrc.reduced_all_sources(
+        dests, runner, out, csr.edge_metric, csr.edge_up, csr.node_overloaded
+    )
     assert ok is True and jok is True
     assert dist.dtype == torch.int32 and bitmap.dtype == torch.int32
     np.testing.assert_array_equal(dist.numpy(), jdist)
@@ -154,6 +156,9 @@ def test_fleet_route_dbs_match_reference_every_node(name):
         "device.engine.kernel_launches": 0,
         "device.engine.kernel_launches.fused_epilogue": 0,
         "device.engine.kernel_launches.blocked_outer": 0,
+        # banded and cold: no ELL sweep, no affected-set pass
+        "device.engine.ell_sweeps": 0,
+        "device.engine.affected_passes": 0,
     }
     jsolver = JSpfSolver(names[0])
     assert sorted(got) == names
@@ -224,8 +229,23 @@ def test_view_cache_reuses_and_recomputes():
     assert cache.view(ls, [], device="cpu") is None
 
 
-def test_no_band_structure_raises_not_implemented():
-    """Topologies without bands need the ELL fallback, a later slice."""
-    ls, _ = link_states(topo.ring_topology(20))  # below the band floor
-    with pytest.raises(NotImplementedError, match="ELL"):
-        FleetViewCache().view(ls, ["r0"], device="cpu")
+def test_ring20_without_bands_matches_reference():
+    """A ring below the band floor takes the ELL fallback and gives the
+    reference's view: distances, decoded next hops and sweep hint."""
+    from openr_tpu.decision.fleet import FleetViewCache as JFleetViewCache
+
+    ls, jls = link_states(topo.ring_topology(20))  # below the band floor
+    dests = ["r0", "r7"]
+    view = FleetViewCache().view(ls, dests, device="cpu")
+    jview = JFleetViewCache(delta=False).view(jls, dests)
+    assert view._runner.bg is None and jview._runner.bg is None
+    assert view.sweep_hint == jview.sweep_hint
+    np.testing.assert_array_equal(
+        view._dist_dev.numpy(), _row_i32(np.asarray(jview._dist_dev))
+    )
+    for node in ls.node_names:
+        for dest in dests:
+            assert view.dist(node, dest) == jview.dist(node, dest)
+            assert view.next_hop_neighbors(node, dest) == (
+                jview.next_hop_neighbors(node, dest)
+            ), (node, dest)

@@ -162,3 +162,45 @@ def break_fixed_point(d: np.ndarray, idx, w, ov, inf: int, wbig: int):
             out[idx[g][v], p] -= 1
             return out
     raise AssertionError("no tight relax edge to break")
+
+
+def adj(me: str, other: str, metric: int = 10, is_overloaded: bool = False):
+    """A port Adjacency named like tests/test_spf_solver.py's `adj`."""
+    return pt.Adjacency(
+        other_node_name=other,
+        if_name=f"{me}/{other}",
+        other_if_name=f"{other}/{me}",
+        metric=metric,
+        is_overloaded=is_overloaded,
+        next_hop_v6=f"fe80::{other}",
+        next_hop_v4=f"10.0.0.{other}",
+    )
+
+
+def adj_dbs(adj_map: dict, labels=None, overloaded=frozenset()):
+    """Port AdjacencyDatabases of {node: [Adjacency]} (tests/
+    test_spf_solver.py's `build_link_state` inputs)."""
+    return [
+        pt.AdjacencyDatabase(
+            this_node_name=node,
+            adjacencies=adjs,
+            is_overloaded=node in overloaded,
+            node_label=(labels or {}).get(node, 0),
+            area="0",
+        )
+        for node, adjs in adj_map.items()
+    ]
+
+
+def square_dbs():
+    """tests/test_spf_solver.py's `square`: 1 - 2, 1 - 3, 2 - 4, 3 - 4,
+    all metric 10, labels 101-104."""
+    return adj_dbs(
+        {
+            "1": [adj("1", "2"), adj("1", "3")],
+            "2": [adj("2", "1"), adj("2", "4")],
+            "3": [adj("3", "1"), adj("3", "4")],
+            "4": [adj("4", "2"), adj("4", "3")],
+        },
+        labels={"1": 101, "2": 102, "3": 103, "4": 104},
+    )
