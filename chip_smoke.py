@@ -22,7 +22,18 @@ and its phases timed:
   closure of the same fabric;
 - the blocked APSP rung (kernel K2, the rank-B outer update) over the
   same fat-tree shape with 315 pods, 32 856 nodes: the smallest fabric
-  of that shape that the rung takes under its default threshold.
+  of that shape that the rung takes under its default threshold;
+- the per-source SPF path that Decision runs by default
+  (`SpfSolver(router).build_route_db` through `DeviceSpfBackend`, its
+  refreshed CSR mirror and the residency engine) on the WAN after the
+  warm rebuilds: a cold build, a drain and an undrain (incremental
+  syncs), a chord swap (a rewire), a 64-source prefetch, the fleet view
+  on the refreshed mirror (K1 once, equal to a cold view on a fresh
+  mirror) and the single-source crossover against the host Dijkstra,
+  every route DB equal to the host backend's;
+- the reference's reconvergence flow on the 10 080-node fabric: the
+  first fabric switch's overload bit flapped, the first rack switch's
+  route DB rebuilt per source, host and device, equal on every rep.
 
 Each phase prints one JSON line; the line before the last is the
 `kernels` record, and the last line is {"ok": true, "device": {...}}.
@@ -32,6 +43,7 @@ check fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -527,23 +539,26 @@ def route_sets(db):
     return unicast, mpls
 
 
-def fleet_inputs(make_dbs, n_routers):
-    """LinkState, CSR mirror, prefixes and routers of a route build.
-    `make_dbs()` returns (AdjacencyDatabases in node-id order, advertiser
-    ids); each advertiser gets one /64 and carries a node label.  The
-    database and LinkState build is timed as one host phase."""
+def fleet_inputs(make_dbs, n_routers, device):
+    """LinkState, solver, CSR mirror, prefixes and routers of a route
+    build.  `make_dbs()` returns (AdjacencyDatabases in node-id order,
+    advertiser ids); each advertiser gets one /64 and carries a node
+    label.  The database and LinkState build is timed as one host phase;
+    the mirror is the solver's (its SPF backend's), built and timed
+    here."""
     from types import SimpleNamespace
 
-    from openr_tpu_torch.decision.csr import CsrTopology
     from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.types import PrefixEntry
 
     t0 = time.perf_counter()
     dbs, adv_ids = make_dbs()
     ls = link_state_of(dbs)
     t_ls = time.perf_counter() - t0
+    solver = SpfSolver(ls.node_names[0], device=device)
     t0 = time.perf_counter()
-    csr = CsrTopology.from_link_state(ls)
+    csr = solver.spf.csr_mirror(ls)
     t_csr = time.perf_counter() - t0
     names = ls.node_names
     if names != [db.this_node_name for db in dbs]:
@@ -556,6 +571,7 @@ def fleet_inputs(make_dbs, n_routers):
     n = len(names)
     return SimpleNamespace(
         ls=ls,
+        solver=solver,
         csr=csr,
         names=names,
         advertisers=advertisers,
@@ -651,7 +667,6 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
     import torch
 
     from openr_tpu_torch.decision.fleet import FleetViewCache
-    from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.ops import epilogue as ep
     from openr_tpu_torch.ops.banded import make_dist0_orig
     from openr_tpu_torch.utils import topo
@@ -666,9 +681,9 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
             adv_ids,
         ),
         n_routers,
+        device,
     )
-    ls, csr = inp.ls, inp.csr
-    solver = SpfSolver(inp.names[0], device=device)
+    ls, csr, solver = inp.ls, inp.csr, inp.solver
     # this path is the fused rung's: at 100k nodes the default policy
     # would take the blocked rung (ROADMAP: the threshold on this card)
     solver.engine.blocked.node_shard_threshold = n_nodes
@@ -800,8 +815,9 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
     """The main path's LinkState after four changes in turn, each applied
     through `update_adjacency_database`: (a) one link's metric raised,
     (b) the same link down, (c) the link restored at its first metric,
-    (d) one transit node drained.  After each, the view is rebuilt
-    through the solver's warm-capable cache and cold through a fresh
+    (d) one transit node drained.  After each, the solver's mirror is
+    refreshed in place ((b) and (c) are rewires), and the view is rebuilt
+    on it through the solver's warm-capable cache and cold through a fresh
     FleetViewCache: distances and bitmaps bit for bit, K1 launched once
     per view (its count set to 0 just before each view), (c) warm-started
     as an improvement, and the routes of `checked` against the host
@@ -811,7 +827,6 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
 
     import torch
 
-    from openr_tpu_torch.decision.csr import CsrTopology
     from openr_tpu_torch.decision.fleet import (
         AFFECTED_MAX_ITERS,
         FleetViewCache,
@@ -822,6 +837,7 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
     from openr_tpu_torch.ops.banded import affected_mask
 
     ls = inp.ls
+    csr = inp.csr  # the solver's mirror, refreshed in place per change
     dests = fleet_destinations(ls, inp.ps)
     n = len(inp.names)
     x, y = inp.names[n // 3], inp.names[2 * n // 3]
@@ -855,8 +871,10 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
         passes0 = solver.engine.counters["device.engine.affected_passes"]
         ls.update_adjacency_database(db)
         t0 = time.perf_counter()
-        csr = CsrTopology.from_link_state(ls)
+        kept = csr.refresh(ls)
         t_csr = time.perf_counter() - t0
+        if not kept:
+            raise AssertionError(f"{name}: the mirror was rebuilt, not refreshed")
         warm, warm_ms, k1_warm = counted(
             lambda: solver.fleet.view(ls, dests, csr=csr, engine=solver.engine)
         )
@@ -895,7 +913,8 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
                 "warm": warm._runner.sweeps, "cold": cold._runner.sweeps
             },
             "bit_equal": True,
-            "host_csr_s": t_csr,
+            "host_csr_refresh_s": t_csr,
+            "rewire_seq": csr.rewire_seq,
             "warm_view_ms": warm_ms,
             "cold_view_ms": cold_ms,
             "route_build_checked_s": routes_s,
@@ -926,7 +945,7 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
                 ),
             }
         records.append(record)
-        del prev, cold, csr
+        del prev, cold
     result = {
         "phase": "warm_rebuild",
         "rung": "fused",
@@ -939,6 +958,554 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
     if timer.cuda:
         result["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     return result
+
+
+class DecodeTimer:
+    """Wraps a mirror's `to_spf_results` (the host decode of a device
+    query) and sums its wall time until `close()`."""
+
+    def __init__(self, csr) -> None:
+        self.ms = 0.0
+        self.csr = csr
+        decode = csr.to_spf_results
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = decode(*args, **kwargs)
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        csr.to_spf_results = timed
+
+    def take(self) -> float:
+        ms, self.ms = self.ms, 0.0
+        return ms
+
+    def close(self) -> None:
+        del self.csr.to_spf_results
+
+
+class GcClock:
+    """Wall time of the cyclic garbage collector's runs (gc.callbacks)
+    until `close()`: host phases allocate millions of objects, and a
+    full collection walks the whole heap."""
+
+    def __init__(self) -> None:
+        self.ms = 0.0
+        self._t0 = None
+        gc.callbacks.append(self._tick)
+
+    def _tick(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+
+    def take(self) -> float:
+        ms, self.ms = self.ms, 0.0
+        return ms
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._tick)
+
+
+def same_route_db(got, want, what: str) -> None:
+    if got.unicast_routes != want.unicast_routes or got.mpls_routes != want.mpls_routes:
+        raise AssertionError(f"{what}: route DB differs from the host backend's")
+
+
+def spf_view(result) -> dict:
+    """Metric and sorted next hops per node of an SpfResult."""
+    return {n: (r.metric, sorted(r.next_hops)) for n, r in result.items()}
+
+
+def chord_swap_dbs(ls, csr, a: str):
+    """Databases that swap one chord of `a` (a link to a node more than two
+    ring steps away) for a link to a non-neighbour c whose ELL row has a
+    free slot, with the chord's metrics: (a's, b's, c's), (b, c)."""
+    import dataclasses
+
+    from openr_tpu_torch.types import Adjacency
+
+    n = csr.n_nodes
+    i_a = csr.node_id[a]
+    dbs = ls.get_adjacency_databases()
+    db_a = dbs[a]
+
+    def ring_steps(j):
+        d = abs(j - i_a) % n
+        return min(d, n - d)
+
+    chord = next(
+        adj for adj in db_a.adjacencies
+        if ring_steps(csr.node_id[adj.other_node_name]) > 2
+    )
+    b = chord.other_node_name
+    back = next(adj for adj in dbs[b].adjacencies if adj.other_node_name == a)
+    live = csr.edge_live[: csr.n_edges]
+    deg = np.bincount(csr.edge_dst[: csr.n_edges][live], minlength=csr.node_capacity)
+    k_of = np.concatenate([np.full(bk.nbr.shape[0], bk.nbr.shape[1]) for bk in csr.ell.buckets])
+    k_of = k_of[csr.ell.new_of_old]
+    near = {adj.other_node_name for adj in db_a.adjacencies} | {a}
+    c = next(
+        csr.node_names[j] for j in range(n // 3, n)
+        if deg[j] < k_of[j] and csr.node_names[j] not in near
+    )
+    i_c = csr.node_id[c]
+    ac = Adjacency(c, f"if_{a}_{c}", metric=chord.metric,
+                   other_if_name=f"if_{c}_{a}", next_hop_v6=f"fe80::{i_c:x}")
+    ca = Adjacency(a, f"if_{c}_{a}", metric=back.metric,
+                   other_if_name=f"if_{a}_{c}", next_hop_v6=f"fe80::{i_a:x}")
+    new = (
+        dataclasses.replace(
+            db_a, adjacencies=[x for x in db_a.adjacencies if x is not chord] + [ac]
+        ),
+        dataclasses.replace(
+            dbs[b], adjacencies=[x for x in dbs[b].adjacencies if x is not back]
+        ),
+        dataclasses.replace(dbs[c], adjacencies=[*dbs[c].adjacencies, ca]),
+    )
+    return new, (b, c)
+
+
+def default_solver(router: str, device):
+    """`SpfSolver(router)`, the entry point Decision calls: its default
+    DeviceSpfBackend on the CUDA card.  A CPU rehearsal names its device."""
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+
+    return SpfSolver(router) if device == "cuda" else SpfSolver(router, device=device)
+
+
+def spf_main_path(device, inp, timer, n_prefetch=64, n_checked=4) -> dict:
+    """The per-source route build Decision runs by default, through
+    `SpfSolver(R)` with no arguments, for one router R of the main path's
+    LinkState: (a) a cold build; (b) a transit neighbour of R drained,
+    then undrained (each an in-place refresh and an incremental sync);
+    (c) a chord of R swapped for a new link (a rewire); (d) a prefetch of
+    `n_prefetch` sources in one query; (e) the fleet route build of the
+    main path's routers on the same refreshed mirror, held against a cold
+    view on a fresh mirror; (f) the single-source query against the host
+    Dijkstra.  Every route DB equals the host backend's."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.decision import csr as csr_module
+    from openr_tpu_torch.decision.fleet import FleetViewCache, fleet_destinations
+    from openr_tpu_torch.decision.spf_solver import HostSpfBackend, SpfSolver
+    from openr_tpu_torch.device.engine import _s_bucket
+    from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.ops import sssp as ops
+
+    ls, area, ps, names = inp.ls, inp.area, inp.ps, inp.names
+    router = inp.routers[0]
+    solver = default_solver(router, device)
+    backend, engine = solver.spf, solver.engine
+    # the fleet view of (e) is the main path's: the fused rung
+    engine.blocked.node_shard_threshold = len(names)
+    host = SpfSolver(router, spf_backend=HostSpfBackend())
+
+    def synced():
+        if timer.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def build(what):
+        """One per-source build and the host backend's, held equal.  The
+        engine's query time excludes the decode (`last_query_us`)."""
+        c0 = engine.get_counters()
+        decode.take()
+        gc_clock.take()
+        t0 = synced()
+        got = solver.build_route_db(area, ps)
+        t_dev = synced() - t0
+        gc_dev = gc_clock.take()
+        t0 = time.perf_counter()
+        want = host.build_route_db(area, ps)
+        t_host = time.perf_counter() - t0
+        same_route_db(got, want, what)
+        c1 = engine.get_counters()
+        query_ms = engine.last_query_us / 1e3
+        decode_ms = decode.take()
+        return got, {
+            "build_s": t_dev,
+            "spf_results_ms": query_ms,
+            "to_spf_results_ms": decode_ms,
+            "route_build_ms": t_dev * 1e3 - query_ms - decode_ms,
+            "gc_ms": gc_dev,
+            "host_build_s": t_host,
+            "host_gc_ms": gc_clock.take(),
+            "counters_delta": {
+                k.removeprefix("device.engine."): c1[k] - c0[k]
+                for k in c1 if c1[k] != c0[k] and not k.endswith("_us")
+            },
+        }
+
+    def counter(name):
+        return engine.get_counters()[f"device.engine.{name}"]
+
+    # (a) cold
+    gc.collect()
+    gc_clock = GcClock()
+    t0 = time.perf_counter()
+    csr = backend.csr_mirror(ls)
+    t_mirror = time.perf_counter() - t0
+    decode = DecodeTimer(csr)
+    try:
+        hint0 = csr._sweep_hint
+        db_r, cold = build("cold")
+        res = engine._residents[id(csr)]
+        cold.update(
+            mirror_build_s=t_mirror,
+            restage_bytes=cold["counters_delta"].get("bytes_staged"),
+            attempts=int(np.log2(res.sweep_hint // hint0)) + 1,
+            sweep_hint=res.sweep_hint,
+        )
+        if counter("full_restages") != 1 or counter("queries") != 1:
+            raise AssertionError(f"cold build: {engine.get_counters()}")
+
+        # (b) drain and undrain a transit neighbour of R
+        advertisers = set(inp.advertisers)
+        transit = next(
+            n for n in sorted(l.other_node_name(router) for l in ls.links_from_node(router))
+            if n not in advertisers
+        )
+        db_t = ls.get_adjacency_databases()[transit]
+        flaps = {}
+        for name, db in (
+            ("drain", dataclasses.replace(db_t, is_overloaded=True)),
+            ("undrain", db_t),
+        ):
+            before = counter("incremental_updates")
+            ls.update_adjacency_database(db)
+            t0 = time.perf_counter()
+            kept = csr.refresh(ls)
+            refresh_ms = (time.perf_counter() - t0) * 1e3
+            _, step = build(name)
+            if not kept or counter("incremental_updates") != before + 1 or counter(
+                "full_restages"
+            ) != 1:
+                raise AssertionError(f"{name}: kept {kept}, {engine.get_counters()}")
+            flaps[name] = {"refresh_ms": refresh_ms, **step}
+
+        # (c) a chord swap: one link removed, one added, three databases
+        swap_dbs, (b, c) = chord_swap_dbs(ls, csr, router)
+        rewires0 = counter("rewires")
+        for db in swap_dbs:
+            ls.update_adjacency_database(db)
+        t0 = time.perf_counter()
+        kept = csr.refresh(ls)
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        db_swap, swap = build("chord swap")
+        if (
+            not kept
+            or counter("rewires") != rewires0 + 1
+            or counter("rewire_dispatches") != 1
+            or counter("rewire_fallbacks")
+            or counter("full_restages") != 1
+        ):
+            raise AssertionError(f"chord swap: kept {kept}, {engine.get_counters()}")
+        swap.update(
+            refresh_ms=refresh_ms, link_removed=[router, b], link_added=[router, c],
+            rewire_slots=counter("rewire_slots"), rewire_rows=counter("rewire_rows"),
+        )
+
+        # (d) one prefetch query of `n_prefetch` sources
+        n = len(names)
+        sources = [names[i * n // n_prefetch] for i in range(n_prefetch)]
+        missing = [s for s in sources if s not in backend._result_cache(ls)]
+        q0 = counter("queries")
+        decode.take()
+        gc_clock.take()
+        t0 = synced()
+        backend.prefetch(ls, sources)
+        prefetch_s = synced() - t0
+        prefetch_gc_ms = gc_clock.take()
+        if counter("queries") != q0 + 1 or _s_bucket(len(missing)) != 64:
+            raise AssertionError(f"prefetch: {len(missing)} missing, {engine.get_counters()}")
+        checked = sources[:: n_prefetch // n_checked][:n_checked]
+        t0 = time.perf_counter()
+        for src in checked:
+            if spf_view(backend.get_spf_result(ls, src)) != spf_view(ls.get_spf_result(src)):
+                raise AssertionError(f"prefetch: SPF of {src} differs from Dijkstra")
+        prefetch = {
+            "sources": len(sources),
+            "queried": len(missing),
+            "bucket": _s_bucket(len(missing)),
+            "prefetch_s": prefetch_s,
+            "spf_results_ms": engine.last_query_us / 1e3,
+            "to_spf_results_ms": decode.take(),
+            "gc_ms": prefetch_gc_ms,
+            "checked_sources": checked,
+            "oracle_check_s": time.perf_counter() - t0,
+        }
+
+        # (e) the fleet route build on the refreshed mirror: no fresh build
+        real = csr_module.CsrTopology.from_link_state
+        builds = []
+
+        def counted(*args, **kwargs):
+            builds.append(args)
+            return real(*args, **kwargs)
+
+        csr_module.CsrTopology.from_link_state = counted
+        try:
+            ep.fused_epilogue.launches = 0
+            k1_0 = engine.counters["device.engine.kernel_launches.fused_epilogue"]
+            t0 = synced()
+            fleet_dbs = solver.fleet_route_dbs(area, ps, nodes=inp.routers)
+            fleet_s = synced() - t0
+            k1 = ep.fused_epilogue.launches
+        finally:
+            csr_module.CsrTopology.from_link_state = real
+        view = solver.fleet._views[ls]
+        if builds or view.csr is not csr:
+            raise AssertionError("the fleet view did not take the refreshed mirror")
+        if k1 != 1 or engine.counters["device.engine.kernel_launches.fused_epilogue"] - k1_0 != 1:
+            raise AssertionError(f"fleet view on the mirror launched K1 {k1} times")
+        same_route_db(fleet_dbs[router], db_swap, "fleet view")
+        t0 = time.perf_counter()
+        fresh = real(ls)
+        fresh_ms = (time.perf_counter() - t0) * 1e3
+        cold_view = FleetViewCache().view(
+            ls, fleet_destinations(ls, ps), csr=fresh, engine=engine
+        )
+        if not (
+            torch.equal(view._dist_dev, cold_view._dist_dev)
+            and torch.equal(view._bitmap_dev, cold_view._bitmap_dev)
+        ):
+            raise AssertionError("view on the refreshed mirror differs from a cold view")
+        fleet = {
+            "routers": len(inp.routers),
+            "k1_launches": k1,
+            "route_builds_s": fleet_s,
+            "equal_to_cold_view_on_fresh_mirror": True,
+            "fresh_mirror_build_ms": fresh_ms,
+            "mirror_refresh_ms": {
+                **{k: v["refresh_ms"] for k, v in flaps.items()},
+                "chord_swap": swap["refresh_ms"],
+            },
+        }
+        del cold_view, fresh
+
+        # (f) one source against the host Dijkstra, median of 3 each
+        src = names[n // 2]
+        dev_ms, dev_query_ms, host_ms, dev_gc, host_gc = [], [], [], [], []
+        for _ in range(3):
+            gc_clock.take()
+            t0 = synced()
+            got = engine.spf_results(csr, [src])[src]
+            dev_ms.append((synced() - t0) * 1e3)
+            dev_gc.append(gc_clock.take())
+            dev_query_ms.append(engine.last_query_us / 1e3)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want = ls.run_spf(src)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            host_gc.append(gc_clock.take())
+        if spf_view(got) != spf_view(want):
+            raise AssertionError(f"S = 1: SPF of {src} differs from Dijkstra")
+        crossover = {
+            "source": src,
+            "device_ms": float(np.median(dev_ms)),
+            "device_without_decode_ms": float(np.median(dev_query_ms)),
+            "host_dijkstra_ms": float(np.median(host_ms)),
+            "device_all_ms": dev_ms,
+            "host_all_ms": host_ms,
+            "device_gc_ms": dev_gc,
+            "host_gc_ms": host_gc,
+        }
+
+        # the per-source relax and first-hop sweeps at the learned hint
+        res = engine._residents[id(csr)]
+        h = res.sweep_hint
+        n_words = max(1, -(-csr.max_out_slots // 32))
+        sweeps = {}
+        for s in (1, n_prefetch):
+            ids = torch.as_tensor(
+                [csr.node_id[x] for x in sources[:s]], dtype=torch.int32,
+                device=res.edge_src.device,
+            )
+            d0 = ops.make_dist0_T(ids, res.ell.new_of_old, csr.node_capacity)
+            _, dag, _, _ = ops.spf_forward_full(
+                ids, res.ell, res.edge_src, res.edge_dst, res.edge_metric,
+                res.edge_up, res.node_overloaded, res.out_slot, n_words, h,
+            )
+            dag_t = dag.T
+            relax_ms = timer.ms(
+                lambda: ops.batched_sssp_ell(
+                    d0, res.ell, res.edge_up, res.node_overloaded,
+                    res.edge_metric, n_sweeps=h,
+                ),
+                reps=3,
+            )
+            fh_ms = timer.ms(
+                lambda: ops.first_hops_ell(
+                    res.ell, dag_t, res.out_slot, ids, res.edge_src, n_words, h
+                )[1].item(),
+                reps=3,
+            )
+            # least bytes of one sweep: the [N_cap, S] state (times W for
+            # the first hops) read once and written once, and each
+            # loop-invariant table the sweep reads once: the relax's
+            # (gather index, up, transit, weight) per slot, the first hops'
+            # gather index and [R, K, S] DAG mask per slot and [R, S, W]
+            # source bits per row
+            state_bytes = csr.node_capacity * s * 4
+            relax_tables = sum(
+                t.nbytes
+                for _, _, chunks in ops._slot_chunks(
+                    res.ell, res.edge_up, res.node_overloaded, res.edge_metric, s
+                )
+                for chunk in chunks
+                for t in chunk
+            )
+            fh_tables = sum(
+                r * k * (4 + s) + r * s * n_words * 4
+                for r, k in (tuple(bk.nbr.shape) for bk in res.ell.buckets)
+            )
+            relax_bytes = 2 * state_bytes + relax_tables
+            fh_bytes = 2 * state_bytes * n_words + fh_tables
+            sweeps[f"S{s}"] = {
+                "relax_sweep_ms": relax_ms / (h + 1),
+                "first_hops_sweep_ms": fh_ms / (h + 1),
+                "relax_sweep_bytes": relax_bytes,
+                "first_hops_sweep_bytes": fh_bytes,
+                "relax_sweep_bound_ms": relax_bytes / HBM_BYTES_PER_S * 1e3,
+                "first_hops_sweep_bound_ms": fh_bytes / HBM_BYTES_PER_S * 1e3,
+            }
+        record = {
+            "phase": "spf_main_path",
+            "router": router,
+            "nodes": csr.n_nodes,
+            "directed_edges": int(csr.n_live),
+            "node_capacity": csr.node_capacity,
+            "edge_capacity": csr.edge_capacity,
+            "ell_buckets": [list(bk.nbr.shape) for bk in csr.ell.buckets],
+            "n_words": n_words,
+            "cold": cold,
+            "flaps": flaps,
+            "chord_swap": swap,
+            "prefetch": prefetch,
+            "fleet": fleet,
+            "crossover_s1": crossover,
+            "sweeps": sweeps,
+            "sweep_hint": h,
+            "engine_counters": {
+                k.removeprefix("device.engine."): v
+                for k, v in engine.get_counters().items()
+            },
+        }
+        if timer.cuda:
+            record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        return record
+    finally:
+        decode.close()
+        gc_clock.close()
+
+
+def spf_reconverge_fabric96(device, pods, timer, n_prefixes=128,
+                            host_reps=3, device_reps=8) -> dict:
+    """The reference's reconvergence flow (bench.py
+    bench_reconvergence_fattree10k) on BASELINE config #2's own fabric:
+    the first rack switch's route DB (every node labelled, `n_prefixes`
+    prefixes) rebuilt after each flap of the first fabric switch's
+    overload bit, through the host Dijkstra and through `SpfSolver(own)`
+    with no arguments (one warm-up build, then `device_reps` timed
+    builds).  Every rep's route DB equals the host's for the same
+    overload state; the device path restages once and syncs every timed
+    rep incrementally."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import HostSpfBackend, SpfSolver
+    from openr_tpu_torch.types import PrefixEntry
+    from openr_tpu_torch.utils import topo
+
+    dbs = topo.fat_tree_topology(pods, **FABRIC)
+    ls = link_state_of(dbs)
+    own = next(d.this_node_name for d in dbs if d.this_node_name.startswith("rsw"))
+    flap = next(d for d in dbs if d.this_node_name.startswith("fsw"))
+    ps = PrefixState()
+    step = max(1, len(dbs) // n_prefixes)
+    advertised = 0
+    for i in range(0, len(dbs), step):
+        if dbs[i].this_node_name != own:
+            ps.update_prefix(
+                dbs[i].this_node_name, "0", PrefixEntry(prefix=f"::{i:x}:0/112")
+            )
+            advertised += 1
+    host = SpfSolver(own, spf_backend=HostSpfBackend())
+    dev = default_solver(own, device)
+    backend = dev.spf
+    state = {"overloaded": False}
+    gc.collect()
+    gc_clock = GcClock()
+
+    def run(solver):
+        state["overloaded"] = not state["overloaded"]
+        ls.update_adjacency_database(
+            dataclasses.replace(flap, is_overloaded=state["overloaded"])
+        )
+        gc_clock.take()
+        t0 = time.perf_counter()
+        db = solver.build_route_db({"0": ls}, ps)
+        if timer.cuda:
+            torch.cuda.synchronize()
+        return db, (time.perf_counter() - t0) * 1e3, gc_clock.take()
+
+    try:
+        want, host_ms, host_gc = {}, [], []
+        for _ in range(host_reps):
+            db, ms, gc_ms = run(host)
+            want[state["overloaded"]] = db
+            host_ms.append(ms)
+            host_gc.append(gc_ms)
+        db, warmup_ms, _ = run(dev)
+        same_route_db(db, want[state["overloaded"]], "fabric96 warm-up")
+        c0 = backend.engine.get_counters()
+        dev_ms, dev_gc = [], []
+        for rep in range(device_reps):
+            db, ms, gc_ms = run(dev)
+            same_route_db(db, want[state["overloaded"]], f"fabric96 rep {rep}")
+            dev_ms.append(ms)
+            dev_gc.append(gc_ms)
+    finally:
+        gc_clock.close()
+    c1 = backend.engine.get_counters()
+    incremental = c1["device.engine.incremental_updates"] - c0["device.engine.incremental_updates"]
+    if c1["device.engine.full_restages"] != 1 or incremental != device_reps:
+        raise AssertionError(f"fabric96 residency: {c1}")
+    csr = backend.csr_mirror(ls)
+    return {
+        "phase": "spf_reconverge_fabric96",
+        "nodes": csr.n_nodes,
+        "own_router": own,
+        "flapped": flap.this_node_name,
+        "advertised_prefixes": advertised,
+        "mpls_routes": len(db.mpls_routes),
+        "equal_every_rep": True,
+        "host_ms_p50": float(np.median(host_ms)),
+        "device_ms_p50": float(np.median(dev_ms)),
+        "host_ms_all": host_ms,
+        "device_ms_all": dev_ms,
+        "host_gc_ms": host_gc,
+        "device_gc_ms": dev_gc,
+        "device_warmup_ms": warmup_ms,
+        "sweep_hint": backend.engine._residents[id(csr)].sweep_hint,
+        "n_words": max(1, -(-csr.max_out_slots // 32)),
+        "engine_ms_per_rep": (
+            (c1["device.engine.stage_us"] - c0["device.engine.stage_us"])
+            + (c1["device.engine.dispatch_us"] - c0["device.engine.dispatch_us"])
+        ) / 1e3 / device_reps,
+        "bytes_staged_per_rep": (
+            c1["device.engine.bytes_staged"] - c0["device.engine.bytes_staged"]
+        ) // device_reps,
+        "full_restages": c1["device.engine.full_restages"],
+        "incremental_updates": incremental,
+    }
 
 
 def fabric_dbs(pods: int, n_advertisers: int):
@@ -1133,14 +1700,12 @@ def ell_main_path(device, pods, n_advertisers, n_routers, n_checked, timer,
     import torch
 
     from openr_tpu_torch.decision.fleet import FleetViewCache
-    from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.ops import allsources as asrc
 
-    inp = fleet_inputs(lambda: fabric_dbs(pods, n_advertisers), n_routers)
-    ls, csr = inp.ls, inp.csr
+    inp = fleet_inputs(lambda: fabric_dbs(pods, n_advertisers), n_routers, device)
+    ls, csr, solver = inp.ls, inp.csr, inp.solver
     # the last router is a spine: the most out-slots, every bitmap word
     inp.routers[-1] = inp.names[-1]
-    solver = SpfSolver(inp.names[0], device=device)
     if timer.cuda:
         torch.cuda.reset_peak_memory_stats()
     dbs_out, t_main, launches, main_counters, view = counted_route_build(
@@ -1252,7 +1817,6 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
     import torch
 
     from openr_tpu_torch.decision.fleet import FleetViewCache
-    from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.ops import allsources as asrc
     from openr_tpu_torch.parallel.blocked import (
         blocked_diag,
@@ -1260,11 +1824,10 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
         blocked_panels,
     )
 
-    inp = fleet_inputs(lambda: fabric_dbs(pods, n_advertisers), n_routers)
-    ls, csr = inp.ls, inp.csr
+    inp = fleet_inputs(lambda: fabric_dbs(pods, n_advertisers), n_routers, device)
+    ls, csr, solver = inp.ls, inp.csr, inp.solver
     # the last router is a spine: the most out-slots, every bitmap word
     inp.routers[-1] = inp.names[-1]
-    solver = SpfSolver(inp.names[0], device=device)
     blocked = solver.engine.blocked
     if threshold is not None:
         blocked.node_shard_threshold = threshold
@@ -1439,7 +2002,9 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     )
     emit(main)
     emit(warm_rebuild(inp, solver, checked, timer))
-    del inp, solver
+    del solver
+    emit(spf_main_path(device, inp, timer))
+    del inp
     b_main, t_main = fabric_rounds(device, fabric_pods)
     record, outer_timing = blocked_kernel_vs_plain(
         device, outer_kernel or bo.blocked_outer, t_main, b_main, timer
@@ -1456,6 +2021,7 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         )
     )
     del closure
+    emit(spf_reconverge_fabric96(device, check_pods, timer))
     blocked, outer_record = blocked_main_path(
         device, fabric_pods, n_advertisers, n_routers, n_checked, timer,
         outer_timing, threshold=node_shard_threshold,

@@ -15,13 +15,18 @@ APSP rung (parallel.blocked).  Below it, banded topologies run the
 progressive banded relax and the fused epilogue, and topologies without
 bands (fat-trees, small or oddly named graphs) the bucketed-ELL relax.
 
-A view is a snapshot of one LinkState version.  The cache warm-starts a
-rebuild over the same node and destination universe from the previous
-banded product, in both directions: an improvement-only change (metric
-decrease, link up, overload clear) seeds the whole previous product; a
-worsening or mixed change (metric increase, link down, drain) seeds it
-with the certified affected set re-set to INF (`_affected_init`).  The
-blocked rung and the ELL path always compute cold.
+A view is a snapshot of one LinkState version: the mirror it is built
+on refreshes its arrays in place at later versions, so everything a view
+reads after its build (node ids, overload bits, the usable-edge table,
+the out-edge table, the reverse runner) is copied at build time.
+
+The cache warm-starts a rebuild over the same node and destination
+universe from the previous banded product, in both directions: an
+improvement-only change (metric decrease, link up, overload clear) seeds
+the whole previous product; a worsening or mixed change (metric
+increase, link down, drain) seeds it with the certified affected set
+re-set to INF (`_affected_init`).  The blocked rung and the ELL path
+always compute cold.
 
 Deliberate difference from the reference: its cache retries a failed
 warm rebuild cold on ANY exception.  The port re-runs cold only on the
@@ -184,16 +189,19 @@ def _reverse_runner(csr: CsrTopology, hint: Optional[int] = None) -> SpfRunner:
     """SpfRunner over the REVERSED directed edges of a CsrTopology
     snapshot, edges sorted by (dst, src) like the forward mirror: the
     banded decomposition when the graph has one, else the ELL.  `hint`
-    seeds the learned fixed-sweep count.
+    seeds the learned fixed-sweep count.  Retired freelist slots inside
+    [:n_edges] (`edge_live` False) are dropped: the snapshot renumbers
+    edges into its own dense space.
 
     The reference builds the ELL beside the bands on every rebuild; the
     port builds it only where it runs (a banded runner never reads it),
     which saves its host build on every banded view."""
-    e = csr.n_edges
-    src = csr.edge_dst[:e].copy()
-    dst = csr.edge_src[:e].copy()
-    met = csr.edge_metric[:e].copy()
-    up = csr.edge_up[:e].copy()
+    ids = np.flatnonzero(csr.edge_live[: csr.n_edges])
+    e = len(ids)
+    src = csr.edge_dst[ids]
+    dst = csr.edge_src[ids]
+    met = csr.edge_metric[ids]
+    up = csr.edge_up[ids]
     order = np.lexsort((src, dst))
     pad_node = csr.node_capacity - 1
     edge_src = np.full(csr.edge_capacity, pad_node, dtype=np.int32)
@@ -240,12 +248,15 @@ class FleetRouteView:
         self._engine = engine
         self.dest_names = list(dest_names)
         self.p_index = {name: i for i, name in enumerate(self.dest_names)}
-        self._node_id = csr.node_id
+        self._node_id = dict(csr.node_id)
+        self._node_names = list(csr.node_names)
         self._overloaded = csr.node_overloaded.copy()
         # usable-edge table the next view's warm-start gates compare with
         self._edge_keys, self._edge_met = _usable_edge_table(csr)
         self._dist_dev: Optional[torch.Tensor] = None  # [N*, P] int32
         self._bitmap_dev: Optional[torch.Tensor] = None  # [N, P, W] int32
+        # out-edge table of the build: the bitmap's slot -> neighbour map
+        self._out: Optional[asrc.OutEll] = None
         self._rows: dict[int, np.ndarray] = {}  # node id -> [P] int32
         self.converged = False
         # a warm gate admitted a seed but the designed verdict (affected
@@ -288,7 +299,7 @@ class FleetRouteView:
         dest_ids = np.asarray(
             [self._node_id[d] for d in self.dest_names], dtype=np.int32
         )
-        out = asrc.build_out_ell(
+        out = self._out = asrc.build_out_ell(
             self.csr.edge_src,
             self.csr.edge_dst,
             self.csr.n_edges,
@@ -409,13 +420,16 @@ class FleetRouteView:
         `node` toward `dest` (parallel links share a slot)."""
         i = self._node_id[node]
         words = self._bitmap_dev[i, self.p_index[dest]].cpu().numpy()
-        slot_names = self.csr.slot_neighbors(node)
+        has = self._out.eid[i] >= 0
+        slot_names = dict(
+            zip(self._out.slot[i][has].tolist(), self._out.nbr[i][has].tolist())
+        )
         out: set[str] = set()
         for w, word in enumerate(words.view(np.uint32).tolist()):
             bits = int(word)
             while bits:
                 b = bits & -bits
-                out.add(slot_names[32 * w + b.bit_length() - 1])
+                out.add(self._node_names[slot_names[32 * w + b.bit_length() - 1]])
                 bits ^= b
         return out
 
@@ -471,7 +485,8 @@ class FleetViewCache:
     ) -> Optional[FleetRouteView]:
         """Computed view for this (version, dests); None when empty.
         Computes on `engine`'s device, else on `device` (the CUDA card
-        when None).
+        when None).  A given mirror `csr` is refreshed in place to the
+        LinkState's version; without one the view builds a fresh mirror.
 
         A rebuild over the same node and destination universe as the
         cached view warm-starts from it: an improvement-only change
@@ -484,8 +499,10 @@ class FleetViewCache:
             return None
         if self.is_warm(ls, dest_names):
             return self._views[ls]
-        if csr is None or csr.version != ls.version:
+        if csr is None:
             csr = CsrTopology.from_link_state(ls)
+        elif csr.version != ls.version:
+            csr.refresh(ls)
         prev = self._views.get(ls)
         view = FleetRouteView(csr, dest_names, engine)
         key = (csr.n_nodes, csr.n_edges)

@@ -7,10 +7,13 @@ k-path machinery, which later slices bring:
 - only bidirectional links exist (both ends advertise the adjacency with
   matching interface names — maybeMakeLink, LinkState.cpp:703)
 - updateAdjacencyDatabase diffs the ordered link sets (LinkState.cpp:565-717)
+  and updates a surviving link's attributes on the existing Link object,
+  so a CSR mirror that holds the object re-reads them in place
 - the host Dijkstra keeps ECMP ties (runSpf, LinkState.cpp:809-878)
 
-The Dijkstra is the oracle the tests and the chip smoke run hold the
-fleet product against; it never serves a route.
+The Dijkstra is the host SPF backend (decision.spf_solver.HostSpfBackend)
+and the oracle the tests and the chip smoke run hold the device paths
+against.
 """
 
 from __future__ import annotations
@@ -157,7 +160,7 @@ class LinkState:
         self._all_links: set[Link] = set()
         self._node_overloads: dict[str, bool] = {}
         self._adjacency_databases: dict[str, AdjacencyDatabase] = {}
-        self._spf_results: dict[str, SpfResult] = {}
+        self._spf_results: dict[tuple[str, bool], SpfResult] = {}
         # bumped on every change the CSR mirror must see
         self._version = 0
 
@@ -175,6 +178,9 @@ class LinkState:
     @property
     def all_links(self) -> set[Link]:
         return self._all_links
+
+    def num_nodes(self) -> int:
+        return len(self._link_map)
 
     def get_adjacency_databases(self) -> dict[str, AdjacencyDatabase]:
         return self._adjacency_databases
@@ -267,9 +273,9 @@ class LinkState:
                 self._add_link(link)
                 changed = True
             elif _link_attrs(old) != _link_attrs(link):
-                # same (node, iface) pairs, new attributes: replace
-                self._remove_link(old)
-                self._add_link(link)
+                # same (node, iface) pairs, new attributes: update the
+                # existing object, whose identity the CSR mirror keys on
+                _set_link_attrs(old, _link_attrs(link))
                 changed = True
         if changed:
             self._invalidate()
@@ -277,12 +283,13 @@ class LinkState:
 
     # -- SPF (reference: runSpf, LinkState.cpp:809-878) ---------------------
 
-    def run_spf(self, src: str) -> SpfResult:
+    def run_spf(self, src: str, use_link_metric: bool = True) -> SpfResult:
         """Dijkstra with ECMP tie retention — the conformance oracle.
 
         Pop order is (metric, node_name); the relax step uses >= so all
         equal-cost predecessors and next hops are kept.  Overloaded nodes
-        other than the source are recorded but never relaxed from."""
+        other than the source are recorded but never relaxed from.
+        Without `use_link_metric` every link costs 1 (hop counts)."""
         result: SpfResult = {}
         pending: dict[str, NodeSpfResult] = {src: NodeSpfResult(0)}
         heap: list[tuple[float, str]] = [(0, src)]
@@ -299,7 +306,9 @@ class LinkState:
                 other = link.other_node_name(node)
                 if not link.is_up() or other in result:
                     continue
-                cand = metric + link.metric_from_node(node)
+                cand = metric + (
+                    link.metric_from_node(node) if use_link_metric else 1
+                )
                 other_state = pending.get(other)
                 if other_state is None:
                     other_state = pending[other] = NodeSpfResult(cand)
@@ -316,25 +325,47 @@ class LinkState:
                         other_state.next_hops.add(other)  # directly connected
         return result
 
-    def get_spf_result(self, node: str) -> SpfResult:
-        res = self._spf_results.get(node)
+    def get_spf_result(self, node: str, use_link_metric: bool = True) -> SpfResult:
+        key = (node, use_link_metric)
+        res = self._spf_results.get(key)
         if res is None:
-            res = self._spf_results[node] = self.run_spf(node)
+            res = self._spf_results[key] = self.run_spf(node, use_link_metric)
         return res
 
 
+# the per-end attributes of a Link that an adjacency update may change,
+# as (end-1 name, end-2 name) pairs
+_LINK_ATTRS = (
+    ("metric1", "metric2"),
+    ("overload1", "overload2"),
+    ("adj_label1", "adj_label2"),
+    ("nh_v4_1", "nh_v4_2"),
+    ("nh_v6_1", "nh_v6_2"),
+    ("weight1", "weight2"),
+)
+
+
+def _flipped(link: Link) -> bool:
+    """True when end 1 of `link` is the second of its ordered names: two
+    objects of one link may have their ends in either order."""
+    return (link.n1, link.if1) != link.ordered_names[0]
+
+
 def _link_attrs(link: Link) -> tuple:
-    return (
-        link.metric1,
-        link.metric2,
-        link.overload1,
-        link.overload2,
-        link.adj_label1,
-        link.adj_label2,
-        link.nh_v4_1,
-        link.nh_v4_2,
-        link.nh_v6_1,
-        link.nh_v6_2,
-        link.weight1,
-        link.weight2,
+    """The attributes in the order of the link's ordered names."""
+    flip = _flipped(link)
+    return tuple(
+        (getattr(link, b), getattr(link, a)) if flip
+        else (getattr(link, a), getattr(link, b))
+        for a, b in _LINK_ATTRS
     )
+
+
+def _set_link_attrs(link: Link, attrs: tuple) -> None:
+    """Inverse of `_link_attrs`."""
+    flip = _flipped(link)
+    for (a, b), (first, second) in zip(_LINK_ATTRS, attrs):
+        if flip:
+            first, second = second, first
+        setattr(link, a, first)
+        setattr(link, b, second)

@@ -1,22 +1,49 @@
-"""Device engine: the resolved device and dispatch accounting.
+"""Device engine: the resolved device, residency and dispatch accounting.
 
-Minimal counterpart of `openr_tpu.device.engine.DeviceResidencyEngine`:
-it holds the device the port computes on, stages a view's reversed
-runner arrays once, owns the blocked APSP rung (`blocked`), and counts
-dispatches and kernel launches, in all and per kernel, and the ELL
-relax sweeps and affected-set passes the fleet view runs.  The reference
-engine's masked incremental sync, rewire replay, S-bucket program
-cache, snapshots and chaos seams come in later slices.
+Port of `openr_tpu.device.engine.DeviceResidencyEngine`.  It holds the
+device the port computes on and two kinds of work:
+
+- **Per-source SPF** (`spf_results`, the path DeviceSpfBackend serves):
+  one `_Resident` per CsrTopology mirror keeps the forward ELL and the
+  edge/node arrays on the device.  `sync` brings it to the mirror's
+  version on the cheapest rung: attribute changes are written in place
+  at the indices whose host shadow differs (`_incremental`), bounded
+  edge-set rewires replay the mirror's RewireDelta log (`_rewire_sync`),
+  and only a rebuilt mirror (a new `csr.ell` object) restages.  A query
+  pads its sources up the S_BUCKETS ladder and runs the fixed-sweep
+  forward (ops.sssp.spf_forward_full) at the resident's learned sweep
+  hint, doubling it on a False verdict.
+- **Fleet work**: it stages a view's reversed runner, owns the blocked
+  APSP rung (`blocked`), and counts dispatches and kernel launches, in
+  all and per kernel, and the ELL sweeps and affected-set passes.
+
+The reference writes attribute and rewire deltas with scatter-free
+masked programs padded to power-of-two counts (a TPU scatter leaves the
+runtime's fast dispatch path) and caches jit programs per S bucket; here
+the deltas are plain indexed writes of the real indices, and there is no
+program cache.  Where the reference demotes any rewire failure to a
+restage, the port demotes only a gap in the rewire log (a resident that
+fell behind the log's window) and lets every other error propagate.
+
+`counters` holds the fleet path's keys (ENGINE_COUNTER_KEYS) from the
+start and each residency key (RESIDENCY_COUNTER_KEYS) once bumped;
+`get_counters()` lists both families.  Snapshots (`export_resident`,
+`install_resident`) and the chaos `fault_hook` come in later slices.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Union
+import time
+import weakref
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from ..ops import blocked_outer as _outer
 from ..ops import epilogue as _epilogue
+from ..ops import sssp as ops
 from ..parallel.blocked import BlockedApspEngine
 
 KERNELS = ("fused_epilogue", "blocked_outer")
@@ -32,6 +59,28 @@ ENGINE_COUNTER_KEYS = (
     "device.engine.affected_passes",
 )
 
+# the per-source SPF path's residency accounting (reference: engine.py
+# ENGINE_COUNTER_KEYS less the jit program cache and the delta rung)
+RESIDENCY_COUNTER_KEYS = (
+    "device.engine.bytes_staged",
+    "device.engine.incremental_updates",
+    "device.engine.full_restages",
+    "device.engine.queries",
+    "device.engine.stage_us",
+    "device.engine.dispatch_us",
+    "device.engine.epoch_invalidations",
+    "device.engine.rewires",
+    "device.engine.rewire_dispatches",
+    "device.engine.rewire_slots",
+    "device.engine.rewire_rows",
+    "device.engine.rewire_bytes_staged",
+    "device.engine.rewire_us",
+    "device.engine.rewire_fallbacks",
+)
+
+# source-batch padding ladder; above the last rung, next power of two
+S_BUCKETS = (1, 8, 64, 512)
+
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """`device`, or the CUDA card when None.  Raises when CUDA is asked
@@ -45,14 +94,88 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
+class EpochMismatchError(RuntimeError):
+    """The caller pinned a topology epoch (`expect_epoch`) that no longer
+    matches the CsrTopology: a change landed between coalescing and
+    dispatch, so the caller recomputes instead of serving stale routes."""
+
+    def __init__(self, expected: int, actual: int) -> None:
+        super().__init__(
+            f"topology epoch moved: expected {expected}, now {actual}"
+        )
+        self.expected = expected
+        self.actual = actual
+
+
+def _s_bucket(s: int) -> int:
+    for b in S_BUCKETS:
+        if s <= b:
+            return b
+    b = S_BUCKETS[-1]
+    while b < s:
+        b *= 2
+    return b
+
+
+def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A device copy of a host array (a copy on the CPU too, so the
+    resident never aliases the mirror's arrays)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+
+
+@dataclass
+class _Resident:
+    """Device mirror of one CsrTopology plus host shadows of its three
+    mutable attribute arrays.  `ell_host` pins the host ELL object: a new
+    object means csr.refresh() rebuilt the mirror and the resident must
+    restage."""
+
+    ell_host: Any
+    version: int
+    ell: ops.EllGraph  # tensors
+    edge_src: torch.Tensor
+    edge_dst: torch.Tensor
+    edge_metric: torch.Tensor
+    edge_up: torch.Tensor
+    node_overloaded: torch.Tensor
+    out_slot: torch.Tensor
+    shadow_metric: np.ndarray = field(repr=False, default=None)
+    shadow_up: np.ndarray = field(repr=False, default=None)
+    shadow_overloaded: np.ndarray = field(repr=False, default=None)
+    sweep_hint: int = 16
+    # last CsrTopology.rewire_seq applied; a gap against csr.rewire_seq
+    # routes sync() through the rewire rung
+    rewire_seq: int = 0
+
+
 class DeviceResidencyEngine:
     def __init__(self, device: Union[str, torch.device, None] = None) -> None:
         self.device = resolve_device(device)
         self.counters = {k: 0 for k in ENGINE_COUNTER_KEYS}
+        # id(csr) -> _Resident (mirrors are long-lived per area)
+        self._residents: dict[int, _Resident] = {}
+        # per-query attribution: bytes staged and wall time of the last
+        # spf_results call
+        self.last_query_bytes = 0
+        self.last_query_us = 0
         # third dispatch rung (delta < fused full < blocked); it reads
         # this engine's device and launches phase 3 through
         # `blocked_outer` below
         self.blocked = BlockedApspEngine(parent=self)
+
+    # -- counters -----------------------------------------------------------
+
+    def get_counters(self) -> dict[str, int]:
+        """Every key of both counter families, unbumped ones at 0."""
+        return {
+            **{k: 0 for k in RESIDENCY_COUNTER_KEYS},
+            **self.counters,
+        }
+
+    def _bump(self, name: str, delta: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + delta
+
+    # -- fleet work ---------------------------------------------------------
 
     def stage(self, runner) -> None:
         """Pin a runner's tables and runtime arrays on this device."""
@@ -88,3 +211,251 @@ class DeviceResidencyEngine:
             dist, row_p, col_p, node_overloaded, k,
         )
 
+    # -- residency ----------------------------------------------------------
+
+    def has_residency(self, csr) -> bool:
+        """True when `csr`'s graph is resident (attribute drift is fine:
+        the next sync applies it incrementally)."""
+        res = self._residents.get(id(csr))
+        return res is not None and res.ell_host is csr.ell
+
+    def is_warm(self, csr) -> bool:
+        """True when `csr`'s graph is resident and current."""
+        res = self._residents.get(id(csr))
+        return (
+            res is not None
+            and res.ell_host is csr.ell
+            and res.version == csr.version
+        )
+
+    def sync(self, csr) -> _Resident:
+        """Bring `csr`'s residency to csr.version: a restage only when the
+        ELL object changed (a rebuild) or the rewire log has a gap; the
+        rewire rung for pending RewireDeltas; the incremental rung for
+        attribute changes."""
+        t0 = time.perf_counter()
+        res = self._residents.get(id(csr))
+        if res is None or res.ell_host is not csr.ell:
+            res = self._restage(csr)
+        else:
+            if csr.rewire_seq != res.rewire_seq and not self._rewire_sync(
+                res, csr
+            ):
+                self._bump("device.engine.rewire_fallbacks")
+                res = self._restage(csr)
+            if res.version != csr.version:
+                self._incremental(res, csr)
+        self._bump(
+            "device.engine.stage_us", int((time.perf_counter() - t0) * 1e6)
+        )
+        return res
+
+    def _restage(self, csr) -> _Resident:
+        dev = self.device
+        host = (
+            csr.edge_src,
+            csr.edge_dst,
+            csr.edge_metric,
+            csr.edge_up,
+            csr.node_overloaded,
+            csr.out_slot,
+        )
+        ell = csr.ell.to(dev)
+        leaves = [a for bk in csr.ell.buckets for a in bk]
+        leaves += [csr.ell.new_of_old, csr.ell.old_of_new]
+        src, dst, metric, up, overloaded, out_slot = (_put(a, dev) for a in host)
+        res = _Resident(
+            ell_host=csr.ell,
+            version=csr.version,
+            ell=ell,
+            edge_src=src,
+            edge_dst=dst,
+            edge_metric=metric,
+            edge_up=up,
+            node_overloaded=overloaded,
+            out_slot=out_slot,
+            shadow_metric=csr.edge_metric.copy(),
+            shadow_up=csr.edge_up.copy(),
+            shadow_overloaded=csr.node_overloaded.copy(),
+            sweep_hint=csr._sweep_hint,
+            rewire_seq=csr.rewire_seq,
+        )
+        if id(csr) not in self._residents:
+            # a retired mirror frees its resident with it
+            weakref.finalize(csr, self._residents.pop, id(csr), None)
+        self._residents[id(csr)] = res
+        self._bump("device.engine.full_restages")
+        self._bump(
+            "device.engine.bytes_staged",
+            sum(a.nbytes for a in host) + sum(a.nbytes for a in leaves),
+        )
+        return res
+
+    def _write(self, target: torch.Tensor, idx: np.ndarray, vals: np.ndarray) -> int:
+        """target[idx] = vals on the device (rows when `vals` is 2-D);
+        returns the bytes uploaded."""
+        i = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        target[i] = torch.from_numpy(np.ascontiguousarray(vals)).to(self.device)
+        return i.nbytes + vals.nbytes
+
+    def _incremental(self, res: _Resident, csr) -> None:
+        """Write the attribute entries whose host shadow differs from the
+        mirror — O(changed entries) uploaded, never the graph."""
+        staged = 0
+        for target, shadow, host in (
+            (res.edge_metric, res.shadow_metric, csr.edge_metric),
+            (res.edge_up, res.shadow_up, csr.edge_up),
+            (res.node_overloaded, res.shadow_overloaded, csr.node_overloaded),
+        ):
+            changed = np.flatnonzero(shadow != host)
+            if changed.size:
+                staged += self._write(target, changed, host[changed])
+                shadow[changed] = host[changed]
+        res.version = csr.version
+        self._bump("device.engine.incremental_updates")
+        self._bump("device.engine.bytes_staged", staged)
+
+    def _rewire_sync(self, res: _Resident, csr) -> bool:
+        """Replay the pending tail of csr's rewire log: slot writes for
+        the rewritten edge slots and row writes for every re-encoded ELL
+        row, O(touched slots + rows) uploaded.  Returns False, touching
+        nothing, when the log no longer holds a contiguous chain from the
+        resident's position (the caller restages)."""
+        t0 = time.perf_counter()
+        pending = [d for d in csr._rewire_log if d.seq > res.rewire_seq]
+        if (
+            not pending
+            or pending[0].seq != res.rewire_seq + 1
+            or pending[-1].seq != csr.rewire_seq
+            or any(b.seq != a.seq + 1 for a, b in zip(pending, pending[1:]))
+        ):
+            return False
+        staged = n_slots = n_rows = 0
+        for delta in pending:
+            staged += self._apply_rewire(res, delta)
+            n_slots += len(delta.slots)
+            n_rows += len(delta.ell_rows)
+            self._bump("device.engine.rewires")
+        res.rewire_seq = csr.rewire_seq
+        # the touched slots are current in the shadows; when nothing else
+        # drifted, the resident is at csr.version and the attribute rung
+        # is skipped
+        if (
+            np.array_equal(res.shadow_metric, csr.edge_metric)
+            and np.array_equal(res.shadow_up, csr.edge_up)
+            and np.array_equal(res.shadow_overloaded, csr.node_overloaded)
+        ):
+            res.version = csr.version
+        self._bump("device.engine.rewire_dispatches")
+        self._bump("device.engine.rewire_slots", n_slots)
+        self._bump("device.engine.rewire_rows", n_rows)
+        self._bump("device.engine.rewire_bytes_staged", staged)
+        self._bump("device.engine.bytes_staged", staged)
+        self._bump(
+            "device.engine.rewire_us", int((time.perf_counter() - t0) * 1e6)
+        )
+        return True
+
+    def _apply_rewire(self, res: _Resident, delta) -> int:
+        """Apply one RewireDelta to the resident; returns bytes uploaded."""
+        staged = 0
+        for target, idx, vals, shadow in (
+            (res.edge_src, delta.slots, delta.src, None),
+            (res.edge_dst, delta.slots, delta.dst, None),
+            (res.edge_metric, delta.slots, delta.metric, res.shadow_metric),
+            (res.edge_up, delta.slots, delta.up, res.shadow_up),
+            (res.out_slot, delta.out_idx, delta.out_val, None),
+        ):
+            if len(idx):
+                staged += self._write(target, idx, vals)
+                if shadow is not None:
+                    shadow[idx] = vals
+        by_bucket: dict[int, list] = {}
+        for row in delta.ell_rows:
+            by_bucket.setdefault(row[0], []).append(row)
+        for b_idx, rows in by_bucket.items():
+            bkt = res.ell.buckets[b_idx]
+            row_idx = np.asarray([r[1] for r in rows], dtype=np.int64)
+            for f, target in enumerate(bkt):
+                staged += self._write(
+                    target, row_idx, np.stack([r[2 + f] for r in rows])
+                )
+        return staged
+
+    def drop(self, csr) -> None:
+        """Forget `csr`'s residency (mirror retired)."""
+        self._residents.pop(id(csr), None)
+
+    # -- queries ------------------------------------------------------------
+
+    def spf_results(
+        self,
+        csr,
+        sources: list,
+        use_link_metric: bool = True,
+        expect_epoch: Optional[int] = None,
+    ):
+        """Distances, SP-DAG and bit-packed first hops of `sources` on the
+        resident mirror, as reference-shaped SpfResults.
+
+        The sources are padded up the S_BUCKETS ladder with the first
+        source (pad columns compute real, discarded results, so the
+        verdict stays meaningful).  Each attempt runs the resident's
+        sweep hint and reads the converged verdict once; a False verdict
+        doubles the hint (shared with csr._sweep_hint).  The converged
+        attempt's dist, DAG and words are fetched once.
+
+        `expect_epoch` pins the csr.version the caller coalesced against:
+        a moved topology raises EpochMismatchError before any device
+        work."""
+        if expect_epoch is not None and int(csr.version) != int(expect_epoch):
+            self._bump("device.engine.epoch_invalidations")
+            raise EpochMismatchError(int(expect_epoch), int(csr.version))
+        if not sources:
+            return {}
+        t_query = time.perf_counter()
+        bytes_before = self.counters.get("device.engine.bytes_staged", 0)
+        res = self.sync(csr)
+
+        src_ids = np.asarray([csr.node_id[s] for s in sources], dtype=np.int32)
+        s = len(sources)
+        s_bucket = _s_bucket(s)
+        if s_bucket > s:
+            src_ids = np.concatenate(
+                [src_ids, np.full(s_bucket - s, src_ids[0], np.int32)]
+            )
+        # topology-wide word count: unset high words decode to no bits
+        n_words = max(1, -(-csr.max_out_slots // 32))
+        t0 = time.perf_counter()
+        src_dev = torch.from_numpy(src_ids).to(self.device)
+        self._bump("device.engine.bytes_staged", src_ids.nbytes)
+        while True:
+            n_sweeps = res.sweep_hint
+            dist, dag, nh, ok = ops.spf_forward_full(
+                src_dev,
+                res.ell,
+                res.edge_src,
+                res.edge_dst,
+                res.edge_metric,
+                res.edge_up,
+                res.node_overloaded,
+                res.out_slot,
+                n_words,
+                n_sweeps,
+                use_link_metric=use_link_metric,
+            )
+            if bool(ok):
+                break
+            res.sweep_hint = n_sweeps * 2
+            # share the learned relax depth with the mirror
+            csr._sweep_hint = res.sweep_hint
+        dist, dag, nh = (t[:s].cpu().numpy() for t in (dist, dag, nh))
+        self._bump(
+            "device.engine.dispatch_us", int((time.perf_counter() - t0) * 1e6)
+        )
+        self._bump("device.engine.queries")
+        self.last_query_bytes = (
+            self.counters["device.engine.bytes_staged"] - bytes_before
+        )
+        self.last_query_us = int((time.perf_counter() - t_query) * 1e6)
+        return csr.to_spf_results(sources, dist, dag, nh)

@@ -14,15 +14,24 @@ topologies without bands (`build_ell`, `batched_sssp_ell`,
 grouped into buckets of equal power-of-two K, each row holding its
 in-edges as (neighbour, edge id) slots.  A sweep is Jacobi: every slot
 gathers from the sweep's input, so sweep counts (and the learned sweep
-hint) equal the reference's.  Only the fixed-sweep form is ported:
-`n_sweeps` sweeps plus one verification sweep, returning the converged
-verdict.  The DAG and per-row masked variants (KSP, what-if) come in a
-later slice.
+hint) equal the reference's.
+
+The per-source forward path (`spf_forward_full`, the engine's query)
+adds the edge-space SP-DAG (`make_relax_allowed_T`,
+`sp_dag_mask_from_T`) and the bit-packed first hops (`first_hops_ell`):
+first-hop sets propagated along the DAG through the same ELL tables,
+bit b of word w set for (source, node) iff out-slot 32w + b of the
+source begins a shortest path to the node.  torch has no uint32
+arithmetic on CUDA, so the words hold the reference's uint32 bit
+patterns in int32 (slot 31 is the sign bit; decode with
+`int(w) & 0xFFFFFFFF`).  The fixed-sweep forms run `n_sweeps` sweeps
+plus one verification sweep and return the converged verdict; the
+per-row masked variants (KSP, what-if) come in a later slice.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +45,9 @@ WBIG16 = 20000
 # gathers as many slots at once as fit, so a wide bucket (a fat-tree
 # spine's K = 128) costs a few launches instead of one per slot
 CHUNK_ELEMS = 1 << 24
+
+# int32 bit patterns of 1 << b, b in [0, 32): slot 31's word is negative
+WORD_BITS = np.array([1 << b for b in range(32)], dtype=np.uint32).view(np.int32)
 
 
 class EllBucket(NamedTuple):
@@ -54,10 +66,11 @@ class EllGraph(NamedTuple):
     old_of_new: np.ndarray  # [N_cap] int32 — relabelled id -> old node id
 
     def to(self, device: torch.device) -> "EllGraph":
-        """The same tables as tensors on `device`."""
+        """A copy of the tables as tensors on `device` (a copy on the CPU
+        too, so it never aliases the host arrays)."""
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
         return EllGraph(
             tuple(EllBucket(*(put(a) for a in bk)) for bk in self.buckets),
@@ -138,11 +151,15 @@ def make_dist0_T(
     return d0.masked_fill_(ids[:, None] == rows[None, :], 0)
 
 
-def _slot_chunks(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int):
+def _slot_chunks(
+    ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
+    unit_metric: bool = False,
+):
     """Loop-invariant relax tables per bucket: (row offset, rows, chunks
     of (flat gather index, ok, transit, weight) over the bucket's slots).
-    Permission and weight come from the runtime arrays through edge_id;
-    weights are clamped to WBIG so no int32 sum wraps."""
+    Permission and weight come from the runtime arrays through edge_id
+    (every weight 1 with `unit_metric`); weights are clamped to WBIG so
+    no int32 sum wraps."""
     ov_new = node_overloaded.index_select(0, ell.old_of_new)
     tables = []
     lo = 0
@@ -151,7 +168,10 @@ def _slot_chunks(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int):
         e0 = bk.edge_id.clamp(min=0).reshape(-1)
         ok = (bk.edge_id >= 0) & edge_up.index_select(0, e0).reshape(r, k)
         transit = ~ov_new.index_select(0, bk.nbr.reshape(-1)).reshape(r, k)
-        w = edge_metric.index_select(0, e0).reshape(r, k).clamp(max=WBIG)
+        if unit_metric:
+            w = torch.ones((r, k), dtype=torch.int32, device=e0.device)
+        else:
+            w = edge_metric.index_select(0, e0).reshape(r, k).clamp(max=WBIG)
         step = max(1, CHUNK_ELEMS // max(1, r * s))
         chunks = [
             (
@@ -167,25 +187,13 @@ def _slot_chunks(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int):
     return tables
 
 
-def batched_sssp_ell(
-    dist0_T: torch.Tensor,
-    ell: EllGraph,
-    edge_up: torch.Tensor,
-    node_overloaded: torch.Tensor,
-    edge_metric: torch.Tensor,
-    n_sweeps: int,
-):
-    """Fixed-sweep ELL relax (reference: ops/sssp.py batched_sssp_ell with
-    `n_sweeps`): `n_sweeps` Jacobi sweeps from `dist0_T` [N_cap, S] int32
-    (relabelled rows), then one verification sweep.  Returns (dist_T,
-    converged host bool): converged means the verification sweep
-    changed nothing.  `ell` holds tensors on the device of
-    `dist0_T`; the runtime arrays are indexed by old node id / edge id.
-
-    A slot relaxes iff its edge is up and its in-neighbour offers
-    transit (not overloaded) or is the column's source (d_u == 0)."""
-    n_cap, s = dist0_T.shape
-    tables = _slot_chunks(ell, edge_up, node_overloaded, edge_metric, s)
+def _ell_relax(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
+               unit_metric: bool = False):
+    """One Jacobi sweep over [N_cap, S] relabelled distances, as a
+    function of the sweep's input."""
+    tables = _slot_chunks(
+        ell, edge_up, node_overloaded, edge_metric, s, unit_metric
+    )
 
     def relax(d):
         out = torch.empty_like(d)
@@ -199,11 +207,53 @@ def batched_sssp_ell(
             out[lo : lo + r] = acc
         return out
 
-    d = dist0_T
+    return relax
+
+
+def _fixed_sweeps(relax, x0: torch.Tensor, n_sweeps: int):
+    """`n_sweeps` sweeps from `x0` and one verification sweep:
+    (verified result, converged as a 0-dim bool tensor on the device)."""
+    x = x0
     for _ in range(n_sweeps):
-        d = relax(d)
-    verify = relax(d)
-    return verify, torch.equal(verify, d)
+        x = relax(x)
+    verify = relax(x)
+    return verify, (verify == x).all()
+
+
+def batched_sssp_ell(
+    dist0_T: torch.Tensor,
+    ell: EllGraph,
+    edge_up: torch.Tensor,
+    node_overloaded: torch.Tensor,
+    edge_metric: torch.Tensor,
+    n_sweeps: Optional[int] = None,
+    unit_metric: bool = False,
+):
+    """ELL relax (reference: ops/sssp.py batched_sssp_ell) from `dist0_T`
+    [N_cap, S] int32 (relabelled rows).  With `n_sweeps`: that many
+    Jacobi sweeps, then one verification sweep; returns (dist_T,
+    converged host bool), converged meaning the verification sweep
+    changed nothing.  Without: sweeps to the fixed point (at most N_cap)
+    and returns dist_T.  `ell` holds tensors on the device of `dist0_T`;
+    the runtime arrays are indexed by old node id / edge id.
+
+    A slot relaxes iff its edge is up and its in-neighbour offers
+    transit (not overloaded) or is the column's source (d_u == 0).
+    `unit_metric` counts hops (every weight 1)."""
+    n_cap, s = dist0_T.shape
+    relax = _ell_relax(
+        ell, edge_up, node_overloaded, edge_metric, s, unit_metric
+    )
+    if n_sweeps is not None:
+        verify, ok = _fixed_sweeps(relax, dist0_T, n_sweeps)
+        return verify, bool(ok)
+    d = dist0_T
+    for _ in range(n_cap):
+        new = relax(d)
+        if torch.equal(new, d):
+            break
+        d = new
+    return d
 
 
 def ell_dist_to_old_T(dist_T: torch.Tensor, ell: EllGraph) -> torch.Tensor:
@@ -233,3 +283,189 @@ def spf_forward_ell_sweeps(
         n_sweeps,
     )
     return ell_dist_to_old_T(dist_T, ell), converged
+
+
+def make_relax_allowed_T(
+    sources: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_up: torch.Tensor,
+    node_overloaded: torch.Tensor,
+) -> torch.Tensor:
+    """[E, S] relax permission (reference: ops/sssp.py
+    make_relax_allowed_T without the per-row exclusions): edge up, and
+    its source not overloaded unless it is the column's own source."""
+    transit_ok = ~node_overloaded.index_select(0, edge_src)
+    return edge_up[:, None] & (
+        transit_ok[:, None] | (edge_src[:, None] == sources[None, :])
+    )
+
+
+def sp_dag_mask_from_T(
+    dist_old_T: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    allowed_T: torch.Tensor,
+) -> torch.Tensor:
+    """[S, E] shortest-path DAG (reference: ops/sssp.py
+    sp_dag_mask_from_T): edge e = (u, v) is on some shortest path from a
+    column's source iff it may relax there and d[u] + w(e) == d[v], with
+    `dist_old_T` [N_cap, S] in original ids.  Every equal-cost in-edge is
+    kept, as the host Dijkstra's path_links keep them."""
+    d_u = dist_old_T.index_select(0, edge_src)
+    d_v = dist_old_T.index_select(0, edge_dst)
+    dag_T = allowed_T & (d_u < INF32) & (d_u + edge_metric[:, None] == d_v)
+    return dag_T.T
+
+
+def spf_forward_ell(
+    sources: torch.Tensor,
+    ell: EllGraph,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    edge_up: torch.Tensor,
+    node_overloaded: torch.Tensor,
+    use_link_metric: bool = True,
+):
+    """Distances and SP-DAG at the fixed point (reference: ops/sssp.py
+    spf_forward_ell): (dist [S, N_cap] int32 in original ids, dag
+    [S, E_cap] bool)."""
+    n_cap = int(node_overloaded.shape[0])
+    dist_T = batched_sssp_ell(
+        make_dist0_T(sources, ell.new_of_old, n_cap),
+        ell,
+        edge_up,
+        node_overloaded,
+        edge_metric,
+        unit_metric=not use_link_metric,
+    )
+    dist_old_T = ell_dist_to_old_T(dist_T, ell)
+    metric = edge_metric if use_link_metric else torch.ones_like(edge_metric)
+    allowed_T = make_relax_allowed_T(sources, edge_src, edge_up, node_overloaded)
+    dag = sp_dag_mask_from_T(dist_old_T, edge_src, edge_dst, metric, allowed_T)
+    return dist_old_T.T, dag
+
+
+def _or_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Bitwise OR over dim 1, halving the dim per step."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        y = x[:, :h] | x[:, h : 2 * h]
+        if x.shape[1] % 2:
+            y[:, :1] |= x[:, 2 * h :]
+        x = y
+    return x[:, 0]
+
+
+def first_hops_ell(
+    ell: EllGraph,
+    dag_T: torch.Tensor,
+    out_slot: torch.Tensor,
+    sources: torch.Tensor,
+    edge_src: torch.Tensor,
+    n_words: int,
+    n_sweeps: int,
+):
+    """First-hop sets propagated along the SP-DAG, bit-packed (reference:
+    ops/sssp.py first_hops_ell with `n_sweeps`): `n_sweeps` Jacobi sweeps
+    through the ELL in-edge tables and one verification sweep.  Returns
+    (nh [S, N_cap, n_words] int32 in original ids, converged 0-dim bool
+    tensor).  Bit b of word w is set for (s, v) iff out-slot 32w + b of
+    column s's source begins some shortest path to v.
+
+    `dag_T` [E_cap, S] is the edge-major DAG; `out_slot` [E_cap] the
+    rank of each edge's destination among its source's unique
+    out-neighbours (-1 padding).  A DAG edge leaving the column's own
+    source contributes its out-slot bit, every other DAG edge its
+    predecessor's bits; both terms are loop invariants, built once."""
+    n_cap = int(ell.new_of_old.shape[0])
+    s = int(sources.shape[0])
+    device = dag_T.device
+    bits = torch.from_numpy(WORD_BITS).to(device)
+    words = torch.arange(n_words, device=device)
+    is_src_edge = edge_src[:, None] == sources[None, :]  # [E, S]
+    tables = []
+    lo = 0
+    for bk in ell.buckets:
+        r, k = bk.nbr.shape
+        e0 = bk.edge_id.clamp(min=0).reshape(-1)
+        on_dag = dag_T.index_select(0, e0).view(r, k, s) & (
+            bk.edge_id >= 0
+        )[:, :, None]
+        from_src = is_src_edge.index_select(0, e0).view(r, k, s)
+        slot = out_slot.index_select(0, e0).view(r, k).long()
+        bit = torch.where(slot >= 0, bits[slot.clamp(min=0) % 32], 0)
+        slot_words = torch.where(
+            (slot.clamp(min=0) // 32)[:, :, None] == words, bit[:, :, None], 0
+        )  # [R, K, W]
+        src_on = on_dag & from_src
+        step = max(1, CHUNK_ELEMS // max(1, r * s * n_words))
+        src_contrib = torch.zeros((r, s, n_words), dtype=torch.int32, device=device)
+        for j in range(0, k, step):
+            src_contrib |= _or_reduce(
+                torch.where(
+                    src_on[:, j : j + step, :, None],
+                    slot_words[:, j : j + step, None, :],
+                    0,
+                )
+            )
+        use_pred = on_dag & ~from_src
+        chunks = [
+            (bk.nbr[:, j : j + step].reshape(-1), use_pred[:, j : j + step, :, None])
+            for j in range(0, k, step)
+        ]
+        tables.append((lo, r, src_contrib, chunks))
+        lo += r
+
+    def relax(nh_T):
+        out = torch.empty_like(nh_T)
+        for lo, r, src_contrib, chunks in tables:
+            acc = nh_T[lo : lo + r] | src_contrib
+            for idx, use in chunks:
+                pred = nh_T.index_select(0, idx).view(r, -1, s, n_words)
+                acc = acc | _or_reduce(torch.where(use, pred, 0))
+            out[lo : lo + r] = acc
+        return out
+
+    nh0 = torch.zeros((n_cap, s, n_words), dtype=torch.int32, device=device)
+    nh_T, ok = _fixed_sweeps(relax, nh0, n_sweeps)
+    return nh_T.index_select(0, ell.new_of_old).transpose(0, 1), ok
+
+
+def spf_forward_full(
+    sources: torch.Tensor,
+    ell: EllGraph,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    edge_up: torch.Tensor,
+    node_overloaded: torch.Tensor,
+    out_slot: torch.Tensor,
+    n_words: int,
+    n_sweeps: int,
+    use_link_metric: bool = True,
+):
+    """Distances, SP-DAG and bit-packed first hops at a fixed sweep count
+    (reference: ops/sssp.py spf_forward_full with `n_sweeps`, the body of
+    the engine's query): (dist [S, N_cap] int32, dag [S, E_cap] bool,
+    nh [S, N_cap, W] int32, converged 0-dim bool tensor), all on the
+    device of `sources`.  The verdict ANDs the relax's and the first
+    hops' verification sweeps; reading it is the caller's one host
+    synchronisation."""
+    n_cap = int(node_overloaded.shape[0])
+    relax = _ell_relax(
+        ell, edge_up, node_overloaded, edge_metric, int(sources.shape[0]),
+        unit_metric=not use_link_metric,
+    )
+    dist_T, dist_ok = _fixed_sweeps(
+        relax, make_dist0_T(sources, ell.new_of_old, n_cap), n_sweeps
+    )
+    dist_old_T = ell_dist_to_old_T(dist_T, ell)
+    metric = edge_metric if use_link_metric else torch.ones_like(edge_metric)
+    allowed_T = make_relax_allowed_T(sources, edge_src, edge_up, node_overloaded)
+    dag = sp_dag_mask_from_T(dist_old_T, edge_src, edge_dst, metric, allowed_T)
+    nh, nh_ok = first_hops_ell(
+        ell, dag.T, out_slot, sources, edge_src, n_words, n_sweeps
+    )
+    return dist_old_T.T, dag, nh, dist_ok & nh_ok

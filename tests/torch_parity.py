@@ -5,6 +5,7 @@ identical inputs."""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -32,6 +33,52 @@ def to_jax_dbs(dbs):
         f["adjacencies"] = [jt.Adjacency(**_fields(a)) for a in db.adjacencies]
         out.append(jt.AdjacencyDatabase(**f))
     return out
+
+
+def to_port_dbs(jdbs):
+    """openr_tpu AdjacencyDatabases as port AdjacencyDatabases."""
+
+    def port(cls, obj, **extra):
+        names = [f.name for f in dataclasses.fields(cls)]
+        return cls(**{**{n: getattr(obj, n) for n in names}, **extra})
+
+    return [
+        port(
+            pt.AdjacencyDatabase,
+            db,
+            adjacencies=[port(pt.Adjacency, a) for a in db.adjacencies],
+        )
+        for db in jdbs
+    ]
+
+
+class LinkStatePair:
+    """One port and one openr_tpu LinkState, changed together: every
+    update hands each package its own copy of the database, so a caller
+    may edit a database in place between updates."""
+
+    def __init__(self, dbs=()) -> None:
+        self.ls, self.jls = LinkState(), JLinkState()
+        self.update(*dbs)
+
+    def update(self, *dbs) -> None:
+        for db in dbs:
+            self.ls.update_adjacency_database(copy.deepcopy(db))
+            self.jls.update_adjacency_database(to_jax_dbs([db])[0])
+
+
+def spf_key(result) -> dict:
+    """An SpfResult of either package as plain values: per node the
+    metric, the ordered path links ((node, iface) pairs, from node) and
+    the sorted next hops."""
+    return {
+        node: (
+            r.metric,
+            [(link.ordered_names, prev) for link, prev in r.path_links],
+            sorted(r.next_hops),
+        )
+        for node, r in result.items()
+    }
 
 
 def to_jax_entry(entry: pt.PrefixEntry) -> jt.PrefixEntry:
