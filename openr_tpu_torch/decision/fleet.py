@@ -14,6 +14,13 @@ Above the engine's node threshold the view is served by the blocked
 APSP rung (parallel.blocked).  Below it, banded topologies run the
 progressive banded relax and the fused epilogue, and topologies without
 bands (fat-trees, small or oddly named graphs) the bucketed-ELL relax.
+Both take the reference's uint16 distance mode when every metric is
+below 5000 (ops.banded.pick_small_dist): the view's product is then a
+torch.uint16 tensor with the INF16 sentinel, exactly the reference's,
+and every reader widens it through `_row_i32` or keys on its dtype.  A
+run that saturates latches the mode off for the view's runner and
+retries in int32 (`device.engine.small_dist_retries`).  The blocked rung
+is int32, as in the reference.
 
 A view is a snapshot of one LinkState version: the mirror it is built
 on refreshes its arrays in place at later versions, so everything a view
@@ -49,7 +56,14 @@ import torch
 from ..device.engine import DeviceResidencyEngine
 from ..ops import allsources as asrc
 from ..ops.banded import SpfRunner, affected_mask, build_banded
-from ..ops.sssp import INF16, INF32, build_ell
+from ..ops.sssp import (
+    INF16,
+    INF32,
+    build_ell,
+    to_u16,
+    u16_index_select,
+    u16_to_i32,
+)
 from .csr import CsrTopology
 from .link_state import LinkState
 
@@ -60,11 +74,18 @@ AFFECTED_MAX_ITERS = 128
 
 def _row_i32(row: np.ndarray) -> np.ndarray:
     """Normalize a fetched distance row to the int32/INF32 contract (a
-    uint16 row carries the INF16 sentinel of the reference's uint16
-    distance mode)."""
+    uint16 row carries the INF16 sentinel of the uint16 distance mode)."""
     if row.dtype == np.uint16:
         return np.where(row >= INF16, INF32, row.astype(np.int32))
     return row
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor of distances as numpy, dtype kept (a uint16 tensor
+    travels as its int16 view, which every device copies)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
 
 
 def _usable_edge_table(csr: CsrTopology):
@@ -155,7 +176,8 @@ def _worsened_masks(prev: "FleetRouteView", new_keys, new_met, new_ov):
 
 def _affected_init(prev: "FleetRouteView", new: "FleetRouteView"):
     """Seed of a worsening-direction warm start: the previous distances
-    with every possibly-affected entry re-set to INF32, or None when the
+    with every possibly-affected entry re-set to INF (INF16, and a uint16
+    seed, when the previous product is uint16), or None when the
     affected-set propagation did not certify its fixpoint within
     AFFECTED_MAX_ITERS passes (the caller must then cold-start).
 
@@ -182,7 +204,10 @@ def _affected_init(prev: "FleetRouteView", new: "FleetRouteView"):
     new.affected_share = int(aff.count_nonzero()) / aff.numel()
     if not done:
         return None
-    return torch.where(aff, INF32, prev._dist_dev[: runner.bg.n_nodes])
+    kept = prev._dist_dev[: runner.bg.n_nodes]
+    if kept.dtype == torch.uint16:
+        return to_u16(torch.where(aff, INF16, u16_to_i32(kept)))
+    return torch.where(aff, INF32, kept)
 
 
 def _reverse_runner(csr: CsrTopology, hint: Optional[int] = None) -> SpfRunner:
@@ -253,7 +278,8 @@ class FleetRouteView:
         self._overloaded = csr.node_overloaded.copy()
         # usable-edge table the next view's warm-start gates compare with
         self._edge_keys, self._edge_met = _usable_edge_table(csr)
-        self._dist_dev: Optional[torch.Tensor] = None  # [N*, P] int32
+        # [N*, P]: int32, or uint16 (INF16) in the uint16 distance mode
+        self._dist_dev: Optional[torch.Tensor] = None
         self._bitmap_dev: Optional[torch.Tensor] = None  # [N, P, W] int32
         # out-edge table of the build: the bitmap's slot -> neighbour map
         self._out: Optional[asrc.OutEll] = None
@@ -366,6 +392,8 @@ class FleetRouteView:
             dist, bitmap, ok = product(None)
         if runner.bg is None:
             self._engine.counters["device.engine.ell_sweeps"] += runner.sweeps
+        if not runner.small_allowed:  # a fresh runner latched it off
+            self._engine.counters["device.engine.small_dist_retries"] += 1
         if not ok:
             raise RuntimeError(
                 "fleet reverse SSSP did not reach its fixed point"
@@ -390,7 +418,7 @@ class FleetRouteView:
         i = self._node_id[node]
         hit = self._rows.get(i)
         if hit is None:
-            hit = _row_i32(self._dist_dev[i].cpu().numpy())
+            hit = _row_i32(_to_host(self._dist_dev[i]))
             self._rows[i] = hit
         return hit
 
@@ -400,8 +428,13 @@ class FleetRouteView:
         missing = [i for i in ids if i not in self._rows]
         if not missing:
             return
-        index = torch.as_tensor(missing, device=self._dist_dev.device)
-        rows = _row_i32(self._dist_dev.index_select(0, index).cpu().numpy())
+        d = self._dist_dev
+        index = torch.as_tensor(missing, device=d.device)
+        if d.dtype == torch.uint16:
+            rows = u16_index_select(d, 0, index)
+        else:
+            rows = d.index_select(0, index)
+        rows = _row_i32(_to_host(rows))
         for k, i in enumerate(missing):
             self._rows[i] = rows[k]
 

@@ -7,8 +7,11 @@ k-path machinery, which later slices bring:
 - only bidirectional links exist (both ends advertise the adjacency with
   matching interface names — maybeMakeLink, LinkState.cpp:703)
 - updateAdjacencyDatabase diffs the ordered link sets (LinkState.cpp:565-717)
-  and updates a surviving link's attributes on the existing Link object,
-  so a CSR mirror that holds the object re-reads them in place
+  and updates the updating node's end of a surviving link on the existing
+  Link object, so a CSR mirror that holds the object re-reads it in place;
+  it reports a LinkStateChange, and only a topology change (or a new
+  node) bumps `version`: next-hop addresses and adjacency labels change
+  in place without a bump, and a surviving link keeps its weight
 - the host Dijkstra keeps ECMP ties (runSpf, LinkState.cpp:809-878)
 
 The Dijkstra is the host SPF backend (decision.spf_solver.HostSpfBackend)
@@ -133,8 +136,29 @@ class Link:
     def nh_v6_from_node(self, node: str) -> str:
         return self.nh_v6_1 if self._first(node) else self.nh_v6_2
 
+    def weight_from_node(self, node: str) -> int:
+        return self.weight1 if self._first(node) else self.weight2
+
+    def overload_from_node(self, node: str) -> bool:
+        return self.overload1 if self._first(node) else self.overload2
+
+    def _set_from_node(self, node: str, attr: str, value) -> None:
+        """Set `attr` ("metric", "overload", "adj_label", "nh_v4_",
+        "nh_v6_") of `node`'s end."""
+        setattr(self, attr + ("1" if self._first(node) else "2"), value)
+
     def is_up(self) -> bool:
         return not self.overload1 and not self.overload2
+
+
+@dataclass(slots=True)
+class LinkStateChange:
+    """What one database update changed (reference:
+    LinkState::LinkStateChange, LinkState.h:306)."""
+
+    topology_changed: bool = False
+    link_attributes_changed: bool = False
+    node_label_changed: bool = False
 
 
 @dataclass(slots=True)
@@ -238,21 +262,39 @@ class LinkState:
         self._spf_results.clear()
         self._version += 1
 
-    def update_adjacency_database(self, new_adj_db: AdjacencyDatabase) -> bool:
-        """Apply one node's adjacency database; returns True when the
-        topology changed (reference: updateAdjacencyDatabase)."""
+    def update_adjacency_database(
+        self, new_adj_db: AdjacencyDatabase
+    ) -> LinkStateChange:
+        """Apply one node's adjacency database (reference:
+        updateAdjacencyDatabase, LinkState.cpp:565-717, without holds).
+
+        A new node bumps `version` once for the node set.  The topology
+        changed when the node's overload bit flipped, an up link came or
+        went, or a surviving link's metric from this node changed or its
+        overload took it up or down; that bumps `version` again.  A new
+        next-hop address or adjacency label of this node's end is written
+        in place as a link attribute change, without a bump; the node
+        label's change is reported alone.  A surviving link keeps its
+        weight."""
         node = new_adj_db.this_node_name
         if new_adj_db.area != self.area:
             raise ValueError(
                 f"adjacency database of area {new_adj_db.area!r} given to "
                 f"the link state of area {self.area!r}"
             )
+        change = LinkStateChange()
         prior_db = self._adjacency_databases.get(node)
         self._adjacency_databases[node] = new_adj_db
-        changed = prior_db is None
+        if prior_db is None:
+            # the node set changed: the mirror must re-intern its names
+            self._version += 1
         old_ov = self._node_overloads.get(node)
         self._node_overloads[node] = new_adj_db.is_overloaded
-        changed |= old_ov is not None and old_ov != new_adj_db.is_overloaded
+        change.topology_changed |= (
+            old_ov is not None and old_ov != new_adj_db.is_overloaded
+        )
+        prior_label = prior_db.node_label if prior_db is not None else 0
+        change.node_label_changed = prior_label != new_adj_db.node_label
 
         old_links = set(self.links_from_node(node))
         new_links = {
@@ -264,22 +306,35 @@ class LinkState:
             if link is not None
         }
         for link in old_links - new_links:
+            change.topology_changed |= link.is_up()
             self._remove_link(link)
-            changed = True
         by_key = {link: link for link in old_links}
         for link in new_links:
             old = by_key.get(link)
             if old is None:
+                change.topology_changed |= link.is_up()
                 self._add_link(link)
-                changed = True
-            elif _link_attrs(old) != _link_attrs(link):
-                # same (node, iface) pairs, new attributes: update the
-                # existing object, whose identity the CSR mirror keys on
-                _set_link_attrs(old, _link_attrs(link))
-                changed = True
-        if changed:
+                continue
+            # same (node, iface) pairs: update this node's end of the
+            # existing object, whose identity the CSR mirror keys on
+            if link.metric_from_node(node) != old.metric_from_node(node):
+                old._set_from_node(node, "metric", link.metric_from_node(node))
+                change.topology_changed = True
+            if link.overload_from_node(node) != old.overload_from_node(node):
+                was_up = old.is_up()
+                old._set_from_node(node, "overload", link.overload_from_node(node))
+                change.topology_changed |= was_up != old.is_up()
+            for attr, get in (
+                ("adj_label", Link.adj_label_from_node),
+                ("nh_v4_", Link.nh_v4_from_node),
+                ("nh_v6_", Link.nh_v6_from_node),
+            ):
+                if get(link, node) != get(old, node):
+                    old._set_from_node(node, attr, get(link, node))
+                    change.link_attributes_changed = True
+        if change.topology_changed:
             self._invalidate()
-        return changed
+        return change
 
     # -- SPF (reference: runSpf, LinkState.cpp:809-878) ---------------------
 
@@ -331,41 +386,3 @@ class LinkState:
         if res is None:
             res = self._spf_results[key] = self.run_spf(node, use_link_metric)
         return res
-
-
-# the per-end attributes of a Link that an adjacency update may change,
-# as (end-1 name, end-2 name) pairs
-_LINK_ATTRS = (
-    ("metric1", "metric2"),
-    ("overload1", "overload2"),
-    ("adj_label1", "adj_label2"),
-    ("nh_v4_1", "nh_v4_2"),
-    ("nh_v6_1", "nh_v6_2"),
-    ("weight1", "weight2"),
-)
-
-
-def _flipped(link: Link) -> bool:
-    """True when end 1 of `link` is the second of its ordered names: two
-    objects of one link may have their ends in either order."""
-    return (link.n1, link.if1) != link.ordered_names[0]
-
-
-def _link_attrs(link: Link) -> tuple:
-    """The attributes in the order of the link's ordered names."""
-    flip = _flipped(link)
-    return tuple(
-        (getattr(link, b), getattr(link, a)) if flip
-        else (getattr(link, a), getattr(link, b))
-        for a, b in _LINK_ATTRS
-    )
-
-
-def _set_link_attrs(link: Link, attrs: tuple) -> None:
-    """Inverse of `_link_attrs`."""
-    flip = _flipped(link)
-    for (a, b), (first, second) in zip(_LINK_ATTRS, attrs):
-        if flip:
-            first, second = second, first
-        setattr(link, a, first)
-        setattr(link, b, second)

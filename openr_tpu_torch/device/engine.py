@@ -52,11 +52,19 @@ ENGINE_COUNTER_KEYS = (
     "device.engine.dispatches",
     "device.engine.kernel_launches",
     *(f"device.engine.kernel_launches.{name}" for name in KERNELS),
+    # K1's launches per variant (the product's dtype)
+    *(
+        f"device.engine.kernel_launches.fused_epilogue.{v}"
+        for v in ("int32", "uint16")
+    ),
     # plain-PyTorch device work that shows which path a view took: ELL
     # relax sweeps (verification sweeps and hint probes included) and
     # affected-set passes of worsening warm starts
     "device.engine.ell_sweeps",
     "device.engine.affected_passes",
+    # fleet products whose uint16 run saturated, latched the mode off
+    # and ran again in int32
+    "device.engine.small_dist_retries",
 )
 
 # the per-source SPF path's residency accounting (reference: engine.py
@@ -196,12 +204,19 @@ class DeviceResidencyEngine:
         return out
 
     def epilogue(self, d, idx, w, ov, slot, n_words: int):
-        """ops.epilogue.fused_epilogue, counting the kernel launches."""
-        return self._launch(
+        """ops.epilogue.fused_epilogue, counting the kernel launches in
+        all and per variant."""
+        before = _epilogue.fused_epilogue.launches
+        out = self._launch(
             "fused_epilogue",
             _epilogue.fused_epilogue,
             d, idx, w, ov, slot, n_words,
         )
+        variant = _epilogue.variant_name(d.dtype)
+        self.counters[f"device.engine.kernel_launches.fused_epilogue.{variant}"] += (
+            _epilogue.fused_epilogue.launches - before
+        )
+        return out
 
     def blocked_outer(self, dist, row_p, col_p, node_overloaded, k: int):
         """ops.blocked_outer.blocked_outer, counting the kernel launches."""

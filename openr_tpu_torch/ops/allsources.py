@@ -17,8 +17,14 @@ convergence verdict and the bitmap.  Topologies without bands take the
 ELL fallback: the fixed-sweep ELL relax at the runner's adaptive hint,
 then `ecmp_bitmap_from_reverse_dist`, which derives the same bitmap from
 distances alone (the blocked APSP rung, parallel.blocked, uses it too).
-The reference's explicit fixed-sweep (`n_sweeps`) and unfused bench
-paths are not ported.
+
+Both paths take the reference's uint16 distance mode whenever the
+runner's `small_dist` holds (every metric below 5000): the product is a
+torch.uint16 tensor with the INF16 sentinel, half the bytes of int32,
+and its verdict includes the saturation guard.  A saturating banded run
+latches the mode off and retries once in int32; the ELL path latches
+inside `SpfRunner.adapt`.  The reference's explicit fixed-sweep
+(`n_sweeps`) and unfused bench paths are not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +36,14 @@ import torch
 
 from .banded import BandedGraph, SpfRunner, _RelaxOps, make_dist0_orig
 from .epilogue import _BITS, build_epilogue_groups, fused_epilogue
-from .sssp import INF32
+from .sssp import (
+    INF16,
+    INF32,
+    clamp_metric_u16,
+    to_u16,
+    u16_index_select,
+    u16_to_i32,
+)
 
 
 class OutEll(NamedTuple):
@@ -99,10 +112,12 @@ def ecmp_bitmap_from_reverse_dist(
     out-slot s of router v is an ECMP next hop toward destination p —
     the LFA-free condition metric(v, u) + dist(u, p) == dist(v, p)
     (Decision.cpp:1296-1300), evaluated fleet-wide from the reverse
-    distances `drev` [N*, P] int32 (drev[v, p] = dist(v -> p), INF32
-    unreachable; N* >= N rows).  An overloaded neighbour u is a next hop
-    only as the destination itself (d(u, p) == 0), the drain rule of the
-    relax.  Edge and node arrays are numpy or tensors.
+    distances `drev` [N*, P] (drev[v, p] = dist(v -> p); N* >= N rows):
+    int32 with INF32 unreachable, or a uint16-mode product (torch.uint16,
+    INF16 unreachable, metrics clamped to WBIG16 as in the reference's
+    uint16 domain).  An overloaded neighbour u is a next hop only as the
+    destination itself (d(u, p) == 0), the drain rule of the relax.
+    Edge and node arrays are numpy or tensors.
 
     Plain PyTorch, one out-slot k at a time and only over the routers
     that have a k-th out-edge: each slot's bit is ORed into its word (one
@@ -112,11 +127,20 @@ def ecmp_bitmap_from_reverse_dist(
     n, k_pad = out.nbr.shape
     p = drev.shape[1]
     device = drev.device
+    small = drev.dtype == torch.uint16
+    inf = INF16 if small else INF32
 
     def tensor(a, dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 
+    def rows_of(index):
+        if small:
+            return u16_to_i32(u16_index_select(drev, 0, index))
+        return drev.index_select(0, index)
+
     metric = tensor(edge_metric, torch.int32)
+    if small:
+        metric = clamp_metric_u16(metric)
     up = tensor(edge_up, torch.bool)
     overloaded = tensor(node_overloaded, torch.bool)
     bits = torch.from_numpy(_BITS).to(device)
@@ -129,11 +153,11 @@ def ecmp_bitmap_from_reverse_dist(
         eid = tensor(out.eid[rows, k], torch.int64)
         nbr = tensor(out.nbr[rows, k], torch.int64)
         slot = tensor(out.slot[rows, k], torch.int64)
-        d_nbr = drev.index_select(0, nbr)  # [R, P]
+        d_nbr = rows_of(nbr)  # [R, P]
         on = (
             up[eid][:, None]
-            & (d_nbr < INF32)
-            & (d_nbr + metric[eid][:, None] == drev.index_select(0, r))
+            & (d_nbr < inf)
+            & (d_nbr + metric[eid][:, None] == rows_of(r))
             & (~overloaded[nbr][:, None] | (d_nbr == 0))
         )
         bit = torch.where(slot >= 0, bits[slot.clamp(min=0) % 32], 0)
@@ -190,11 +214,17 @@ def _fused_progressive_banded(
     check_every: int,
     max_blocks: int,
     epilogue: Callable,
+    small_dist: bool,
 ):
     """Relax to the fixed point, then the fused verify + bitmap epilogue.
-    Returns (dist [N, P] int32, bitmap [N, P, W] int32, converged host
-    bool, blocks run).  `init_dist` [N*, P] warm-starts the relax: d0 is
-    its elementwise min with the cold dist0 (sources re-pinned to 0).
+    Returns (dist [N, P], bitmap [N, P, W] int32, converged host bool,
+    blocks run).  dist is int32 / INF32, or with `small_dist` the
+    torch.uint16 product of the uint16 mode: the relax runs in int32
+    over the 16-bit domain and the product is narrowed once, at the
+    fixed point, for the epilogue (whose verdict then includes the
+    saturation guard) and the view.  `init_dist` [N*, P] of either dtype
+    warm-starts the relax: d0 is its elementwise min with the cold dist0
+    (sources re-pinned to 0), after conversion to the run's domain.
 
     The relax runs blocks of `check_every` supersweeps with one host read
     per block (the block's last supersweep left d unchanged), at most
@@ -209,10 +239,18 @@ def _fused_progressive_banded(
         0 if runner.chord_mode else runner.depth,
         runner.resid_rounds,
         runner.chord_mode,
+        small_dist,
     )
-    d = make_dist0_orig(dest_ids, bg.n_nodes)
+    d = make_dist0_orig(dest_ids, bg.n_nodes, small_dist)
     if init_dist is not None:
-        d = torch.minimum(d, init_dist[: bg.n_nodes])
+        init = init_dist[: bg.n_nodes]
+        if init.dtype == torch.uint16:
+            init = u16_to_i32(init)
+            if not small_dist:
+                init = torch.where(init >= INF16, INF32, init)
+        elif small_dist:
+            init = init.clamp(max=INF16)
+        d = torch.minimum(d, init)
     blocks = 0
     converged = False
     while not converged and blocks < max_blocks:
@@ -222,6 +260,8 @@ def _fused_progressive_banded(
         converged = torch.equal(v, d)
         d = v
         blocks += 1
+    if small_dist:
+        d = to_u16(d)
     device = d.device
     groups = build_epilogue_groups(
         ops,
@@ -246,12 +286,14 @@ def reduced_all_sources(
     max_blocks: int = 64,
     epilogue: Optional[Callable] = None,
 ):
-    """Fleet-wide route-building input: (dist [N*, P] int32 tensor —
-    dist[v, p] = dist(v -> dest p), INF32 unreachable; nh_bitmap
-    [N, P, W] int32 tensor of uint32 bit patterns; converged host bool),
-    on the device the reverse runner is staged on.  N* is N on the
-    banded path and N_cap (the node capacity, original ids) on the ELL
-    path; rows past N are padding.
+    """Fleet-wide route-building input: (dist [N*, P] tensor —
+    dist[v, p] = dist(v -> dest p); nh_bitmap [N, P, W] int32 tensor of
+    uint32 bit patterns; converged host bool), on the device the reverse
+    runner is staged on.  dist is torch.uint16 with the INF16 sentinel
+    when the run took the uint16 mode (the runner's `small_dist`), else
+    int32 with INF32 unreachable; consumers key on dtype, as the
+    reference's do.  N* is N on the banded path and N_cap (the node
+    capacity, original ids) on the ELL path; rows past N are padding.
 
     `reverse_runner` is an ops.banded.SpfRunner over the REVERSED edges,
     staged.  `edge_metric`, `edge_up` and `node_overloaded` are the
@@ -265,12 +307,16 @@ def reduced_all_sources(
     caller-proven elementwise upper bound (decision.fleet's gates); a
     converged warm round equals the cold one.  Only a converged COLD run
     teaches the runner's fixed-sweep hint: blocks * check_every
-    supersweeps (warm runs converge in delta-sized counts).
+    supersweeps (warm runs converge in delta-sized counts).  A banded
+    run in the uint16 mode whose verdict fails (saturation shows as
+    non-convergence) latches the runner's `small_allowed` off and
+    retries once in int32, from the same `init_dist`.
 
     Without bands: the fixed-sweep ELL relax through
     `SpfRunner.adapt` (run at the hint, double on a False verdict,
-    refine down), then the bitmap from the converged distances, so a
-    failed attempt never pays a bitmap pass.  It always cold-starts:
+    refine down, latch the uint16 mode off on a failed run at 32 sweeps
+    or more), then the bitmap from the converged distances, so a failed
+    attempt never pays a bitmap pass.  It always cold-starts:
     `init_dist` is refused there."""
     st = reverse_runner.call_arrays()
     dest = torch.as_tensor(
@@ -281,10 +327,13 @@ def reduced_all_sources(
             raise ValueError("the ELL fallback does not warm-start")
 
         def attempt(sweeps: int):
-            return reverse_runner.run_once(dest, sweeps)
+            return reverse_runner.run_once(dest, sweeps, raw_u16=True)
 
         dist = reverse_runner.adapt(
-            "hint", attempt, probe=lambda sweeps: attempt(sweeps)[1]
+            "hint",
+            attempt,
+            probe=lambda sweeps: attempt(sweeps)[1],
+            eff_small=lambda: reverse_runner.small_dist,
         )
         bitmap = ecmp_bitmap_from_reverse_dist(
             dist, out, edge_metric, edge_up, node_overloaded, out.n_words
@@ -292,17 +341,27 @@ def reduced_all_sources(
         return dist, bitmap, True
     if maps is None:
         maps = build_epilogue_maps(reverse_runner.bg, out)
-    dist, bitmap, ok, blocks = _fused_progressive_banded(
-        dest,
-        reverse_runner,
-        maps,
-        init_dist,
-        out.n_words,
-        check_every,
-        max_blocks,
-        epilogue if epilogue is not None else fused_epilogue,
-    )
-    reverse_runner.sweeps += blocks * check_every
+
+    def run(small_dist: bool):
+        result = _fused_progressive_banded(
+            dest,
+            reverse_runner,
+            maps,
+            init_dist,
+            out.n_words,
+            check_every,
+            max_blocks,
+            epilogue if epilogue is not None else fused_epilogue,
+            small_dist,
+        )
+        reverse_runner.sweeps += result[3] * check_every
+        return result
+
+    small = reverse_runner.small_dist
+    dist, bitmap, ok, blocks = run(small)
+    if small and not ok:
+        reverse_runner.small_allowed = False
+        dist, bitmap, ok, blocks = run(False)
     if ok and init_dist is None:
         reverse_runner.hint = max(1, blocks * check_every)
     return dist, bitmap, ok

@@ -14,13 +14,17 @@ Composed band levels skip that source exception; the exact depth-0
 stages apply it, so the fixed point is exactly the reference's.
 
 Distances are int32 with INF32 unreachable and weights clamped to WBIG,
-so no sum wraps (ops.sssp).  `SpfRunner` carries both decompositions of
-a reversed graph: the bands when `build_banded` finds them, else the
-bucketed ELL of ops.sssp, which it runs at a learned fixed-sweep hint
-(`adapt`, `run_once`).  `affected_mask` is the worsening-direction
-warm-start support of the fleet view.  The per-row edge exclusions of
-the masked what-if variants and the uint16 distance mode come in later
-slices.
+so no sum wraps (ops.sssp).  The uint16 distance mode (`small_dist`,
+gated by `pick_small_dist`) runs the same int32 arithmetic over the
+16-bit domain, INF16 unreachable and weights clamped to WBIG16 before
+any narrowing, which is exactly the reference's uint16 relax: no sum of
+either wraps.  `SpfRunner` carries both decompositions of a reversed
+graph: the bands when `build_banded` finds them, else the bucketed ELL
+of ops.sssp, which it runs at a learned fixed-sweep hint (`adapt`,
+`run_once`); its `small_allowed` latches the uint16 mode off once a run
+saturates.  `affected_mask` is the worsening-direction warm-start
+support of the fleet view.  The per-row edge exclusions of the masked
+what-if variants come in a later slice.
 """
 
 from __future__ import annotations
@@ -30,7 +34,13 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .sssp import INF32, WBIG, EllGraph, spf_forward_ell_sweeps
+from .sssp import (
+    WBIG16,
+    EllGraph,
+    domain,
+    spf_forward_ell_sweeps,
+    u16_to_i32,
+)
 
 
 class BandedGraph:
@@ -166,12 +176,17 @@ def build_banded(
     )
 
 
-def make_dist0_orig(dest_ids: torch.Tensor, n_nodes: int) -> torch.Tensor:
+def make_dist0_orig(
+    dest_ids: torch.Tensor, n_nodes: int, small_dist: bool = False
+) -> torch.Tensor:
     """[N, S] int32 dist0 in original node order: 0 at row dest_ids[s] of
-    column s, INF32 elsewhere."""
+    column s, INF32 (INF16 with `small_dist`) elsewhere."""
     s = dest_ids.shape[0]
     d0 = torch.full(
-        (n_nodes, s), INF32, dtype=torch.int32, device=dest_ids.device
+        (n_nodes, s),
+        domain(small_dist)[0],
+        dtype=torch.int32,
+        device=dest_ids.device,
     )
     d0[dest_ids.long(), torch.arange(s, device=dest_ids.device)] = 0
     return d0
@@ -195,28 +210,31 @@ def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return values.index_select(0, idx.reshape(-1)).reshape(idx.shape)
 
 
-def _edge_weights(st: StagedArrays, eid: torch.Tensor) -> torch.Tensor:
-    """Clamped weight of each edge id, WBIG where the edge is padding or
-    down (a WBIG weight masks the edge)."""
+def _edge_weights(st: StagedArrays, eid: torch.Tensor, wbig: int) -> torch.Tensor:
+    """Weight of each edge id clamped to `wbig`, `wbig` where the edge is
+    padding or down (a `wbig` weight masks the edge).  The clamp comes
+    before any narrowing, so in the uint16 mode an oversized metric
+    saturates to the band infinity instead of wrapping."""
     e0 = eid.clamp(min=0)
     ok = (eid >= 0) & _gather(st.edge_up, e0)
-    m = _gather(st.edge_metric, e0).clamp(max=WBIG)
-    return torch.where(ok, m, WBIG)
+    m = _gather(st.edge_metric, e0).clamp(max=wbig)
+    return torch.where(ok, m, wbig)
 
 
-def _band_tables(bg: BandedGraph, st: StagedArrays, ov_n, depth: int):
+def _band_tables(bg: BandedGraph, st: StagedArrays, ov_n, depth: int, wbig: int):
     """Per band: depth-0 weight [N, 1], overload-of-predecessor [N, 1]
-    and the composed level weights (overload-blocked), all [N, 1]."""
+    and the composed level weights min(wl + wr, wbig) (overload-blocked),
+    all [N, 1]."""
     tables = []
     for b, c in enumerate(bg.offsets):
-        w0 = _edge_weights(st, st.band_eid[b])[:, None]
+        w0 = _edge_weights(st, st.band_eid[b], wbig)[:, None]
         ov = torch.roll(ov_n, c, 0)[:, None]  # overloaded[(v-c)%N]
-        wl = torch.where(ov, WBIG, w0)
+        wl = torch.where(ov, wbig, w0)
         levels = []
         for level in range(depth):
             wr = torch.roll(wl, (c << level) % bg.n_nodes, 0)
             wl = torch.where(
-                (wl < WBIG) & (wr < WBIG), (wl + wr).clamp(max=WBIG), WBIG
+                (wl < wbig) & (wr < wbig), (wl + wr).clamp(max=wbig), wbig
             )
             levels.append(wl)
         tables.append((w0, ov, levels))
@@ -226,7 +244,9 @@ def _band_tables(bg: BandedGraph, st: StagedArrays, ov_n, depth: int):
 class _RelaxOps:
     """Relax and verify ops over one (graph, runtime-state) binding — the
     single source of the relax semantics for the progressive loop and
-    the epilogue's group tables."""
+    the epilogue's group tables.  Distances are int32 tensors; with
+    `small_dist` they hold the 16-bit domain (`inf` INF16, `wbig`
+    WBIG16), as the reference's uint16 relax does."""
 
     def __init__(
         self,
@@ -235,24 +255,26 @@ class _RelaxOps:
         depth: int,
         resid_rounds: int,
         chord_mode: bool,
+        small_dist: bool = False,
     ) -> None:
         self.bg = bg
         self.n = bg.n_nodes
         self.chord_mode = chord_mode
         self.resid_rounds = resid_rounds
+        self.inf, self.wbig = domain(small_dist)
         self.n_resid = int(st.resid_nbr.shape[1])
         self.n_bands = len(bg.offsets)
         ov_n = st.node_overloaded[: self.n]
-        self.band_tabs = _band_tables(bg, st, ov_n, depth)
-        self.rw = _edge_weights(st, st.resid_eid)  # [N, K]
+        self.band_tabs = _band_tables(bg, st, ov_n, depth, self.wbig)
+        self.rw = _edge_weights(st, st.resid_eid, self.wbig)  # [N, K]
         self.rov = _gather(ov_n, st.resid_nbr)  # [N, K]
         self.resid_nbr = st.resid_nbr
 
     def resid_cand(self, d: torch.Tensor, k: int) -> torch.Tensor:
         du = d.index_select(0, self.resid_nbr[:, k])  # [N, S]
         w = self.rw[:, k][:, None]
-        allow = (w < WBIG) & (~self.rov[:, k][:, None] | (du == 0))
-        return torch.where(allow & (du < INF32), du + w, INF32)
+        allow = (w < self.wbig) & (~self.rov[:, k][:, None] | (du == 0))
+        return torch.where(allow & (du < self.inf), du + w, self.inf)
 
     def relax_resid(self, d: torch.Tensor) -> torch.Tensor:
         for k in range(self.n_resid):
@@ -263,8 +285,8 @@ class _RelaxOps:
         """Depth-0 band relax candidate with the exact source exception."""
         w0, ov, _ = self.band_tabs[b]
         du = torch.roll(d, self.bg.offsets[b], 0)
-        allow = (w0 < WBIG) & (~ov | (du == 0))
-        return torch.where(allow & (du < INF32), du + w0, INF32)
+        allow = (w0 < self.wbig) & (~ov | (du == 0))
+        return torch.where(allow & (du < self.inf), du + w0, self.inf)
 
     def relax_band0(self, d: torch.Tensor, b: int) -> torch.Tensor:
         return torch.minimum(d, self.band0_cand(d, b))
@@ -276,7 +298,7 @@ class _RelaxOps:
         for level, wl in enumerate(levels):
             du = torch.roll(d, (c << (level + 1)) % self.n, 0)
             cand = torch.where(
-                (wl < WBIG) & (du < INF32), du + wl, INF32
+                (wl < self.wbig) & (du < self.inf), du + wl, self.inf
             )
             d = torch.minimum(d, cand)
         return d
@@ -337,13 +359,16 @@ def affected_mask(
     done host bool, passes run): done False means `max_iters` passes
     ran out before the fixpoint, and the caller must cold-start.
 
-    The tight masks depend only on `dist`, so they are computed once
-    (one [N, S] bool per slot and band) and each pass is gathers and ORs
-    of bool matrices."""
+    A torch.uint16 `dist` is a product of the uint16 mode: the tight
+    candidates are then evaluated in its 16-bit domain (the reference's
+    `small_dist`).  The tight masks depend only on `dist`, so they are
+    computed once (one [N, S] bool per slot and band) and each pass is
+    gathers and ORs of bool matrices."""
     n = bg.n_nodes
-    ops = _RelaxOps(bg, st, 0, 1, False)
-    d = dist[:n]
-    fin = d < INF32
+    small = dist.dtype == torch.uint16
+    ops = _RelaxOps(bg, st, 0, 1, False, small_dist=small)
+    d = u16_to_i32(dist[:n]) if small else dist[:n]
+    fin = d < ops.inf
     resid = [
         (
             fin & (ops.resid_cand(d, k) == d),
@@ -371,6 +396,17 @@ def affected_mask(
     return aff, done, passes
 
 
+def pick_small_dist(edge_metric, n_edges: int) -> bool:
+    """True when every metric of the first `n_edges` edges (a numpy
+    array) is below WBIG16 // 4 = 5000 (reference: ops/banded.py
+    pick_small_dist): uint16 distances are then safe up to the
+    saturation guard, since any overflowing path must first produce a
+    finite distance in [WBIG16, INF16)."""
+    if n_edges == 0:
+        return True
+    return int(np.asarray(edge_metric[:n_edges]).max()) < WBIG16 // 4
+
+
 class SpfRunner:
     """The relax settings of one mirrored (reversed) edge set.  With bands
     (`bg`): composed-shift depth, chord mode, and the fixed-sweep hint
@@ -379,7 +415,12 @@ class SpfRunner:
     `adapt`/`run_once`.  `stage` pins its tables and runtime arrays on a
     device.  `sweeps` counts the relax sweeps run on either path (ELL
     sweeps, verification sweeps included, or banded supersweeps) and
-    `runs` the fixed-sweep ELL calls (attempts and probes)."""
+    `runs` the fixed-sweep ELL calls (attempts and probes).
+
+    `small_dist` says whether the next run takes the uint16 distance
+    mode: `small_allowed` (latched off for good once a run saturated)
+    and the metric gate, re-read from the numpy metrics on every run
+    because a mirror refresh rewrites them in place."""
 
     def __init__(
         self,
@@ -433,7 +474,14 @@ class SpfRunner:
         self.hint = hint
         self.sweeps = 0
         self.runs = 0
+        self.small_allowed = True
         self._staged: Optional[StagedArrays] = None
+
+    @property
+    def small_dist(self) -> bool:
+        return self.small_allowed and pick_small_dist(
+            self.arrays[2], self.n_edges
+        )
 
     def stage(self, device: torch.device) -> int:
         """Pin the tables (bands, else ELL buckets) and runtime arrays on
@@ -464,17 +512,25 @@ class SpfRunner:
             raise RuntimeError("SpfRunner.stage(device) has not run")
         return self._staged
 
-    def adapt(self, hint_attr: str, attempt: Callable, probe: Callable):
+    def adapt(
+        self,
+        hint_attr: str,
+        attempt: Callable,
+        probe: Callable,
+        eff_small: Callable,
+    ):
         """The fixed-sweep adaptation loop (reference: SpfRunner.adapt):
         run `attempt(sweeps)` at the learned hint, double the hint on a
         False verdict, and once a doubled run converges refine the hint
         back down with at most 3 binary `probe(mid)` steps.  Returns the
         converged attempt's result.
 
-        attempt(sweeps) -> (result, ok); probe(sweeps) -> ok.  The port
-        has no uint16 distance mode, so the reference's `eff_small`
-        branch (latching uint16 off after a failed run at >= 32 sweeps)
-        never applies: every failed verdict doubles."""
+        A failed run in the uint16 mode at 32 sweeps or more latches
+        `small_allowed` off instead of doubling (saturation also shows
+        as a False verdict), so the next attempt runs the same sweeps in
+        int32.  attempt(sweeps) -> (result, ok); probe(sweeps) -> ok;
+        eff_small() -> whether the run that just failed was in the
+        uint16 mode."""
         doubled_from: Optional[int] = None
         while True:
             sweeps = getattr(self, hint_attr)
@@ -492,14 +548,19 @@ class SpfRunner:
                             lo = mid
                     setattr(self, hint_attr, hi)
                 return result
-            doubled_from = sweeps
-            setattr(self, hint_attr, sweeps * 2)
+            if eff_small() and sweeps >= 32:
+                self.small_allowed = False
+            else:
+                doubled_from = sweeps
+                setattr(self, hint_attr, sweeps * 2)
 
-    def run_once(self, sources: torch.Tensor, n_sweeps: int):
+    def run_once(self, sources: torch.Tensor, n_sweeps: int, raw_u16: bool = False):
         """One fixed-sweep ELL relax from `sources` [S] (original ids):
-        (dist [N_cap, S] int32 in original ids, converged host bool), at
-        least 2 sweeps as in the reference.  Banded runners serve the
-        fleet product through the progressive relax
+        (dist [N_cap, S] in original ids, converged host bool), at least
+        2 sweeps as in the reference, in the uint16 mode when
+        `small_dist` holds; dist is int32 / INF32, or with `raw_u16` a
+        uint16 run's torch.uint16 product (INF16 sentinel).  Banded
+        runners serve the fleet product through the progressive relax
         (ops.allsources), not through fixed sweeps."""
         if self.bg is not None:
             raise NotImplementedError(
@@ -517,4 +578,6 @@ class SpfRunner:
             st.edge_up,
             st.node_overloaded,
             n_sweeps,
+            small_dist=self.small_dist,
+            raw_u16=raw_u16,
         )

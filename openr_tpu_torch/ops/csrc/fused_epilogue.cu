@@ -10,13 +10,22 @@
 //   cand == d[v, p]; vmin = min(d[v, p], every cand); the verdict is
 //   all(vmin == d).
 //
-// Distances are int32 on the domain d in [0, INF], w >= 0 (INF = 2^30,
-// WBIG = 2^28, so du + w < 2^31); the bitmap is [N, P, W] words of int32
-// bit patterns.
+// Two variants, one template on the element type of d:
+// - int32: d in [0, INF], w >= 0 (INF = 2^30, WBIG = 2^28, so
+//   du + w < 2^31);
+// - uint16, the reference's uint16 distance mode (fused_epilogue_pallas
+//   with d.dtype == uint16): d in [0, INF16], INF16 = 40000,
+//   WBIG16 = 20000, so du + w < 2^16 as in the reference's uint16 sums.
+//   Its verdict also holds the saturation guard of
+//   ops/sssp.py u16_saturation_verdict: no finite d in [WBIG16, INF16).
+// Both read the same [G, N] int32 tables (weights clamped to the
+// variant's WBIG by the caller) and write [N, P, W] words of int32 bit
+// patterns; every sum is taken in int32 registers.
 //
 // Bound on the H100: each input read once and each output written once is
-// N*P*4 bytes of d, N*P*W*4 bytes of bitmap and 16*G*N bytes of tables,
-// 0.25 ms at N = 100k, P = 1024, W = 1, G = 8 and 3.35 TB/s.  Per element
+// N*P*4 (uint16: N*P*2) bytes of d, N*P*W*4 bytes of bitmap and 16*G*N
+// bytes of tables, 0.25 ms (uint16: 0.18 ms) at N = 100k, P = 1024, W = 1,
+// G = 8 and 3.35 TB/s.  Per element
 // and active group the inner loop is four integer operations (add, min,
 // compare with d, predicated or), 0.2 ms at the card's int32 rate.  On top
 // of the compulsory bytes come the gathered rows d[u, :] of the groups
@@ -25,8 +34,9 @@
 //
 // Design:
 // - The columns are cut into slabs of `slab` columns, sized by the caller
-//   so that N * slab * 4 bytes fill at most half the L2 cache.  Work items
-//   (node tile, slab) run slab-major: node tiles fastest, slabs slowest,
+//   so that N * slab * sizeof(element) bytes fill at most half the L2
+//   cache.  Work items (node tile, slab) run slab-major: node tiles
+//   fastest, slabs slowest,
 //   so the blocks in flight share one slab and the residual (chord)
 //   gathers hit in L2.  The grid is persistent: as many blocks as fit on
 //   the SMs at once, each walking the items with a stride of the grid.
@@ -42,11 +52,13 @@
 //   c with c <= halo or N - c <= halo) and the node's own row are read
 //   from there; other gathers go to global memory, which means L2.  The
 //   branches on an entry are uniform across the threads of a node.
-// - Each thread owns kCols = 8 consecutive columns of a node row: int4
-//   loads of d and of the gathered segments and int4 streaming stores of
-//   the bitmap when P % 8 == 0 (a scalar path masks the ragged edge
-//   otherwise).  The groups run in unrolled chunks of kChunk whose loads
-//   are issued before any is used.
+// - Each thread owns kCols = 8 consecutive columns of a node row: 16-byte
+//   loads of d and of the gathered segments (two for int32, one for
+//   uint16) and int4 streaming stores of the bitmap when P % 8 == 0 (a
+//   scalar path masks the ragged edge otherwise; cp.async has no 2-byte
+//   copy, so the ragged uint16 window is staged by plain loads).  The
+//   groups run in unrolled chunks of kChunk whose loads are issued before
+//   any is used.
 // - Per element and group the loop keeps x = du + w - d (one three-input
 //   add), its running minimum (the verdict holds where that stays 0), and
 //   the bit where x == 0 (a compare and a predicated or).  The INF clamp
@@ -69,8 +81,20 @@
 
 namespace {
 
-constexpr int kInf = 1 << 30;
-constexpr int kWbig = 1 << 28;
+// the distance domain of each element type
+template <typename T>
+struct Domain;
+template <>
+struct Domain<int> {
+  static constexpr int kInf = 1 << 30;
+  static constexpr int kWbig = 1 << 28;
+};
+template <>
+struct Domain<unsigned short> {
+  static constexpr int kInf = 40000;
+  static constexpr int kWbig = 20000;
+};
+
 constexpr int kThreads = 256;
 constexpr int kChunk = 2;  // groups whose gathers are in flight together
 constexpr int kCols = 8;   // columns of one node row per thread
@@ -92,12 +116,13 @@ struct __align__(16) Entry {
 };
 
 struct Args {
-  const int* d;
+  const void* d;
   const int* idx;
   const int* w;
   const int* ov;
   const int* slot;
   int n, p, g, slab, tile, halo;
+  int wbig;  // the variant's WBIG: a weight at or above it masks the slot
   int* bitmap;
   int* verdict;
   Entry* entries;  // [n_tiles, gpad, tile]
@@ -128,25 +153,33 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// kCols consecutive ints from src: int4 loads when kVec (16-byte aligned;
-// through the read-only path from global memory), else scalar loads of the
-// first `left`, the rest 0
-template <bool kVec, bool kShared = false>
-__device__ __forceinline__ void load_cols(int (&out)[kCols], const int* src,
+// kCols consecutive elements of src widened to int: 16-byte loads when
+// kVec (16-byte aligned; through the read-only path from global memory),
+// else scalar loads of the first `left`, the rest 0
+template <typename T, bool kVec, bool kShared = false>
+__device__ __forceinline__ void load_cols(int (&out)[kCols], const T* src,
                                           int left) {
   if (kVec) {
+    constexpr int kPer = 16 / sizeof(T);  // elements of one 16-byte load
 #pragma unroll
-    for (int m = 0; m < kCols / 4; ++m) {
-      const int4* at = reinterpret_cast<const int4*>(src + 4 * m);
+    for (int m = 0; m < kCols / kPer; ++m) {
+      const int4* at = reinterpret_cast<const int4*>(src + kPer * m);
       const int4 v = kShared ? *at : __ldg(at);
-      out[4 * m] = v.x;
-      out[4 * m + 1] = v.y;
-      out[4 * m + 2] = v.z;
-      out[4 * m + 3] = v.w;
+      const int words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (sizeof(T) == 4) {
+          out[4 * m + i] = words[i];
+        } else {
+          // little endian: the lower half is the earlier column
+          out[8 * m + 2 * i] = words[i] & 0xFFFF;
+          out[8 * m + 2 * i + 1] = (int)((unsigned)words[i] >> 16);
+        }
+      }
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) out[k] = k < left ? __ldg(src + k) : 0;
+    for (int k = 0; k < kCols; ++k) out[k] = k < left ? (int)__ldg(src + k) : 0;
   }
 }
 
@@ -186,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_entries_kernel(Args a) {
     if (gi < a.g && v < a.n) {
       const int64_t o = (int64_t)gi * a.n + v;
       const int wg = a.w[o];
-      if (wg < kWbig) {
+      if (wg < a.wbig) {
         const int u = a.idx[o];
         const int sg = a.slot[o];
         const int r = (int)(((int64_t)u - v0 + a.halo) % a.n + a.n) % a.n;
@@ -203,31 +236,40 @@ __global__ void __launch_bounds__(kThreads) epilogue_entries_kernel(Args a) {
 }
 
 // Issue the copies of one work item (node tile `ti`, slab `c0`) into one
-// stage: the tile's [gpad, tile] entries and the [rows, slab] window.
-template <bool kVec>
+// stage: the tile's [gpad, tile] entries and the [rows, slab] window, in
+// 16-byte chunks of kPer elements (chunks per row: 1 << chunk_shift).
+template <typename T, bool kVec>
 __device__ __forceinline__ void stage_item(const Args& a, Entry* tab,
-                                           int* win, int ti, int c0,
-                                           int gpad, int quad_shift) {
+                                           T* win, int ti, int c0,
+                                           int gpad, int chunk_shift) {
+  constexpr int kPer = 16 / sizeof(T);
   const int n = a.n, p = a.p, tile = a.tile, slab = a.slab;
   const int rows = tile + 2 * a.halo;
-  const int quads = slab >> 2;
+  const int chunks = slab / kPer;
   const int v0 = ti * tile;
   const int row0 = v0 >= a.halo ? v0 - a.halo : ((v0 - a.halo) % n + n) % n;
-  for (int e = threadIdx.x; e < rows * quads; e += kThreads) {
-    const int j = e >> quad_shift;
-    const int q = e & (quads - 1);
-    const int col = c0 + 4 * q;
+  const T* d = static_cast<const T*>(a.d);
+  for (int e = threadIdx.x; e < rows * chunks; e += kThreads) {
+    const int j = e >> chunk_shift;
+    const int q = e & (chunks - 1);
+    const int col = c0 + kPer * q;
     if (col >= p) continue;
     // row (v0 - halo + j) mod n; a second wrap only when rows > n
     int row = row0 + j;
     if (row >= n) row -= n;
     if (row >= n) row %= n;
-    const int* src = a.d + (int64_t)row * p + col;
-    int* dst = win + j * slab + 4 * q;
+    const T* src = d + (int64_t)row * p + col;
+    T* dst = win + j * slab + kPer * q;
     if (kVec) {
       cp_async16(dst, src);
     } else {
-      for (int k = 0; k < 4 && col + k < p; ++k) cp_async4(dst + k, src + k);
+      for (int k = 0; k < kPer && col + k < p; ++k) {
+        if constexpr (sizeof(T) == 4) {
+          cp_async4(dst + k, src + k);
+        } else {
+          dst[k] = __ldg(src + k);
+        }
+      }
     }
   }
   const Entry* src = a.entries + (int64_t)ti * gpad * tile;
@@ -236,19 +278,23 @@ __device__ __forceinline__ void stage_item(const Args& a, Entry* tab,
   }
 }
 
-template <int W, bool kVec>
+template <typename T, int W, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fused_epilogue_kernel(Args a) {
+  constexpr int kInf = Domain<T>::kInf;
+  constexpr int kWbig = Domain<T>::kWbig;
   extern __shared__ int4 smem[];
   const int n = a.n, p = a.p, slab = a.slab, tile = a.tile, halo = a.halo;
+  const T* d = static_cast<const T*>(a.d);
   const int gpad = padded_groups(a.g);
   const int rows = tile + 2 * halo;
   const int n_tiles = (n + tile - 1) / tile;
   const int n_items = n_tiles * ((p + slab - 1) / slab);
   // two stages, each [gpad, tile] entries then the [rows, slab] window
-  const int stage_bytes = gpad * tile * (int)sizeof(Entry) + rows * slab * 4;
+  const int stage_bytes =
+      gpad * tile * (int)sizeof(Entry) + rows * slab * (int)sizeof(T);
   char* stage0 = reinterpret_cast<char*>(smem);
-  const int quad_shift = __ffs(slab >> 2) - 1;
+  const int chunk_shift = __ffs(slab / (16 / (int)sizeof(T))) - 1;
   const int lanes = slab / kCols;  // threads per node row
   const int lane_shift = __ffs(lanes) - 1;
   const int tid = threadIdx.x;
@@ -257,9 +303,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // items run slab-major: the blocks in flight share one slab
   int item = blockIdx.x;
   if (item < n_items) {
-    stage_item<kVec>(a, reinterpret_cast<Entry*>(stage0),
-                     reinterpret_cast<int*>(stage0 + gpad * tile * sizeof(Entry)),
-                     item % n_tiles, item / n_tiles * slab, gpad, quad_shift);
+    stage_item<T, kVec>(a, reinterpret_cast<Entry*>(stage0),
+                        reinterpret_cast<T*>(stage0 + gpad * tile * sizeof(Entry)),
+                        item % n_tiles, item / n_tiles * slab, gpad, chunk_shift);
   }
   cp_async_commit();
   bool ok = true;
@@ -267,13 +313,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int v0 = item % n_tiles * tile;
     const int c0 = item / n_tiles * slab;
     const Entry* tab = reinterpret_cast<const Entry*>(stage0 + s * stage_bytes);
-    const int* win = reinterpret_cast<const int*>(tab + gpad * tile);
+    const T* win = reinterpret_cast<const T*>(tab + gpad * tile);
     const int next = item + gridDim.x;
     if (next < n_items) {
       char* nst = stage0 + (s ^ 1) * stage_bytes;
-      stage_item<kVec>(a, reinterpret_cast<Entry*>(nst),
-                       reinterpret_cast<int*>(nst + gpad * tile * sizeof(Entry)),
-                       next % n_tiles, next / n_tiles * slab, gpad, quad_shift);
+      stage_item<T, kVec>(a, reinterpret_cast<Entry*>(nst),
+                          reinterpret_cast<T*>(nst + gpad * tile * sizeof(Entry)),
+                          next % n_tiles, next / n_tiles * slab, gpad, chunk_shift);
     }
     cp_async_commit();
     cp_async_wait_prior();
@@ -285,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
          t += kThreads / lanes) {
       const int v = v0 + t;
       int dv[kCols];
-      load_cols<true, true>(dv, win + (t + halo) * slab + kCols * lane, kCols);
+      load_cols<T, true, true>(dv, win + (t + halo) * slab + kCols * lane, kCols);
       // min over groups of cand - d: the verdict holds where it stays 0
       int low[kCols];
       unsigned words[kCols][W];
@@ -302,9 +348,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         for (int j = 0; j < kChunk; ++j) {
           en[j] = tab[(gb + j) * tile + t];
           if (en[j].meta & kWindow) {
-            load_cols<true, true>(du[j], win + en[j].src * slab + kCols * lane, kCols);
+            load_cols<T, true, true>(du[j], win + en[j].src * slab + kCols * lane, kCols);
           } else {
-            load_cols<kVec>(du[j], a.d + (int64_t)en[j].src * p + col, left);
+            load_cols<T, kVec>(du[j], d + (int64_t)en[j].src * p + col, left);
           }
         }
 #pragma unroll
@@ -339,7 +385,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
           for (int i = 0; i < W; ++i) words[k][i] = 0u;
         }
-        if (kVec || k < left) ok = ok && low[k] == 0;
+        if (kVec || k < left) {
+          ok = ok && low[k] == 0;
+          // uint16: a finite distance in [WBIG16, INF16) means saturation
+          if constexpr (sizeof(T) == 2) {
+            ok = ok && (dv[k] < kWbig || dv[k] >= kInf);
+          }
+        }
       }
       int* out = a.bitmap + ((int64_t)v * p + col) * W;
       if (kVec) {
@@ -371,9 +423,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (!__syncthreads_and(ok) && tid == 0) atomicAnd(a.verdict, 0);
 }
 
+template <typename T>
 size_t smem_bytes(const Args& a) {
   const size_t stage = (size_t)padded_groups(a.g) * a.tile * sizeof(Entry) +
-                       (size_t)(a.tile + 2 * a.halo) * a.slab * sizeof(int);
+                       (size_t)(a.tile + 2 * a.halo) * a.slab * sizeof(T);
   return 2 * stage;
 }
 
@@ -386,11 +439,11 @@ int sm_count(int* sms) {
   return (int)e;
 }
 
-template <int W, bool kVec>
+template <typename T, int W, bool kVec>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a);
+  const size_t smem = smem_bytes<T>(a);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = fused_epilogue_kernel<W, kVec>;
+  auto kernel = fused_epilogue_kernel<T, W, kVec>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -416,13 +469,13 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int W>
+template <typename T, int W>
 int dispatch(int n_words, bool vec, const Args& a, cudaStream_t stream) {
   if constexpr (W > kMaxWords) {
     return (int)cudaErrorInvalidValue;
   } else {
-    if (n_words != W) return dispatch<W + 1>(n_words, vec, a, stream);
-    return vec ? launch<W, true>(a, stream) : launch<W, false>(a, stream);
+    if (n_words != W) return dispatch<T, W + 1>(n_words, vec, a, stream);
+    return vec ? launch<T, W, true>(a, stream) : launch<T, W, false>(a, stream);
   }
 }
 
@@ -436,10 +489,11 @@ extern "C" long long fused_epilogue_scratch_bytes(int n, int g, int tile) {
          (long long)sizeof(Entry);
 }
 
-// d [n, p], idx/w/ov/slot [g, n] int32 and bitmap [n, p, n_words] int32 on
-// the device, all contiguous, with idx in [0, n) and slot < 32 * n_words;
-// *verdict must hold 1 and is cleared to 0 when some element is not at its
-// fixed point; `scratch` holds fused_epilogue_scratch_bytes(n, g, tile)
+// d [n, p] of `elem_bytes` 4 (int32) or 2 (uint16), idx/w/ov/slot [g, n]
+// int32 and bitmap [n, p, n_words] int32 on the device, all contiguous,
+// with idx in [0, n) and slot < 32 * n_words; *verdict must hold 1 and is
+// cleared to 0 when some element is not at its fixed point (uint16: or
+// saturated); `scratch` holds fused_epilogue_scratch_bytes(n, g, tile)
 // bytes, 16-byte aligned.  `slab` (a power of two from 8 to 2048), `tile`
 // (a power of two) and `halo` come from the caller's plan.
 // Launches the entries kernel, then the epilogue.  Returns a cudaError_t
@@ -448,21 +502,37 @@ extern "C" int fused_epilogue_launch(const void* d, const void* idx,
                                      const void* w, const void* ov,
                                      const void* slot, int n, int p, int g,
                                      int n_words, int slab, int tile,
-                                     int halo, void* bitmap, void* verdict,
-                                     void* scratch, void* stream) {
+                                     int halo, int elem_bytes, void* bitmap,
+                                     void* verdict, void* scratch,
+                                     void* stream) {
   if (n <= 0 || p <= 0) return (int)cudaSuccess;
-  if (slab < kCols || slab > kCols * kThreads || (slab & (slab - 1)) != 0 ||
-      tile < 1 || (tile & (tile - 1)) != 0 || halo < 0 || g < 0 ||
-      (uintptr_t)scratch % 16 != 0) {
+  if (slab < kCols || slab > kCols * kThreads ||
+      (slab & (slab - 1)) != 0 || tile < 1 || (tile & (tile - 1)) != 0 ||
+      halo < 0 || g < 0 || (uintptr_t)scratch % 16 != 0 ||
+      (elem_bytes != 4 && elem_bytes != 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a = {(const int*)d,    (const int*)idx, (const int*)w,
-                  (const int*)ov,   (const int*)slot, n, p, g, slab, tile,
-                  halo,             (int*)bitmap,    (int*)verdict,
+  const bool small = elem_bytes == 2;
+  const Args a = {d,
+                  (const int*)idx,
+                  (const int*)w,
+                  (const int*)ov,
+                  (const int*)slot,
+                  n,
+                  p,
+                  g,
+                  slab,
+                  tile,
+                  halo,
+                  small ? Domain<unsigned short>::kWbig : Domain<int>::kWbig,
+                  (int*)bitmap,
+                  (int*)verdict,
                   (Entry*)scratch};
   const bool vec = p % kCols == 0 && (uintptr_t)d % 16 == 0 &&
                    (uintptr_t)bitmap % 16 == 0;
-  return dispatch<1>(n_words, vec, a, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  return small ? dispatch<unsigned short, 1>(n_words, vec, a, s)
+               : dispatch<int, 1>(n_words, vec, a, s);
 }
 
 // The L2 cache size of a device in bytes, or -1 with the error left set.

@@ -10,6 +10,14 @@ a residual slot k, or a band of offset c written as the gather
 (gather index, clamped weight, overloaded predecessor, forward
 out-slot), which makes bands and residual slots the same statement.
 
+Two variants, by the product's dtype: int32 (INF32, WBIG) and the
+reference's uint16 distance mode (`fused_epilogue_pallas` with a uint16
+`d`: INF16, WBIG16, weights clamped to WBIG16 by the relax binding that
+built the tables).  The uint16 variant's verdict also holds the
+saturation guard (`ops.sssp.u16_saturation_verdict`), which the
+reference applies beside its kernel: the kernel reads every distance
+anyway, so the guard costs one compare per element.
+
 `fused_epilogue` launches the hand-written CUDA kernel
 (`csrc/fused_epilogue.cu`) for tensors on a CUDA device and runs the
 plain PyTorch version `fused_epilogue_reference` for tensors on the CPU.
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 
 from ._build import load
-from .sssp import INF32, WBIG
+from .sssp import domain, u16_saturation_verdict, u16_to_i32
 
 # the kernel keeps the bitmap words in registers, at most this many
 MAX_WORDS = 8
@@ -105,20 +113,25 @@ class EpiloguePlan(NamedTuple):
     far_bands: tuple
 
 
-def plan_smem_bytes(node_tile: int, slab_cols: int, halo: int, n_groups: int) -> int:
+def plan_smem_bytes(node_tile: int, slab_cols: int, halo: int, n_groups: int,
+                    elem_bytes: int = 4) -> int:
     """Shared memory of one block: two stages (the next item's copies land
     while this one computes), each the tile's [G, tile] table entries,
-    groups padded to a chunk, and the [tile + 2 halo, slab] window of d."""
+    groups padded to a chunk, and the [tile + 2 halo, slab] window of d
+    (`elem_bytes` per element: 4 for int32, 2 for uint16)."""
     gpad = -(-n_groups // CHUNK) * CHUNK
-    return 2 * (gpad * node_tile * ENTRY_BYTES + (node_tile + 2 * halo) * slab_cols * 4)
+    window = (node_tile + 2 * halo) * slab_cols * elem_bytes
+    return 2 * (gpad * node_tile * ENTRY_BYTES + window)
 
 
 def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
-                  n_groups: int = 0) -> EpiloguePlan:
-    """The tiling of the epilogue kernel for an [n, p] product.
+                  n_groups: int = 0, elem_bytes: int = 4) -> EpiloguePlan:
+    """The tiling of the epilogue kernel for an [n, p] product of
+    `elem_bytes` per distance (4 for int32, 2 for uint16, whose 16-byte
+    copies carry 8 columns).
 
     The slab is the widest power of two from 32 to 256 whose column slab
-    (n x slab int32) fills at most half of `l2_bytes`, and no wider than
+    (n x slab elements) fills at most half of `l2_bytes`, and no wider than
     p needs; 32 when none fits.  The node tile covers TILE_ELEMS elements
     of the slab, halved (down to MIN_TILE, then the slab too) while a
     block with `n_groups` groups would need more than SMEM_BUDGET of
@@ -128,51 +141,65 @@ def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
     while need < min(p, SLAB_WIDTHS[0]):
         need *= 2
     slab = next(
-        (c for c in SLAB_WIDTHS if c <= need and n * c * 4 <= l2_bytes // 2),
+        (
+            c
+            for c in SLAB_WIDTHS
+            if c <= need and n * c * elem_bytes <= l2_bytes // 2
+        ),
         SLAB_WIDTHS[-1],
     )
+
+    def smem(tile, slab):
+        return plan_smem_bytes(tile, slab, HALO, n_groups, elem_bytes)
+
     tile = TILE_ELEMS // slab
-    while tile > MIN_TILE and plan_smem_bytes(tile, slab, HALO, n_groups) > SMEM_BUDGET:
+    while tile > MIN_TILE and smem(tile, slab) > SMEM_BUDGET:
         tile //= 2
-    while slab > SLAB_WIDTHS[-1] and plan_smem_bytes(tile, slab, HALO, n_groups) > SMEM_BUDGET:
+    while slab > SLAB_WIDTHS[-1] and smem(tile, slab) > SMEM_BUDGET:
         slab //= 2
     near = tuple(c for c in band_offsets if c <= HALO or n - c <= HALO)
     far = tuple(c for c in band_offsets if c not in near)
     return EpiloguePlan(slab, tile, HALO, near, far)
 
 
-def epilogue_traffic(idx: np.ndarray, w: np.ndarray, p: int, plan: EpiloguePlan) -> dict:
+def epilogue_traffic(idx: np.ndarray, w: np.ndarray, p: int, plan: EpiloguePlan,
+                     small_dist: bool = False) -> dict:
     """What the kernel's data needs, from host copies of the [G, N]
-    tables: the active (node, group) pairs (w < WBIG, each 4 integer
-    operations per column), and the gathers whose row falls outside the
-    block's window, which the kernel reads from global memory (L2 or
-    device memory) on top of the compulsory bytes."""
+    tables: the active (node, group) pairs (w below the variant's WBIG,
+    each 4 integer operations per column), and the gathers whose row
+    falls outside the block's window, which the kernel reads from global
+    memory (L2 or device memory) on top of the compulsory bytes."""
     g, n = idx.shape
     v = np.arange(n, dtype=np.int64)
     v0 = v // plan.node_tile * plan.node_tile
     r = (idx.astype(np.int64) - v0 + plan.halo) % n
-    active = w < WBIG
+    active = w < domain(small_dist)[1]
     far = active & (r >= plan.node_tile + 2 * plan.halo)
     return {
         "active_pairs": int(active.sum()),
-        "gather_bytes": int(far.sum()) * p * 4,
+        "gather_bytes": int(far.sum()) * p * (2 if small_dist else 4),
     }
 
 
 def fused_epilogue_reference(d, idx, w, ov, slot, n_words: int):
     """Plain PyTorch epilogue: (bitmap [N, P, W] int32, converged 0-d bool
     tensor).  Evaluates one group at a time, so one [N, P] candidate is
-    alive at a time."""
+    alive at a time.  A uint16 `d` is widened to int32 and evaluated with
+    INF16 and WBIG16; its verdict also holds the saturation guard."""
+    small = d.dtype == torch.uint16
+    if small:
+        d = u16_to_i32(d)
+    inf, wbig = domain(small)
     n, p = d.shape
     bits = torch.from_numpy(_BITS).to(d.device)
-    fin = d < INF32
+    fin = d < inf
     vmin = d
     bitmap = torch.zeros((n, p, n_words), dtype=torch.int32, device=d.device)
     for g in range(idx.shape[0]):
         du = d.index_select(0, idx[g])
         wg = w[g][:, None]
-        allow = (wg < WBIG) & ((ov[g] == 0)[:, None] | (du == 0))
-        cand = torch.where(allow & (du < INF32), du + wg, INF32)
+        allow = (wg < wbig) & ((ov[g] == 0)[:, None] | (du == 0))
+        cand = torch.where(allow & (du < inf), du + wg, inf)
         on = fin & (cand == d)
         sg = slot[g]
         bit = torch.where(
@@ -183,14 +210,17 @@ def fused_epilogue_reference(d, idx, w, ov, slot, n_words: int):
             hit = on & (word == wi)[:, None]
             bitmap[:, :, wi] |= torch.where(hit, bit, 0)
         vmin = torch.minimum(vmin, cand)
-    return bitmap, (vmin == d).all()
+    converged = (vmin == d).all()
+    if small:
+        converged = u16_saturation_verdict(d, converged)
+    return bitmap, converged
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load("fused_epilogue")
     lib.fused_epilogue_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
     )
     lib.fused_epilogue_launch.restype = ctypes.c_int
     lib.fused_epilogue_scratch_bytes.argtypes = [ctypes.c_int] * 3
@@ -213,14 +243,19 @@ def l2_bytes(device_index: int) -> int:
 
 
 def _check_args(d, tables, n_words: int) -> None:
-    """Host-side checks only (no device read): dtype, device, shape,
-    contiguity and n_words; the tables' value ranges are checked where
-    they are built (check_epilogue_groups)."""
+    """Host-side checks only (no device read): dtype (d int32 or uint16,
+    the tables int32), device, shape, contiguity and n_words; the
+    tables' value ranges are checked where they are built
+    (check_epilogue_groups).  Any P is taken: a ragged row (P not a
+    multiple of 8) runs the kernel's scalar path, which reads no column
+    past P."""
+    if d.dtype not in (torch.int32, torch.uint16):
+        raise ValueError(f"fused_epilogue takes an int32 or uint16 d; got {d.dtype}")
     n, _ = d.shape
     for t in (d, *tables):
-        if t.device != d.device or t.dtype != torch.int32:
+        if t.device != d.device or (t is not d and t.dtype != torch.int32):
             raise ValueError(
-                "fused_epilogue takes int32 tensors on one device; got "
+                "fused_epilogue takes int32 tables on d's device; got "
                 f"{t.dtype} on {t.device} beside {d.dtype} on {d.device}"
             )
         if not t.is_contiguous():
@@ -237,12 +272,16 @@ def _check_args(d, tables, n_words: int) -> None:
 
 def fused_epilogue(d, idx, w, ov, slot, n_words: int, plan=None):
     """(bitmap [N, P, W] int32, converged 0-d bool tensor) of the epilogue
-    over the converged product `d` [N, P] int32 and the group tables
-    [G, N] int32 (`build_epilogue_groups`, whose range check the kernel
-    relies on).  The domain is d in [0, INF32] and weights >= 0 (every
-    product of the relax lies in it).  Runs the CUDA kernel for CUDA
-    tensors, tiled by `plan` (default: `epilogue_plan` for the card's
-    L2), with no host sync, and the plain version for CPU tensors."""
+    over the converged product `d` [N, P] and the group tables [G, N]
+    int32 (`build_epilogue_groups`, whose range check the kernel relies
+    on).  `d` is int32 on the domain [0, INF32], or torch.uint16 on
+    [0, INF16] (the uint16 variant, whose verdict holds the saturation
+    guard); weights are >= 0.  Every product of the relax lies in its
+    domain.  Runs the CUDA kernel for CUDA tensors, tiled by `plan`
+    (default: `epilogue_plan` for the card's L2 and d's element size),
+    with no host sync, and the plain version for CPU tensors.  Each
+    launch counts in `launches` and in `variant_launches` under d's
+    dtype name."""
     if d.device.type == "cpu":
         return fused_epilogue_reference(d, idx, w, ov, slot, n_words)
     if d.device.type != "cuda":
@@ -253,7 +292,9 @@ def fused_epilogue(d, idx, w, ov, slot, n_words: int, plan=None):
     n, p = d.shape
     g = idx.shape[0]
     if plan is None:
-        plan = epilogue_plan(n, p, (), l2_bytes(d.device.index), g)
+        plan = epilogue_plan(
+            n, p, (), l2_bytes(d.device.index), g, d.element_size()
+        )
     bitmap = torch.empty((n, p, n_words), dtype=torch.int32, device=d.device)
     verdict = torch.ones(1, dtype=torch.int32, device=d.device)
     # the derived table entries of every node tile, written by the launch
@@ -273,6 +314,7 @@ def fused_epilogue(d, idx, w, ov, slot, n_words: int, plan=None):
             plan.slab_cols,
             plan.node_tile,
             plan.halo,
+            d.element_size(),
             bitmap.data_ptr(),
             verdict.data_ptr(),
             scratch.data_ptr(),
@@ -282,7 +324,14 @@ def fused_epilogue(d, idx, w, ov, slot, n_words: int, plan=None):
         msg = lib.fused_epilogue_error_string(rc).decode()
         raise RuntimeError(f"fused_epilogue kernel launch failed: {msg}")
     fused_epilogue.launches += 1
+    fused_epilogue.variant_launches[variant_name(d.dtype)] += 1
     return bitmap, verdict[0] != 0
 
 
+def variant_name(dtype: torch.dtype) -> str:
+    """The epilogue variant a product of `dtype` takes: "int32" or "uint16"."""
+    return "uint16" if dtype == torch.uint16 else "int32"
+
+
 fused_epilogue.launches = 0
+fused_epilogue.variant_launches = {"int32": 0, "uint16": 0}

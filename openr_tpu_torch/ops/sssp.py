@@ -4,9 +4,17 @@ The constants are the values of `openr_tpu.ops.sssp` (INF32, INF16,
 WBIG16) and `openr_tpu.ops.banded` (WBIG) as plain ints.  The port
 computes in int32: distances stay below INF32 = 2^30 and clamped weights
 at or below WBIG = 2^28, so every relax sum is below 2^31 and never
-wraps.  INF16 and WBIG16 belong to the reference's uint16 distance mode,
-which the port does not run yet; they are kept so the tests can map that
-mode onto the int32 domain.
+wraps.
+
+The uint16 distance mode (the reference's `small_dist`) keeps the same
+int32 arithmetic over the 16-bit domain: INF16 marks unreachable and
+weights are clamped to WBIG16, so a finite distance below INF16 plus a
+clamped weight stays below 2^16, exactly the reference's uint16 sums.
+torch has no uint16 arithmetic, so a product is narrowed to
+`torch.uint16` once, at its fixed point (`to_u16`), and widened where
+plain code reads it (`u16_to_i32`); both go through an int16 view.
+`u16_saturation_verdict` is the guard that certifies no true distance
+overflowed the mode.
 
 The ELL relax is the port of `openr_tpu.ops.sssp`'s fallback for
 topologies without bands (`build_ell`, `batched_sssp_ell`,
@@ -40,6 +48,59 @@ INF32 = 1 << 30
 WBIG = 1 << 28
 INF16 = 40000
 WBIG16 = 20000
+
+
+def domain(small_dist: bool) -> tuple[int, int]:
+    """(inf, wbig) of the int32 domain or of the uint16 mode."""
+    return (INF16, WBIG16) if small_dist else (INF32, WBIG)
+
+
+def to_u16(x: torch.Tensor) -> torch.Tensor:
+    """int32 values in [0, 2^16) as a torch.uint16 tensor of the same
+    shape (through int16, whose casts every device has)."""
+    return torch.where(x >= 1 << 15, x - (1 << 16), x).to(torch.int16).view(
+        torch.uint16
+    )
+
+
+def u16_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """A torch.uint16 tensor widened to int32, values unchanged."""
+    return x.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def u16_index_select(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """index_select of a torch.uint16 tensor (through its int16 view)."""
+    return x.view(torch.int16).index_select(dim, index).view(torch.uint16)
+
+
+def clamp_metric_u16(metric: torch.Tensor) -> torch.Tensor:
+    """Weights of the uint16 mode, still int32: clamped to WBIG16 before
+    any narrowing, so an oversized metric saturates to the band infinity
+    and never wraps (reference: ops/sssp.py clamp_metric_u16)."""
+    return metric.clamp(max=WBIG16)
+
+
+def u16_saturation_verdict(dist: torch.Tensor, converged):
+    """AND a convergence verdict with the saturation guard (reference:
+    ops/sssp.py u16_saturation_verdict) over a product of the 16-bit
+    domain (uint16, or int32 with the INF16 sentinel): with every weight
+    below WBIG16, a true distance that would overflow INF16 forces some
+    entry into the finite band [WBIG16, INF16) first, so a clean margin
+    certifies that no distance saturated.  `converged` is a host bool or
+    a 0-dim bool tensor; the result is of the same kind."""
+    if dist.dtype == torch.uint16:
+        dist = u16_to_i32(dist)
+    saturated = ((dist >= WBIG16) & (dist < INF16)).any()
+    if isinstance(converged, torch.Tensor):
+        return converged & ~saturated
+    return bool(converged) and not bool(saturated)
+
+
+def u16_dist_to_i32(dist: torch.Tensor) -> torch.Tensor:
+    """The uint16 / INF16 domain mapped onto the int32 / INF32 contract
+    (reference: ops/sssp.py u16_dist_to_i32)."""
+    d = u16_to_i32(dist)
+    return torch.where(d >= INF16, INF32, d)
 
 # elements of one gathered [R, slots, S] chunk of a bucket: a sweep
 # gathers as many slots at once as fit, so a wide bucket (a fat-tree
@@ -139,27 +200,34 @@ def build_ell(
 
 
 def make_dist0_T(
-    sources: torch.Tensor, new_of_old: torch.Tensor, n_cap: int
+    sources: torch.Tensor,
+    new_of_old: torch.Tensor,
+    n_cap: int,
+    small_dist: bool = False,
 ) -> torch.Tensor:
     """[N_cap, S] int32 dist0 in relabelled rows: 0 at each column's
-    source, INF32 elsewhere (a dense compare, as in the reference)."""
+    source, INF32 (INF16 with `small_dist`) elsewhere (a dense compare,
+    as in the reference)."""
     rows = new_of_old.index_select(0, sources)
     ids = torch.arange(n_cap, dtype=rows.dtype, device=rows.device)
     d0 = torch.full(
-        (n_cap, rows.shape[0]), INF32, dtype=torch.int32, device=rows.device
+        (n_cap, rows.shape[0]),
+        domain(small_dist)[0],
+        dtype=torch.int32,
+        device=rows.device,
     )
     return d0.masked_fill_(ids[:, None] == rows[None, :], 0)
 
 
 def _slot_chunks(
     ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
-    unit_metric: bool = False,
+    unit_metric: bool = False, small_dist: bool = False,
 ):
     """Loop-invariant relax tables per bucket: (row offset, rows, chunks
     of (flat gather index, ok, transit, weight) over the bucket's slots).
     Permission and weight come from the runtime arrays through edge_id
-    (every weight 1 with `unit_metric`); weights are clamped to WBIG so
-    no int32 sum wraps."""
+    (every weight 1 with `unit_metric`); weights are clamped to WBIG
+    (WBIG16 with `small_dist`) so no sum leaves its domain."""
     ov_new = node_overloaded.index_select(0, ell.old_of_new)
     tables = []
     lo = 0
@@ -171,7 +239,8 @@ def _slot_chunks(
         if unit_metric:
             w = torch.ones((r, k), dtype=torch.int32, device=e0.device)
         else:
-            w = edge_metric.index_select(0, e0).reshape(r, k).clamp(max=WBIG)
+            w = edge_metric.index_select(0, e0).reshape(r, k)
+            w = w.clamp(max=domain(small_dist)[1])
         step = max(1, CHUNK_ELEMS // max(1, r * s))
         chunks = [
             (
@@ -188,12 +257,13 @@ def _slot_chunks(
 
 
 def _ell_relax(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
-               unit_metric: bool = False):
+               unit_metric: bool = False, small_dist: bool = False):
     """One Jacobi sweep over [N_cap, S] relabelled distances, as a
     function of the sweep's input."""
     tables = _slot_chunks(
-        ell, edge_up, node_overloaded, edge_metric, s, unit_metric
+        ell, edge_up, node_overloaded, edge_metric, s, unit_metric, small_dist
     )
+    inf = domain(small_dist)[0]
 
     def relax(d):
         out = torch.empty_like(d)
@@ -201,8 +271,8 @@ def _ell_relax(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
             acc = d[lo : lo + r]
             for idx, ok, transit, w in chunks:
                 du = d.index_select(0, idx).view(r, -1, s)
-                allow = ok & (transit | (du == 0)) & (du < INF32)
-                cand = torch.where(allow, du + w, INF32)
+                allow = ok & (transit | (du == 0)) & (du < inf)
+                cand = torch.where(allow, du + w, inf)
                 acc = torch.minimum(acc, cand.amin(dim=1))
             out[lo : lo + r] = acc
         return out
@@ -228,9 +298,12 @@ def batched_sssp_ell(
     edge_metric: torch.Tensor,
     n_sweeps: Optional[int] = None,
     unit_metric: bool = False,
+    small_dist: bool = False,
 ):
     """ELL relax (reference: ops/sssp.py batched_sssp_ell) from `dist0_T`
-    [N_cap, S] int32 (relabelled rows).  With `n_sweeps`: that many
+    [N_cap, S] int32 (relabelled rows), in the 16-bit domain with
+    `small_dist` (INF16, weights clamped to WBIG16; the reference keys
+    that on dist0's uint16 dtype).  With `n_sweeps`: that many
     Jacobi sweeps, then one verification sweep; returns (dist_T,
     converged host bool), converged meaning the verification sweep
     changed nothing.  Without: sweeps to the fixed point (at most N_cap)
@@ -242,7 +315,7 @@ def batched_sssp_ell(
     `unit_metric` counts hops (every weight 1)."""
     n_cap, s = dist0_T.shape
     relax = _ell_relax(
-        ell, edge_up, node_overloaded, edge_metric, s, unit_metric
+        ell, edge_up, node_overloaded, edge_metric, s, unit_metric, small_dist
     )
     if n_sweeps is not None:
         verify, ok = _fixed_sweeps(relax, dist0_T, n_sweeps)
@@ -268,21 +341,33 @@ def spf_forward_ell_sweeps(
     edge_up: torch.Tensor,
     node_overloaded: torch.Tensor,
     n_sweeps: int,
+    small_dist: bool = False,
+    raw_u16: bool = False,
 ):
     """Fixed-sweep ELL forward in the kernel's native layout (reference:
     ops/sssp.py spf_forward_ell_sweeps with want_dag=False,
-    transpose=False): (dist [N_cap, S] int32 in original node ids,
-    converged host bool)."""
+    transpose=False): (dist [N_cap, S] in original node ids, converged
+    host bool).  dist is int32 / INF32; with `small_dist` the relax runs
+    in the 16-bit domain, the verdict includes the saturation guard, and
+    `raw_u16` returns the product as torch.uint16 with the INF16
+    sentinel (consumers key on dtype)."""
     n_cap = int(node_overloaded.shape[0])
     dist_T, converged = batched_sssp_ell(
-        make_dist0_T(sources, ell.new_of_old, n_cap),
+        make_dist0_T(sources, ell.new_of_old, n_cap, small_dist),
         ell,
         edge_up,
         node_overloaded,
         edge_metric,
         n_sweeps,
+        small_dist=small_dist,
     )
-    return ell_dist_to_old_T(dist_T, ell), converged
+    dist = ell_dist_to_old_T(dist_T, ell)
+    if not small_dist:
+        return dist, converged
+    converged = u16_saturation_verdict(dist, converged)
+    if raw_u16:
+        return to_u16(dist), converged
+    return torch.where(dist >= INF16, INF32, dist), converged
 
 
 def make_relax_allowed_T(

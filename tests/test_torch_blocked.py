@@ -31,6 +31,7 @@ from openr_tpu_torch.decision.spf_solver import SpfSolver
 from openr_tpu_torch.device.engine import DeviceResidencyEngine
 from openr_tpu_torch.ops import allsources as asrc
 from openr_tpu_torch.ops import blocked_outer as bo
+from openr_tpu_torch.ops.sssp import u16_dist_to_i32
 from openr_tpu_torch.parallel import blocked as pblk
 from openr_tpu_torch.utils import topo
 
@@ -243,7 +244,11 @@ def test_blocked_view_matches_fused_product(monkeypatch):
     vb = FleetViewCache().view(ls, dests, engine=_blocked_engine())
     vf = FleetViewCache().view(ls, dests, device="cpu")
     assert vb.node_sharded and not vf.node_sharded
-    assert torch.equal(vb._dist_dev, vf._dist_dev)
+    # the blocked rung is int32, the fused view uint16 (small metrics);
+    # distances agree after the int32 normalization, as in the reference
+    assert vb._dist_dev.dtype == torch.int32
+    assert vf._dist_dev.dtype == torch.uint16
+    assert torch.equal(vb._dist_dev, u16_dist_to_i32(vf._dist_dev))
     assert torch.equal(vb._bitmap_dev, vf._bitmap_dev)
 
 

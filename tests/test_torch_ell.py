@@ -5,8 +5,7 @@ disconnected graphs) take the bucketed-ELL relax in both packages: the
 same relabelling and buckets (`build_ell`), the same fixed-sweep relax
 and convergence verdicts (`batched_sssp_ell`, `spf_forward_ell_sweeps`),
 the same adaptive sweep hint and fleet product (`reduced_all_sources`,
-the reference's uint16 distances normalized as `fleet._row_i32` does),
-and the same route DBs.  Integer min-plus: tolerance 0.
+uint16 distances in both, compared raw), and the same route DBs.  Integer min-plus: tolerance 0.
 """
 
 from __future__ import annotations
@@ -17,7 +16,6 @@ import pytest
 import torch
 
 from openr_tpu.decision.fleet import _reverse_runner as j_reverse_runner
-from openr_tpu.decision.fleet import _row_i32
 from openr_tpu.decision.spf_solver import SpfSolver as JSpfSolver
 from openr_tpu.ops import allsources as jasrc
 from openr_tpu.ops import sssp as jsssp
@@ -208,7 +206,7 @@ def _reference_product(jcsr, jrunner, dests):
         np.asarray(dests, dtype=np.int32), jrunner, jout,
         jcsr.edge_metric, jcsr.edge_up, jcsr.node_overloaded,
     )
-    return _row_i32(np.asarray(dist)), np.asarray(bitmap), ok
+    return np.asarray(dist), np.asarray(bitmap), ok
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -227,12 +225,15 @@ def test_reduced_all_sources_without_bands_equals_reference(name):
     )
     assert ok is True and jok is True
     assert tuple(dist.shape) == (csr.node_capacity, len(dests))
+    # the reference's dtype (uint16: every metric is below 5000) and raw
+    # values, INF16 sentinels included
+    assert dist.dtype == torch.uint16 and jdist.dtype == np.uint16
     np.testing.assert_array_equal(dist.numpy(), jdist)
     np.testing.assert_array_equal(bitmap.numpy().view(np.uint32), jbitmap)
     assert runner.hint == jrunner.hint
     assert runner.sweeps > 0
     if name == "two_components":
-        assert (dist.numpy()[: csr.n_nodes] == sssp.INF32).any()
+        assert (dist.numpy()[: csr.n_nodes] == sssp.INF16).any()
 
 
 def test_ell_path_refuses_a_warm_start():

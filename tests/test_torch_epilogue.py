@@ -52,7 +52,7 @@ CASES = {
 LAX_CASES = {"ring65", "wan256"}
 
 
-def _port_groups(runner, maps, n_words, device="cpu"):
+def _port_groups(runner, maps, n_words, device="cpu", small=False):
     runner.stage(torch.device(device))
     ops = _RelaxOps(
         runner.bg,
@@ -60,6 +60,7 @@ def _port_groups(runner, maps, n_words, device="cpu"):
         0 if runner.chord_mode else runner.depth,
         runner.resid_rounds,
         runner.chord_mode,
+        small,
     )
     return ep.build_epilogue_groups(
         ops,
@@ -257,13 +258,16 @@ def test_wrapper_refuses_non_cuda_accelerator_tensors():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_reference_on_card():
+@pytest.mark.parametrize("small", [True, False], ids=["uint16", "int32"])
+def test_kernel_matches_reference_on_card(small):
     """The CUDA kernel against the plain version on the card, bit for
-    bit (runs with `-m cuda` on a machine with an sm_90 card)."""
+    bit, in both variants (runs with `-m cuda` on a machine with an sm_90
+    card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     csr, _ = mirrors(FAMILIES["hub_w2"]())
     runner = _reverse_runner(csr)
+    runner.small_allowed = small
     out = asrc.build_out_ell(
         csr.edge_src, csr.edge_dst, csr.n_edges, csr.n_nodes, csr.out_slot
     )
@@ -274,8 +278,10 @@ def test_kernel_matches_reference_on_card():
         csr.node_overloaded, maps=maps,
         epilogue=ep.fused_epilogue_reference,
     )
-    assert ok
-    groups = tuple(g.cuda() for g in _port_groups(runner, maps, out.n_words, "cuda"))
+    assert ok and (dist.dtype == torch.uint16) == small
+    groups = tuple(
+        g.cuda() for g in _port_groups(runner, maps, out.n_words, "cuda", small)
+    )
     want = ep.fused_epilogue_reference(dist, *groups, out.n_words)
     got = ep.fused_epilogue(dist, *groups, out.n_words)
     torch.cuda.synchronize()

@@ -19,7 +19,6 @@ import torch
 
 from benchmarks import synthetic
 from openr_tpu.decision.fleet import _reverse_runner as j_reverse_runner
-from openr_tpu.decision.fleet import _row_i32
 from openr_tpu.decision.spf_solver import SpfSolver as JSpfSolver
 from openr_tpu.ops import allsources as jasrc
 from openr_tpu.ops import pallas_kernels as pk
@@ -28,6 +27,7 @@ from openr_tpu_torch.decision.fleet import FleetViewCache, _reverse_runner
 from openr_tpu_torch.decision.spf_solver import SpfSolver
 from openr_tpu_torch.ops import allsources as asrc
 from openr_tpu_torch.ops.banded import _RelaxOps
+from openr_tpu_torch.ops.sssp import u16_to_i32
 from openr_tpu_torch.utils import topo
 
 from torch_parity import (
@@ -97,7 +97,7 @@ def _reference_product(jtopo, dest_ids):
     assert counters == {"device.engine.pallas_products": 1}, counters
     n = int(jtopo.n_nodes)
     return (
-        _row_i32(np.asarray(jax.device_get(dist)))[:n],
+        np.asarray(jax.device_get(dist))[:n],
         np.asarray(jax.device_get(bitmap))[:n],
         ok,
         runner.hint,
@@ -119,19 +119,25 @@ def test_reduced_all_sources_matches_reference(name):
         dests, runner, out, csr.edge_metric, csr.edge_up, csr.node_overloaded
     )
     assert ok is True and jok is True
-    assert dist.dtype == torch.int32 and bitmap.dtype == torch.int32
+    # the reference's dtype (uint16: every metric is below 5000) and raw
+    # values, INF16 sentinels included
+    assert dist.dtype == torch.uint16 and jdist.dtype == np.uint16
+    assert bitmap.dtype == torch.int32
     np.testing.assert_array_equal(dist.numpy(), jdist)
     np.testing.assert_array_equal(bitmap.numpy().view(np.uint32), jbitmap)
     assert runner.hint == jhint
-    # one exact relax pass leaves the fixed point unchanged
+    # one exact relax pass in the 16-bit domain leaves the fixed point
+    # unchanged
     ops = _RelaxOps(
         runner.bg,
         runner.call_arrays(),
         0 if runner.chord_mode else runner.depth,
         runner.resid_rounds,
         runner.chord_mode,
+        small_dist=True,
     )
-    assert torch.equal(ops.verify(dist), dist)
+    d = u16_to_i32(dist)
+    assert torch.equal(ops.verify(d), d)
 
 
 ROUTE_CASES = {
@@ -156,9 +162,13 @@ def test_fleet_route_dbs_match_reference_every_node(name):
         "device.engine.kernel_launches": 0,
         "device.engine.kernel_launches.fused_epilogue": 0,
         "device.engine.kernel_launches.blocked_outer": 0,
-        # banded and cold: no ELL sweep, no affected-set pass
+        "device.engine.kernel_launches.fused_epilogue.int32": 0,
+        "device.engine.kernel_launches.fused_epilogue.uint16": 0,
+        # banded and cold: no ELL sweep, no affected-set pass; small
+        # metrics: the uint16 mode, which does not saturate
         "device.engine.ell_sweeps": 0,
         "device.engine.affected_passes": 0,
+        "device.engine.small_dist_retries": 0,
     }
     jsolver = JSpfSolver(names[0])
     assert sorted(got) == names
@@ -240,9 +250,9 @@ def test_ring20_without_bands_matches_reference():
     jview = JFleetViewCache(delta=False).view(jls, dests)
     assert view._runner.bg is None and jview._runner.bg is None
     assert view.sweep_hint == jview.sweep_hint
-    np.testing.assert_array_equal(
-        view._dist_dev.numpy(), _row_i32(np.asarray(jview._dist_dev))
-    )
+    jdist = np.asarray(jview._dist_dev)
+    assert view._dist_dev.dtype == torch.uint16 and jdist.dtype == np.uint16
+    np.testing.assert_array_equal(view._dist_dev.numpy(), jdist)
     for node in ls.node_names:
         for dest in dests:
             assert view.dist(node, dest) == jview.dist(node, dest)

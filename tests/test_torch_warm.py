@@ -5,9 +5,8 @@ changes seed the banded relax with the previous product, worsening and
 mixed changes seed it with the previous product minus the certified
 affected set.  Every case builds, after the same change sequence, the
 port's warm-capable view, the port's cold view (a fresh cache) and the
-reference's warm-capable view: distances and bitmaps equal bit for bit
-(the reference's uint16 distances normalized as `fleet._row_i32` does)
-and the same `warm_mode`.  `affected_mask` equals the reference's
+reference's warm-capable view: distances (of the reference's dtype,
+uint16 here) and bitmaps equal bit for bit, and the same `warm_mode`.  `affected_mask` equals the reference's
 (aff, done), a pass budget too small to certify included.  The fixtures
 are 64-node rings with chords of length 2 (banded after reversal); the
 ELL fallback never warms.
@@ -117,9 +116,10 @@ def _assert_matches_reference(view, jview):
     assert view.warm == jview.warm
     assert view.warm_mode == jview.warm_mode
     assert view.sweep_hint == jview.sweep_hint
-    np.testing.assert_array_equal(
-        view._dist_dev.numpy(), jfleet._row_i32(np.asarray(jview._dist_dev))
-    )
+    # the reference's dtype and raw values (uint16 in the small mode)
+    jdist = np.asarray(jview._dist_dev)
+    assert view._dist_dev.numpy().dtype == jdist.dtype
+    np.testing.assert_array_equal(view._dist_dev.numpy(), jdist)
     np.testing.assert_array_equal(
         view._bitmap_dev.numpy().view(np.uint32), np.asarray(jview._bitmap_dev)
     )

@@ -55,7 +55,8 @@ def to_port_dbs(jdbs):
 class LinkStatePair:
     """One port and one openr_tpu LinkState, changed together: every
     update hands each package its own copy of the database, so a caller
-    may edit a database in place between updates."""
+    may edit a database in place between updates.  Each update must
+    report the same LinkStateChange and leave the same version in both."""
 
     def __init__(self, dbs=()) -> None:
         self.ls, self.jls = LinkState(), JLinkState()
@@ -63,8 +64,12 @@ class LinkStatePair:
 
     def update(self, *dbs) -> None:
         for db in dbs:
-            self.ls.update_adjacency_database(copy.deepcopy(db))
-            self.jls.update_adjacency_database(to_jax_dbs([db])[0])
+            change = self.ls.update_adjacency_database(copy.deepcopy(db))
+            jchange = self.jls.update_adjacency_database(to_jax_dbs([db])[0])
+            assert dataclasses.astuple(change) == dataclasses.astuple(jchange), (
+                db.this_node_name, change, jchange,
+            )
+            assert self.ls.version == self.jls.version, db.this_node_name
 
 
 def spf_key(result) -> dict:
