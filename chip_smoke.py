@@ -34,10 +34,18 @@ and its phases timed:
   (`SpfSolver(router).build_route_db` through `DeviceSpfBackend`, its
   refreshed CSR mirror and the residency engine) on the WAN after the
   warm rebuilds: a cold build, a drain and an undrain (incremental
-  syncs), a chord swap (a rewire), a 64-source prefetch, the fleet view
+  syncs), a chord swap (a rewire), an 8-source prefetch, the fleet view
   on the refreshed mirror (K1 once, equal to a cold view on a fresh
   mirror) and the single-source crossover against the host Dijkstra,
   every route DB equal to the host backend's;
+- Decision → Fib on the same WAN: one KvStore Publication of every
+  adjacency and prefix database, serialized with the port's `dumps`,
+  into `Decision(router)` on the card wired to `Fib` and a
+  `MockFibAgent`, and into a second Decision on the host Dijkstra (the
+  oracle) with its own Fib; then a metric raised, a prefix withdrawn and
+  advertised again, a node expired, static routes and a RibPolicy set
+  and cleared, both agents' tables equal after each, and the fleet dump
+  `Decision.get_fleet_route_dbs` launching K1 once, twice;
 - the reference's reconvergence flow on the 10 080-node fabric: the
   first fabric switch's overload bit flapped, the first rack switch's
   route DB rebuilt per source, host and device, equal on every rep.
@@ -1329,7 +1337,8 @@ def default_solver(router: str, device):
     return SpfSolver(router) if device == "cuda" else SpfSolver(router, device=device)
 
 
-def spf_main_path(device, inp, timer, n_prefetch=64, n_checked=4) -> dict:
+def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
+                  n_sweep=64) -> dict:
     """The per-source route build Decision runs by default, through
     `SpfSolver(R)` with no arguments, for one router R of the main path's
     LinkState: (a) a cold build; (b) a transit neighbour of R drained,
@@ -1338,7 +1347,8 @@ def spf_main_path(device, inp, timer, n_prefetch=64, n_checked=4) -> dict:
     `n_prefetch` sources in one query; (e) the fleet route build of the
     main path's routers on the same refreshed mirror, held against a cold
     view on a fresh mirror; (f) the single-source query against the host
-    Dijkstra.  Every route DB equals the host backend's."""
+    Dijkstra.  Every route DB equals the host backend's.  The per-sweep
+    times are taken at S = 1 and S = `n_sweep`."""
     import dataclasses
 
     import torch
@@ -1474,7 +1484,9 @@ def spf_main_path(device, inp, timer, n_prefetch=64, n_checked=4) -> dict:
         backend.prefetch(ls, sources)
         prefetch_s = synced() - t0
         prefetch_gc_ms = gc_clock.take()
-        if counter("queries") != q0 + 1 or _s_bucket(len(missing)) != 64:
+        if counter("queries") != q0 + 1 or _s_bucket(len(missing)) != _s_bucket(
+            n_prefetch
+        ):
             raise AssertionError(f"prefetch: {len(missing)} missing, {engine.get_counters()}")
         checked = sources[:: n_prefetch // n_checked][:n_checked]
         t0 = time.perf_counter()
@@ -1574,9 +1586,10 @@ def spf_main_path(device, inp, timer, n_prefetch=64, n_checked=4) -> dict:
         h = res.sweep_hint
         n_words = max(1, -(-csr.max_out_slots // 32))
         sweeps = {}
-        for s in (1, n_prefetch):
+        sweep_sources = [names[i * n // n_sweep] for i in range(n_sweep)]
+        for s in (1, n_sweep):
             ids = torch.as_tensor(
-                [csr.node_id[x] for x in sources[:s]], dtype=torch.int32,
+                [csr.node_id[x] for x in sweep_sources[:s]], dtype=torch.int32,
                 device=res.edge_src.device,
             )
             d0 = ops.make_dist0_T(ids, res.ell.new_of_old, csr.node_capacity)
@@ -1655,6 +1668,389 @@ def spf_main_path(device, inp, timer, n_prefetch=64, n_checked=4) -> dict:
     finally:
         decode.close()
         gc_clock.close()
+
+
+class MethodClock:
+    """Wraps methods of module instances and records each call's wall
+    time under a label until `close()`; calls may come from any thread."""
+
+    def __init__(self) -> None:
+        self.calls: dict[str, list[float]] = {}
+        self._wrapped = []
+
+    def wrap(self, obj, method: str, label: str) -> None:
+        real = getattr(obj, method)
+        calls = self.calls.setdefault(label, [])
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                calls.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(obj, method, timed)
+        self._wrapped.append((obj, method))
+
+    def take(self) -> dict:
+        out = {}
+        for label, calls in self.calls.items():
+            out[label] = list(calls)
+            calls.clear()
+        return out
+
+    def close(self) -> None:
+        for obj, method in self._wrapped:
+            delattr(obj, method)
+
+
+def agent_tables(agent) -> tuple[dict, dict]:
+    """A MockFibAgent's programmed (unicast, MPLS) tables of the Open/R
+    client, keyed by prefix and label."""
+    from openr_tpu_torch.fib.fib import FIB_CLIENT_OPENR
+
+    return (
+        {r.dest: r for r in agent.get_route_table_by_client(FIB_CLIENT_OPENR)},
+        {r.top_label: r for r in agent.get_mpls_route_table_by_client(FIB_CLIENT_OPENR)},
+    )
+
+
+def perf_trail(perf_events) -> dict:
+    """Each perf event's time after the trail's first, in ms."""
+    if perf_events is None or not perf_events.events:
+        return {}
+    t0 = perf_events.events[0].unix_ts_ms
+    return {e.event_name: e.unix_ts_ms - t0 for e in perf_events.events}
+
+
+def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
+                       n_checked, adj_label_base=200_000) -> dict:
+    """Decision → Fib from a KvStore publication, on the main path's
+    wan100k: every adjacency and prefix database serialized with the
+    port's `dumps` into one Publication, pushed into
+    `Decision(router, device=...)` (its default DeviceSpfBackend) wired
+    through a ReplicateQueue to `Fib(..., MockFibAgent())`, and into a
+    second Decision on `HostSpfBackend()` with its own Fib, the oracle.
+    Router w000000's adjacencies carry adjacency labels, so its route DB
+    holds adjacency-label routes.  Each step goes to the card's Decision
+    first and to the oracle once the card's agent has programmed it.
+    Then, one at a time: (a) one link's
+    metric raised, (b) one prefix withdrawn by an expired key, (c) that
+    prefix advertised again, (d) one node's adjacency key expired, (e) a
+    static unicast and a static MPLS route, (f) a RibPolicy set, then
+    cleared.  After every step both agents' tables are equal element for
+    element, the card's engine counters moved as the step requires, and
+    neither Decision counted a rebuild failure.  The fleet dump
+    `get_fleet_route_dbs` of the main path's routers runs after the cold
+    start and after (a), on the fused rung, launching K1's uint16 variant
+    once each; four of its route DBs equal the oracle's
+    `get_route_db(router)`."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.decision.rib import (
+        DecisionRouteUpdate,
+        RibMplsEntry,
+        RibUnicastEntry,
+    )
+    from openr_tpu_torch.decision.rib_policy import (
+        RibPolicyConfig,
+        RibPolicyStatementConfig,
+        RibRouteActionWeight,
+    )
+    from openr_tpu_torch.decision.spf_solver import HostSpfBackend
+    from openr_tpu_torch.fib import Fib, MockFibAgent
+    from openr_tpu_torch.runtime.queue import ReplicateQueue
+    from openr_tpu_torch.serializer import dumps
+    from openr_tpu_torch.types import (
+        MplsAction,
+        MplsActionCode,
+        NextHop,
+        PerfEvents,
+        PrefixDatabase,
+        PrefixEntry,
+        Publication,
+        Value,
+        adj_key,
+        prefix_key,
+    )
+    from openr_tpu_torch.utils import topo
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc_clock = GcClock()
+    clock = MethodClock()
+
+    # the main path's topology and advertisers, w000000 with adj labels
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    adv_ids = np.sort(rng.choice(n_nodes, size=n_advertisers, replace=False))
+    dbs = topo.wan_topology(n_nodes, chords=2, seed=0, labeled=adv_ids)
+    names = [db.this_node_name for db in dbs]
+    router = names[0]
+    for k, adj in enumerate(dbs[0].adjacencies):
+        adj.adj_label = adj_label_base + k
+    advertisers = [names[i] for i in adv_ids]
+    prefixes = [f"fc00:{i >> 16:x}:{i & 0xFFFF:x}::/64" for i in adv_ids]
+    t_topology = time.perf_counter() - t0
+
+    def adj_value(db, version=1):
+        return Value(version=version, originator_id=db.this_node_name, value=dumps(db))
+
+    def prefix_value(node, prefix, version=1, delete=False):
+        db = PrefixDatabase(node, [PrefixEntry(prefix=prefix)], delete_prefix=delete)
+        return Value(version=version, originator_id=node, value=dumps(db))
+
+    t0 = time.perf_counter()
+    key_vals = {adj_key(db.this_node_name): adj_value(db) for db in dbs}
+    for node, prefix in zip(advertisers, prefixes):
+        key_vals[prefix_key(node, prefix, "0")] = prefix_value(node, prefix)
+    publication = Publication(key_vals=key_vals, area="0")
+    t_dumps = time.perf_counter() - t0
+    publication_bytes = sum(len(v.value) for v in key_vals.values())
+    publication_keys = len(key_vals)
+    # what the steps need of the databases; the rest leaves the heap,
+    # which every full collection walks
+    n_adj_labels = len(dbs[0].adjacencies)
+    nbr = dbs[0].adjacencies[0].other_node_name
+    x, db_x = names[n_nodes // 3], dbs[n_nodes // 3]
+    del key_vals, dbs
+
+    sides = {}
+    for side, kwargs in (
+        ("card", {"device": device}),
+        ("oracle", {"spf_backend": HostSpfBackend(), "device": device}),
+    ):
+        kvq, staticq, routeq, fibq = (ReplicateQueue() for _ in range(4))
+        decision = Decision(
+            router, kvq.get_reader(), staticq.get_reader(), routeq,
+            enable_rib_policy=True, **kwargs,
+        )
+        agent = MockFibAgent()
+        fib = Fib(router, routeq.get_reader(), agent, fib_updates_queue=fibq)
+        clock.wrap(decision, "process_publication", f"{side}_parse_ms")
+        clock.wrap(decision, "rebuild_routes", f"{side}_rebuild_ms")
+        clock.wrap(fib, "process_route_updates", f"{side}_fib_ms")
+        sides[side] = dict(
+            kvq=kvq, staticq=staticq, routeq=routeq, fibq=fibq,
+            programmed=fibq.get_reader(), decision=decision, agent=agent,
+            fib=fib,
+        )
+    card, oracle = sides["card"], sides["oracle"]
+    engine = card["decision"].spf_solver.engine
+    # the fleet dumps are the main path's: the fused rung
+    engine.blocked.node_shard_threshold = n_nodes
+    for s in sides.values():
+        s["fib"].run()
+        s["decision"].run()
+
+    def counters():
+        return {
+            k.removeprefix("device.engine."): v
+            for k, v in engine.get_counters().items()
+            if not k.endswith("_us")
+        }
+
+    def push(what, fn):
+        """Push one step into the card's Decision and wait for its agent
+        to program it, then the same into the oracle's (so neither shares
+        the interpreter with the other while it works), and hold the two
+        agents' tables equal."""
+        c0 = counters()
+        clock.take()
+        wall_s, gc_ms, programmed = {}, {}, {}
+        for side, s in sides.items():
+            gc_clock.take()
+            t0 = time.perf_counter()
+            fn(s)
+            programmed[side] = s["programmed"].get(timeout=900)
+            wall_s[side] = time.perf_counter() - t0
+            gc_ms[side] = gc_clock.take()
+        got, want = agent_tables(card["agent"]), agent_tables(oracle["agent"])
+        if got != want:
+            raise AssertionError(f"{what}: the card's agent tables differ from the oracle's")
+        for side, s in sides.items():
+            n_fail = s["decision"].get_counters()["decision.route_rebuild_failures"]
+            if n_fail:
+                raise AssertionError(f"{what}: {side} counted {n_fail} rebuild failures")
+        c1 = counters()
+        return {
+            "wall_s": wall_s,
+            "unicast_routes": len(got[0]),
+            "mpls_routes": len(got[1]),
+            "perf_events_ms": perf_trail(programmed["card"].perf_events),
+            "oracle_perf_events_ms": perf_trail(programmed["oracle"].perf_events),
+            **clock.take(),
+            "gc_ms": gc_ms,
+            "engine_delta": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]},
+        }
+
+    def expect(step, what, **deltas):
+        moved = {
+            k: v for k, v in step["engine_delta"].items()
+            if k in ("queries", "incremental_updates", "rewires", "full_restages")
+        }
+        if moved != deltas:
+            raise AssertionError(f"{what}: engine moved {moved}, expected {deltas}")
+
+    routers = [names[i * n_nodes // n_routers] for i in range(n_routers)]
+    checked = routers[:: max(1, n_routers // n_checked)][: n_checked - 1] + routers[-1:]
+
+    def fleet_dump(what):
+        zero_launch_counts()
+        gc_clock.take()
+        t0 = time.perf_counter()
+        out = card["decision"].get_fleet_route_dbs(nodes=routers)
+        if timer.cuda:
+            torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if launches[KERNEL_U16["name"]] != 1 or sum(launches.values()) != 1:
+            raise AssertionError(f"{what}: fleet dump launched {launches}")
+        dump_gc = gc_clock.take()
+        t0 = time.perf_counter()
+        for r in checked:
+            same_route_db(out[r], oracle["decision"].get_route_db(r), f"{what} {r}")
+        return {
+            "dump_s": dump_s,
+            "gc_ms": dump_gc,
+            "launches": launches,
+            "routers": len(out),
+            "checked_routers": checked,
+            "oracle_check_s": time.perf_counter() - t0,
+        }
+
+    steps = {}
+    dumps_rec = {}
+    try:
+        # cold start: one publication of every database
+        step = push("cold start", lambda s: s["kvq"].push(publication))
+        del publication
+        expect(step, "cold start", queries=1, full_restages=1)
+        if step["mpls_routes"] < n_advertisers + n_adj_labels:
+            raise AssertionError("cold start: node or adjacency label routes missing")
+        steps["cold"] = step
+        dumps_rec["cold"] = fleet_dump("fleet dump after the cold start")
+
+        # (a) one link's metric raised
+        first = db_x.adjacencies[0]
+        raised = dataclasses.replace(
+            db_x,
+            adjacencies=[
+                dataclasses.replace(first, metric=4 * first.metric + 10),
+                *db_x.adjacencies[1:],
+            ],
+        )
+
+        def pub_a():
+            # the trail starts where the database is published
+            raised.perf_events = PerfEvents()
+            raised.perf_events.add(x, "ADJ_DB_UPDATED")
+            return Publication(key_vals={adj_key(x): adj_value(raised, 2)}, area="0")
+
+        step = push("metric raised", lambda s: s["kvq"].push(pub_a()))
+        expect(step, "metric raised", queries=1, incremental_updates=1)
+        steps["a_metric_raised"] = {"link": [x, first.other_node_name], **step}
+        dumps_rec["a_metric_raised"] = fleet_dump("fleet dump after (a)")
+
+        # (b) one prefix withdrawn by an expired key, (c) advertised again
+        node_p, prefix_p = advertisers[n_advertisers // 2], prefixes[n_advertisers // 2]
+        key_p = prefix_key(node_p, prefix_p, "0")
+        pub_b = Publication(expired_keys=[key_p], area="0")
+        step = push("prefix withdrawn", lambda s: s["kvq"].push(pub_b))
+        expect(step, "prefix withdrawn")
+        if prefix_p in agent_tables(card["agent"])[0]:
+            raise AssertionError("prefix withdrawn: still programmed")
+        steps["b_prefix_withdrawn"] = {"prefix": prefix_p, **step}
+        pub_c = Publication(key_vals={key_p: prefix_value(node_p, prefix_p, 2)}, area="0")
+        step = push("prefix advertised", lambda s: s["kvq"].push(pub_c))
+        expect(step, "prefix advertised")
+        if prefix_p not in agent_tables(card["agent"])[0]:
+            raise AssertionError("prefix advertised: not programmed")
+        steps["c_prefix_advertised"] = {"prefix": prefix_p, **step}
+
+        # (d) one node's adjacency key expired
+        y = names[2 * n_nodes // 3]
+        pub_d = Publication(expired_keys=[adj_key(y)], area="0")
+        step = push("node expired", lambda s: s["kvq"].push(pub_d))
+        expect(step, "node expired", queries=1, full_restages=1)
+        steps["d_node_expired"] = {"node": y, **step}
+
+        # (e) one static unicast and one static MPLS route
+        static_nh = NextHop(address="fe80::5ea", if_name="static0")
+        static = DecisionRouteUpdate()
+        static.add_route_to_update(
+            RibUnicastEntry(prefix="fd00:5ea::/64", nexthops=frozenset({static_nh}))
+        )
+        static.mpls_routes_to_update.append(
+            RibMplsEntry(
+                label=adj_label_base - 1,
+                nexthops=frozenset(
+                    {dataclasses.replace(
+                        static_nh, mpls_action=MplsAction(MplsActionCode.PHP)
+                    )}
+                ),
+            )
+        )
+        step = push("static routes", lambda s: s["staticq"].push(static))
+        expect(step, "static routes")
+        tables = agent_tables(card["agent"])
+        if "fd00:5ea::/64" not in tables[0] or adj_label_base - 1 not in tables[1]:
+            raise AssertionError("static routes: not programmed")
+        steps["e_static_routes"] = step
+
+        # (f) a RibPolicy with a neighbour weight, then cleared
+        policy = RibPolicyConfig(
+            statements=[
+                RibPolicyStatementConfig(
+                    name="weight",
+                    prefixes=list(prefixes),
+                    set_weight=RibRouteActionWeight(
+                        default_weight=1, neighbor_to_weight={nbr: 3}
+                    ),
+                )
+            ],
+            ttl_secs=3600,
+        )
+        step = push("policy set", lambda s: s["decision"].set_rib_policy(policy))
+        expect(step, "policy set")
+        steps["f_policy_set"] = {"neighbor": nbr, **step}
+        step = push("policy cleared", lambda s: s["decision"].clear_rib_policy())
+        expect(step, "policy cleared")
+        steps["f_policy_cleared"] = step
+        decision_counters = card["decision"].get_counters()
+        fib_counters = card["fib"].get_counters()
+    finally:
+        for s in sides.values():
+            for q in ("kvq", "staticq", "routeq", "fibq"):
+                s[q].close()
+            s["decision"].stop()
+            s["fib"].stop()
+        clock.close()
+        gc_clock.close()
+    record = {
+        "phase": "decision_main_path",
+        "router": router,
+        "nodes": n_nodes,
+        "advertisers": n_advertisers,
+        "adjacency_labels": n_adj_labels,
+        "publication_keys": publication_keys,
+        "publication_bytes": publication_bytes,
+        "topology_s": t_topology,
+        "dumps_s": t_dumps,
+        "steps": steps,
+        "fleet_dumps": dumps_rec,
+        "decision_counters": decision_counters,
+        "fib_counters": fib_counters,
+        "engine_counters": counters(),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    if timer.cuda:
+        record["card"] = card_line()
+        record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return record
 
 
 def spf_reconverge_fabric96(device, pods, timer, n_prefixes=128,
@@ -2272,6 +2668,11 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     del solver
     emit(spf_main_path(device, inp, timer))
     del inp
+    emit(
+        decision_main_path(
+            device, timer, n_nodes, n_advertisers, n_routers, n_checked
+        )
+    )
     b_main, t_main = fabric_rounds(device, fabric_pods)
     record, outer_timing = blocked_kernel_vs_plain(
         device, outer_kernel or bo.blocked_outer, t_main, b_main, timer

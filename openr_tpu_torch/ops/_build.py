@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -87,10 +88,20 @@ def build(names) -> dict[str, float]:
     return seconds
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first when missing."""
+def _load(name: str) -> ctypes.CDLL:
     lib_path = library_path(name)
     if not lib_path.exists():
         build([name])
     return ctypes.CDLL(str(lib_path))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first when missing.
+    Safe from any thread (Decision computes on its event-base thread):
+    one build at a time, whose temporary file is named per process."""
+    with _LOAD_LOCK:
+        return _load(name)

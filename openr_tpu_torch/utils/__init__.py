@@ -1,1 +1,2 @@
-"""Topology generators for tests and the chip smoke run."""
+"""Topology generators for tests and the chip smoke run, and the
+exponential backoff Fib retries with."""

@@ -154,11 +154,6 @@ def test_change_equals_reference(name):
         assert pair.ls.version > before[0]
 
     for node in pair.ls.node_names:
-        if name == "adj_label" and node == "1":
-            # adjacency-label routes are a route kind the port refuses
-            with pytest.raises(NotImplementedError, match="adjacency-label"):
-                solver.build_route_db({"0": pair.ls}, ps, my_node_name=node)
-            continue
         got = solver.build_route_db({"0": pair.ls}, ps, my_node_name=node)
         want = jsolver.build_route_db({"0": pair.jls}, jps, my_node_name=node)
         assert normalized_routes(got) == normalized_routes(want), node

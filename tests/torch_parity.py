@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import enum
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -19,6 +21,29 @@ from openr_tpu_torch.decision.csr import CsrTopology
 from openr_tpu_torch.decision.link_state import LinkState
 from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.utils import topo
+
+
+def to_ref(obj):
+    """The openr_tpu counterpart of a port object (wire types, RIB
+    entries and updates, RibPolicy configs), field by field."""
+    from openr_tpu.decision import rib as jrib
+    from openr_tpu.decision import rib_policy as jpol
+
+    if isinstance(obj, enum.Enum):
+        return getattr(jt, type(obj).__name__)(int(obj))
+    if dataclasses.is_dataclass(obj):
+        name = type(obj).__name__
+        cls = next(
+            getattr(m, name) for m in (jt, jrib, jpol) if hasattr(m, name)
+        )
+        return cls(
+            **{f.name: to_ref(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        )
+    if isinstance(obj, dict):
+        return {k: to_ref(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple, frozenset, set)):
+        return type(obj)(to_ref(v) for v in obj)
+    return obj
 
 
 def _fields(obj) -> dict:
@@ -195,6 +220,24 @@ def normalized_routes(db) -> tuple[dict, dict]:
         for label, r in db.mpls_routes.items()
     }
     return unicast, mpls
+
+
+def normalized_update(update) -> tuple:
+    """A DecisionRouteUpdate of either package as plain values: the
+    updated unicast routes and MPLS routes as `normalized_routes` gives
+    them, and the sorted deletions."""
+    unicast, mpls = normalized_routes(
+        SimpleNamespace(
+            unicast_routes=update.unicast_routes_to_update,
+            mpls_routes={e.label: e for e in update.mpls_routes_to_update},
+        )
+    )
+    return (
+        unicast,
+        sorted(update.unicast_routes_to_delete),
+        mpls,
+        sorted(update.mpls_routes_to_delete),
+    )
 
 
 def break_fixed_point(d: np.ndarray, idx, w, ov, inf: int, wbig: int):
