@@ -45,10 +45,27 @@ and its phases timed:
   oracle) with its own Fib; then a metric raised, a prefix withdrawn and
   advertised again, a node expired, static routes and a RibPolicy set
   and cleared, both agents' tables equal after each, and the fleet dump
-  `Decision.get_fleet_route_dbs` launching K1 once, twice;
+  `Decision.get_fleet_route_dbs` launching K1 once, twice; then the
+  operator queries on the card Decision's mirror (BASELINE config #5):
+  `Decision.get_ti_lfa()` of the router and `Decision.what_if` of three
+  SRLG scenarios, each against a host oracle, and
+  `ti_lfa_backups(runner=)` called directly;
+- BASELINE config #3's dual-metric KSP2 on that mirror's forward
+  runner (`ops.ksp.FusedKsp2Runner`, an IGP and a TE plane, 8
+  destinations) against scipy's Dijkstra;
+- BASELINE config #4's SRLG what-if: 10 000 single-link failure
+  variants of a 1024-node grid in one masked `SpfRunner.forward`;
 - the reference's reconvergence flow on the 10 080-node fabric: the
   first fabric switch's overload bit flapped, the first rack switch's
-  route DB rebuilt per source, host and device, equal on every rep.
+  route DB rebuilt per source, host and device, equal on every rep;
+- KSP2, BGP and UCMP routes on the same fabric through a card Decision
+  and a host-Dijkstra Decision → Fib (a publication, a metric raised, a
+  link down), one masked k = 2 batch per rebuild on the card.
+
+The masked batches (KSP2 re-runs, what-if, TI-LFA) are plain PyTorch,
+as the reference leaves them to XLA; their phases print the masked
+runs, the learned `hint_masked`, the per-sweep time against its byte
+bound, the oracle's time and peak device memory, and launch no kernel.
 
 Each phase prints one JSON line; the line before the last is the
 `kernels` record, and the last line is {"ok": true, "device": {...}}.
@@ -2020,6 +2037,19 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
         step = push("policy cleared", lambda s: s["decision"].clear_rib_policy())
         expect(step, "policy cleared")
         steps["f_policy_cleared"] = step
+
+        # (g) the operator queries on the card Decision's mirror
+        zero_launch_counts()
+        wan_csr = card["decision"].run_in_event_base_thread(
+            lambda: card["decision"].spf_solver.spf.csr_mirror(
+                card["decision"].area_link_states["0"]
+            )
+        ).result()
+        steps["g_protection"] = protection_queries(
+            card["decision"], wan_csr, oracle["decision"].area_link_states["0"],
+            router, timer,
+        )
+        steps["g_protection"]["kernel_launches"] = launch_counts()
         decision_counters = card["decision"].get_counters()
         fib_counters = card["fib"].get_counters()
     finally:
@@ -2050,7 +2080,7 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     if timer.cuda:
         record["card"] = card_line()
         record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    return record
+    return record, (wan_csr, engine)
 
 
 def spf_reconverge_fabric96(device, pods, timer, n_prefixes=128,
@@ -2613,6 +2643,584 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
     return record, kernel_record
 
 
+# -- masked batches: KSP2, what-if, TI-LFA -------------------------------------
+
+
+def masked_sweep_bytes(runner, s: int) -> int:
+    """Bytes one masked relax sweep of `runner` must move at S rows: the
+    distances read once and written once ([N*, S] int32 each), the row
+    exclusions of every relaxing slot read once ([slots, S] bool), and
+    each slot's neighbour id and weight (int32 each)."""
+    st = runner.call_arrays()
+    if runner.bg is not None:
+        n = runner.bg.n_nodes
+        slots = n * (int(st.resid_nbr.shape[1]) + len(runner.bg.offsets))
+    else:
+        n = int(st.node_overloaded.shape[0])
+        slots = sum(int(bk.nbr.numel()) for bk in st.ell.buckets)
+    return 2 * n * s * 4 + slots * s + slots * 8
+
+
+def masked_sweep_record(runner, sources, mask, timer, want_dag=False) -> dict:
+    """One masked fixed-sweep run of `runner` at its learned hint_masked,
+    timed (median of 3 runs, each between CUDA events), per sweep
+    against the byte bound.  `mask` is [S, E_cap] numpy bool."""
+    import torch
+
+    st = runner.call_arrays()
+    device = st.edge_up.device
+    src = torch.as_tensor(np.asarray(sources, dtype=np.int32), device=device)
+    mask_t = torch.as_tensor(mask, device=device)
+    hint = runner.hint_masked
+    sweeps = (hint if runner.bg is not None else max(hint, 2)) + 1
+    small = runner.small_dist
+    run_ms = timer.median_ms(
+        lambda: runner.run_once(
+            src, hint, extra_edge_mask=mask_t, want_dag=want_dag, small=small
+        ),
+        reps=3,
+    )
+    bound = masked_sweep_bytes(runner, len(src)) / HBM_BYTES_PER_S * 1e3
+    return {
+        "path": "banded" if runner.bg is not None else "ell",
+        "chord_mode": runner.chord_mode,
+        "rows": len(src),
+        "hint_masked": hint,
+        "sweeps_per_run": sweeps,
+        "uint16": small,
+        "run_ms": run_ms,
+        "per_sweep_ms": run_ms / sweeps,
+        "per_sweep_bound_ms": bound,
+        "bound_by": "bytes",
+    }
+
+
+def scipy_dist(csr, src: int, metric=None, drop=()) -> np.ndarray:
+    """The host oracle at scale: scipy's Dijkstra from `src` over the
+    mirror's up edges (no drained nodes), `drop` edge ids removed; INF32
+    where unreachable."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from openr_tpu_torch.ops.sssp import INF32
+
+    if csr.node_overloaded[: csr.n_nodes].any():
+        raise AssertionError("the scipy oracle takes no drained node")
+    e, n = csr.n_edges, csr.n_nodes
+    up = csr.edge_up[:e].copy()
+    up[np.asarray(drop, dtype=np.int64)] = False
+    w = (csr.edge_metric if metric is None else metric)[:e][up]
+    g = csr_matrix(
+        (w.astype(np.float64), (csr.edge_src[:e][up], csr.edge_dst[:e][up])),
+        shape=(n, n),
+    )
+    d = dijkstra(g, indices=src)
+    return np.where(np.isinf(d), INF32, d).astype(np.int64)
+
+
+def protection_queries(decision, csr, oracle_ls, router: str, timer) -> dict:
+    """Decision's operator queries on the card Decision's mirror: TI-LFA
+    of `router` (every up adjacency failed in turn, one masked batch with
+    the SP-DAG on the forward runner) and an SRLG what-if of three
+    scenarios, then `ti_lfa_backups(runner=)` called directly as the
+    reference's bench does.  Two TI-LFA adjacencies are held against the
+    host Dijkstra with the link ignored (`LinkState.run_spf`: counts and
+    every listed backup first-hop set), every scenario against scipy's
+    Dijkstra, and two rows of the direct call against scipy."""
+    import torch
+
+    from openr_tpu_torch.ops import protection as prot
+
+    ls = oracle_ls
+    t0 = time.perf_counter()
+    report = decision.get_ti_lfa()
+    ti_lfa_s = time.perf_counter() - t0
+    runner = csr._runner
+    adjs = report["adjacencies"]
+    t0 = time.perf_counter()
+    base = ls.get_spf_result(router)
+    for adj in adjs[:2]:
+        link = next(
+            l for l in ls.links_from_node(router)
+            if l.other_node_name(router) == adj["neighbor"]
+        )
+        res = ls.run_spf(router, links_to_ignore={link})
+        kept = sum(1 for v in base if v != router and v in res)
+        lost = sum(1 for v in base if v not in res)
+        if (adj["protected_destinations"], adj["unprotected_count"]) != (kept, lost):
+            raise AssertionError(f"TI-LFA {adj['neighbor']}: counts differ from the oracle's")
+        for v, hops in adj["backup_first_hops"].items():
+            if sorted(res[v].next_hops) != hops:
+                raise AssertionError(f"TI-LFA {adj['neighbor']} -> {v}: backups differ")
+    ti_oracle_s = time.perf_counter() - t0
+    ti_record = {
+        "router": router,
+        "adjacencies": len(adjs),
+        "masked_rows": len(adjs) + 1,
+        "protected": [a["protected_destinations"] for a in adjs],
+        "unprotected": [a["unprotected_count"] for a in adjs],
+        "checked_adjacencies": [a["neighbor"] for a in adjs[:2]],
+        "query_s": ti_lfa_s,
+        "oracle_s": ti_oracle_s,
+        "runner_masked_runs": runner.masked_runs,
+        "hint_masked": runner.hint_masked,
+    }
+
+    # what-if: one link of the router, two, and a group of four far links
+    nbrs = [a["neighbor"] for a in adjs]
+    rng = np.random.default_rng(3)
+    far = [csr.edge_links[int(e)][0] for e in rng.choice(csr.n_edges, 4, replace=False)]
+    scenarios = [
+        [(router, nbrs[0])],
+        [(router, nbrs[0]), (router, nbrs[1])],
+        [(link.n1, link.n2) for link in far],
+    ]
+    t0 = time.perf_counter()
+    rows = decision.what_if(scenarios)
+    what_if_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src = csr.node_id[router]
+    pair_edges = {}
+    for e in range(csr.n_edges):
+        lp = csr.edge_links[e]
+        if lp is not None:
+            pair_edges.setdefault(tuple(sorted((lp[0].n1, lp[0].n2))), []).append(e)
+    d0 = scipy_dist(csr, src)
+    from openr_tpu_torch.ops.sssp import INF32
+
+    for f, scen in enumerate(scenarios):
+        drop = [e for a, b in scen for e in pair_edges[tuple(sorted((a, b)))]]
+        d1 = scipy_dist(csr, src, drop=drop)
+        lost = int(((d0 < INF32) & (d1 >= INF32)).sum())
+        degraded = int(((d0 < INF32) & (d1 < INF32) & (d1 > d0)).sum())
+        if (rows[f]["newly_unreachable_pairs"], rows[f]["degraded_pairs"]) != (lost, degraded):
+            raise AssertionError(f"what-if scenario {f}: {rows[f]} against ({lost}, {degraded})")
+    what_if_record = {
+        "scenarios": [len(s) for s in scenarios],
+        "newly_unreachable": [r["newly_unreachable_pairs"] for r in rows],
+        "degraded": [r["degraded_pairs"] for r in rows],
+        "query_s": what_if_s,
+        "oracle_s": time.perf_counter() - t0,
+    }
+
+    # ti_lfa_backups(runner=) directly (bench.py bench_tilfa)
+    e = csr.n_edges
+    out_edges = np.flatnonzero(
+        (csr.edge_src[:e] == src) & csr.edge_up[:e]
+    ).astype(np.int32)
+    rev = np.full(csr.edge_capacity, -1, dtype=np.int32)
+    rev[:e] = prot.build_reverse_edge_ids(csr.edge_src[:e], csr.edge_dst[:e])
+    args = (
+        np.int32(src), out_edges, csr.edge_src, csr.edge_dst, csr.edge_metric,
+        csr.edge_up, csr.node_overloaded, rev,
+    )
+    runs0 = runner.masked_runs
+    t0 = time.perf_counter()
+    dist, dag = prot.ti_lfa_backups(*args, max_degree=len(out_edges), runner=runner)
+    call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for d in range(2):
+        e_failed = int(out_edges[d])
+        want = scipy_dist(csr, src, drop=[e_failed, int(rev[e_failed])])
+        if not np.array_equal(np.minimum(dist[d, : csr.n_nodes], INF32), want):
+            raise AssertionError(f"ti_lfa_backups row {d} differs from scipy")
+    survives = prot.build_edge_failure_masks(out_edges, rev, csr.edge_capacity)
+    direct = {
+        "rows": len(out_edges),
+        "call_s": call_s,
+        "runs": runner.masked_runs - runs0,
+        "oracle_s": time.perf_counter() - t0,
+        "dag_edges": int(dag.sum()),
+        **masked_sweep_record(
+            runner, np.full(len(out_edges), src), survives, timer, want_dag=True
+        ),
+    }
+    if timer.cuda:
+        torch.cuda.synchronize()
+    return {"ti_lfa": ti_record, "what_if": what_if_record, "ti_lfa_backups": direct}
+
+
+def ksp_dual_metric_wan100k(csr, engine, timer, n_dests: int = 8) -> dict:
+    """BASELINE config #3: fused dual-metric KSP2 (ops.ksp) on wan100k's
+    forward runner, set up as the reference's bench
+    (bench_ksp_dual_metric_wan100k): a TE plane of integers 1..100 from
+    np.random.default_rng(17), 8 destinations from the same generator,
+    both planes in one call per question.  k1 equals scipy's Dijkstra,
+    every traced path sums to k1, and k2 equals scipy's Dijkstra with
+    the traced links (both directions) removed, on 4 destinations per
+    plane."""
+    import torch
+
+    from openr_tpu_torch.ops import protection as prot
+    from openr_tpu_torch.ops.ksp import FusedKsp2Runner
+
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    runner = csr.runner(engine)
+    e = csr.n_edges
+    rng = np.random.default_rng(17)
+    te = csr.edge_metric.copy()
+    te[:e] = rng.integers(1, 101, size=e).astype(np.int32)
+    dests = rng.choice(np.arange(1, csr.n_nodes), size=n_dests, replace=False).astype(np.int32)
+    rev = prot.build_reverse_edge_ids(csr.edge_src[:e], csr.edge_dst[:e])
+    planes = [csr.edge_metric.copy(), te]
+    runs0, masked0, sweeps0 = runner.runs, runner.masked_runs, runner.sweeps
+    t0 = time.perf_counter()
+    fk = FusedKsp2Runner(runner, csr.edge_dst, e, csr.n_nodes, rev, planes)
+    res = fk.run(0, dests)
+    warm_s = time.perf_counter() - t0
+    warm_runs = runner.runs - runs0
+    warm_masked = runner.masked_runs - masked0
+    call_ms = timer.median_ms(lambda: fk.run(0, np.roll(dests, 1), adaptive=False), reps=3)
+    t0 = time.perf_counter()
+    checked = []
+    for p, metric in enumerate(planes):
+        r = res[p]
+        k1, k2, excl = (t.cpu().numpy() for t in (r.k1, r.k2, r.excl))
+        cd = scipy_dist(csr, 0, metric=metric)
+        if not np.array_equal(k1, cd[dests]):
+            raise AssertionError(f"plane {p}: k1 differs from scipy")
+        for i in range(n_dests):
+            ee = excl[i][excl[i] < e]
+            if int(metric[ee].sum()) != int(k1[i]):
+                raise AssertionError(f"plane {p} dest {i}: trace is not a shortest path")
+        for i in range(0, n_dests, 2):
+            ee = excl[i][excl[i] < e]
+            rv = rev[ee]
+            cd2 = scipy_dist(csr, 0, metric=metric, drop=np.concatenate([ee, rv[rv >= 0]]))
+            if int(k2[i]) != int(cd2[dests[i]]):
+                raise AssertionError(f"plane {p} dest {i}: k2 differs from scipy")
+        checked.append({"k1": k1.tolist(), "k2": k2.tolist()})
+    oracle_s = time.perf_counter() - t0
+    mask = fk._host_masks(res, n_dests)[1]
+    record = {
+        "phase": "ksp_dual_metric_wan100k",
+        "nodes": csr.n_nodes,
+        "edges": e,
+        "destinations": dests.tolist(),
+        "planes": checked,
+        "max_hops": fk.learned_max_hops,
+        "hint": runner.hint,
+        "warmup_s": warm_s,
+        "warmup_runs": warm_runs,
+        "warmup_masked_runs": warm_masked,
+        "fused_call_ms": call_ms,
+        "oracle_s": oracle_s,
+        "masked_sweep": masked_sweep_record(
+            runner, np.zeros(n_dests, np.int32), mask, timer
+        ),
+    }
+    if timer.cuda:
+        record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return record
+
+
+def srlg_whatif_grid1024(device, timer, n_variants: int = 10_000, n_checked: int = 64) -> dict:
+    """BASELINE config #4: `n_variants` single-link failure scenarios x 1
+    source on `grid_topology(32)` in one `runner.forward(...,
+    want_dag=False)` call on the mirror's forward runner; the variants
+    drawn as the reference's bench (bench_srlg_whatif: rng 42, each
+    failed edge's reverse failed with it).  `n_checked` sampled rows are
+    held against the host Dijkstra with the link ignored, and
+    `srlg_reachability_loss` over them against the same oracle."""
+    import torch
+
+    from openr_tpu_torch.decision.csr import CsrTopology
+    from openr_tpu_torch.device.engine import DeviceResidencyEngine
+    from openr_tpu_torch.ops import protection as prot
+    from openr_tpu_torch.ops.sssp import INF32
+    from openr_tpu_torch.utils import topo
+
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ls = link_state_of(topo.grid_topology(32))
+    csr = CsrTopology.from_link_state(ls)
+    engine = DeviceResidencyEngine(device)
+    runner = csr.runner(engine)
+    e = csr.n_edges
+    rng = np.random.default_rng(42)
+    rev = prot.build_reverse_edge_ids(csr.edge_src[:e], csr.edge_dst[:e])
+    fail = rng.integers(0, e, size=n_variants)
+    mask = np.ones((n_variants, csr.edge_capacity), dtype=bool)
+    rows = np.arange(n_variants)
+    mask[rows, fail] = False
+    valid = rev[fail] >= 0
+    mask[rows[valid], rev[fail][valid]] = False
+    sources = np.zeros(n_variants, dtype=np.int32)
+    t0 = time.perf_counter()
+    dist, _ = runner.forward(sources, extra_edge_mask=mask, want_dag=False)
+    forward_s = time.perf_counter() - t0
+    runs, sweeps = runner.masked_runs, runner.sweeps
+    baseline, _ = runner.forward(sources[:1], want_dag=False)
+    t0 = time.perf_counter()
+    src = csr.node_names[0]
+    base = ls.get_spf_result(src)
+    sample = np.sort(np.random.default_rng(5).choice(n_variants, n_checked, replace=False))
+    want_lost = want_degraded = 0
+    for i in sample:
+        link = csr.edge_links[int(fail[i])][0]
+        res = ls.run_spf(src, links_to_ignore={link})
+        want = np.array(
+            [res[v].metric if v in res else INF32 for v in csr.node_names], dtype=np.int64
+        )
+        if not np.array_equal(np.minimum(dist[i, : csr.n_nodes], INF32), want):
+            raise AssertionError(f"what-if variant {i} differs from the host Dijkstra")
+        want_lost += sum(1 for v in base if v not in res)
+        want_degraded += sum(1 for v in base if v in res and res[v].metric > base[v].metric)
+    lost, degraded = prot.srlg_reachability_loss(
+        baseline[:, : csr.n_nodes], dist[sample][:, None, : csr.n_nodes]
+    )
+    if (int(lost.sum()), int(degraded.sum())) != (want_lost, want_degraded):
+        raise AssertionError("srlg_reachability_loss differs from the oracle")
+    oracle_s = time.perf_counter() - t0
+    record = {
+        "phase": "srlg_whatif_grid1024",
+        "nodes": csr.n_nodes,
+        "edges": e,
+        "variants": n_variants,
+        "checked_rows": n_checked,
+        "forward_s": forward_s,
+        "masked_runs": runs,
+        "sweeps": sweeps,
+        "newly_unreachable_sampled": int(lost.sum()),
+        "degraded_sampled": int(degraded.sum()),
+        "oracle_s": oracle_s,
+        "masked_sweep": masked_sweep_record(runner, sources, mask, timer),
+    }
+    if timer.cuda:
+        record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return record
+
+
+def decision_pair(router: str, device):
+    """A card Decision and a host-Dijkstra Decision (the oracle), each
+    wired to its own Fib and MockFibAgent, running."""
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.decision.spf_solver import HostSpfBackend
+    from openr_tpu_torch.fib import Fib, MockFibAgent
+    from openr_tpu_torch.runtime.queue import ReplicateQueue
+
+    sides = {}
+    for side, kwargs in (
+        ("card", {"device": device}),
+        ("oracle", {"spf_backend": HostSpfBackend(), "device": device}),
+    ):
+        kvq, routeq, fibq = ReplicateQueue(), ReplicateQueue(), ReplicateQueue()
+        decision = Decision(router, kvq.get_reader(), None, routeq, **kwargs)
+        agent = MockFibAgent()
+        fib = Fib(router, routeq.get_reader(), agent, fib_updates_queue=fibq)
+        sides[side] = dict(
+            kvq=kvq, routeq=routeq, fibq=fibq, programmed=fibq.get_reader(),
+            decision=decision, agent=agent, fib=fib,
+        )
+        fib.run()
+        decision.run()
+    return sides
+
+
+def close_pair(sides) -> None:
+    for s in sides.values():
+        for q in ("kvq", "routeq", "fibq"):
+            s[q].close()
+        s["decision"].stop()
+        s["fib"].stop()
+
+
+def push_pair(sides, what: str, pub) -> dict:
+    """`pub` into the card's Decision, then, once its agent programmed
+    it, into the oracle's; both agents' tables must be equal and neither
+    Decision may count a rebuild failure.  Returns the wall times."""
+    wall = {}
+    for side, s in sides.items():
+        t0 = time.perf_counter()
+        s["kvq"].push(pub)
+        s["programmed"].get(timeout=600)
+        wall[side] = time.perf_counter() - t0
+    if agent_tables(sides["card"]["agent"]) != agent_tables(sides["oracle"]["agent"]):
+        raise AssertionError(f"{what}: the card's agent tables differ from the oracle's")
+    for side, s in sides.items():
+        if s["decision"].get_counters()["decision.route_rebuild_failures"]:
+            raise AssertionError(f"{what}: {side} counted a rebuild failure")
+    return wall
+
+
+def ksp2_decision_fabric96(device, pods, timer) -> dict:
+    """KSP2, BGP and UCMP routes through Decision → Fib on BASELINE config
+    #2's 10 080-node fat-tree (the reference's bench_ksp2_fattree10k
+    shape), the own router the first rack switch: one Publication with
+    every adjacency database, 8 KSP2_ED_ECMP SR_MPLS prefixes (their
+    advertisers carry node labels), 8 BGP prefixes with metric vectors
+    (two advertisers each: six with a strict winner, one decided by a
+    tie-breaker for the first advertiser, so the second joins as
+    TIE_LOOSER, one for the second, a TIE_WINNER), and 4 prefixes of
+    each UCMP algorithm; then one of the router's uplinks has its metric
+    raised and another goes down.  After each step both agents' tables
+    are equal, no rebuild failed, and the card ran the build's k = 2 runs
+    as ONE masked batch (`device.engine.masked_batches`)."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.serializer import dumps
+    from openr_tpu_torch.types import (
+        MetricEntity,
+        MetricVector,
+        PrefixDatabase,
+        PrefixEntry,
+        PrefixForwardingAlgorithm,
+        PrefixForwardingType,
+        PrefixType,
+        Publication,
+        Value,
+        adj_key,
+        prefix_key,
+    )
+    from openr_tpu_torch.utils import topo
+
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    dbs = topo.fat_tree_topology(pods, **FABRIC)
+    by_name = {db.this_node_name: db for db in dbs}
+    racks = sorted(n for n in by_name if n.startswith("rsw-"))
+    own = racks[0]
+    rng = np.random.default_rng(11)
+    far = [r for r in racks if not r.startswith(own.rsplit("-", 1)[0] + "-")]
+    picks = [far[i] for i in rng.choice(len(far), 40, replace=False)]
+    for k, adj in enumerate(by_name[own].adjacencies):
+        adj.weight = k + 1  # SP_UCMP_ADJ_WEIGHT_PROPAGATION reads these
+    ksp2_nodes = picks[:8]
+    for i, name in enumerate(ksp2_nodes):
+        by_name[name].node_label = 50_000 + i
+
+    def mv(pref, tie_break=0):
+        metrics = [MetricEntity(type=0, priority=9000, metric=[pref])]
+        if tie_break:
+            metrics.append(
+                MetricEntity(type=6, priority=3000, metric=[tie_break],
+                             is_best_path_tie_breaker=True)
+            )
+        return MetricVector(version=1, metrics=metrics)
+
+    entries = []  # (node, PrefixEntry)
+    for i, node in enumerate(ksp2_nodes):
+        entries.append((node, PrefixEntry(
+            prefix=f"fc00:a:{i:x}::/64",
+            forwarding_type=PrefixForwardingType.SR_MPLS,
+            forwarding_algorithm=PrefixForwardingAlgorithm.KSP2_ED_ECMP,
+        )))
+    bgp_pairs = [sorted(picks[8 + 2 * i : 10 + 2 * i]) for i in range(8)]
+    for i, (a, b) in enumerate(bgp_pairs):
+        prefix = f"fc00:b:{i:x}::/64"
+        if i < 6:
+            va, vb = mv(100 + i), mv(200 + i)
+        elif i == 6:
+            va, vb = mv(150, 9), mv(150, 3)  # b: TIE_LOOSER
+        else:
+            va, vb = mv(150, 3), mv(150, 9)  # b: TIE_WINNER
+        for node, v in ((a, va), (b, vb)):
+            entries.append((node, PrefixEntry(prefix=prefix, type=PrefixType.BGP, mv=v)))
+    ucmp = picks[24:40]
+    for i in range(4):
+        for j, node in enumerate(ucmp[2 * i : 2 * i + 2]):
+            entries.append((node, PrefixEntry(
+                prefix=f"fc00:c:{i:x}::/64",
+                forwarding_algorithm=PrefixForwardingAlgorithm.SP_UCMP_PREFIX_WEIGHT_PROPAGATION,
+                weight=100 * (j + 1),
+            )))
+        entries.append((ucmp[8 + i], PrefixEntry(
+            prefix=f"fc00:d:{i:x}::/64",
+            forwarding_algorithm=PrefixForwardingAlgorithm.SP_UCMP_ADJ_WEIGHT_PROPAGATION,
+        )))
+    key_vals = {
+        adj_key(db.this_node_name): Value(1, db.this_node_name, dumps(db)) for db in dbs
+    }
+    for node, entry in entries:
+        key_vals[prefix_key(node, entry.prefix, "0")] = Value(
+            1, node, dumps(PrefixDatabase(node, [entry]))
+        )
+    t_build = time.perf_counter() - t_phase
+    sides = decision_pair(own, device)
+    card = sides["card"]["decision"]
+    engine = card.spf_solver.engine
+    own_db = by_name[own]
+    steps = {}
+    try:
+        for step, pub in (
+            ("cold", Publication(key_vals=key_vals, area="0")),
+            ("metric_raised", None),
+            ("link_down", None),
+        ):
+            if step == "metric_raised":
+                own_db = dataclasses.replace(
+                    own_db,
+                    adjacencies=[
+                        dataclasses.replace(own_db.adjacencies[0], metric=7),
+                        *own_db.adjacencies[1:],
+                    ],
+                )
+                pub = Publication(key_vals={adj_key(own): Value(2, own, dumps(own_db))}, area="0")
+            elif step == "link_down":
+                own_db = dataclasses.replace(own_db, adjacencies=own_db.adjacencies[:1] + own_db.adjacencies[2:])
+                pub = Publication(key_vals={adj_key(own): Value(3, own, dumps(own_db))}, area="0")
+            c0 = engine.get_counters()
+            wall = push_pair(sides, step, pub)
+            c1 = engine.get_counters()
+            delta = {
+                k.removeprefix("device.engine."): c1[k] - c0[k]
+                for k in ("device.engine.masked_batches", "device.engine.masked_rows",
+                          "device.engine.masked_runs", "device.engine.queries")
+            }
+            if delta["masked_batches"] != 1:
+                raise AssertionError(f"{step}: {delta['masked_batches']} masked batches, not 1")
+            csr = card.run_in_event_base_thread(
+                lambda: card.spf_solver.spf.csr_mirror(card.area_link_states["0"])
+            ).result()
+            routes = agent_tables(sides["card"]["agent"])[0]
+            steps[step] = {
+                "wall_s": wall,
+                "engine_delta": delta,
+                "runner_runs": csr._runner.runs,
+                "runner_masked_runs": csr._runner.masked_runs,
+                "hint_masked": csr._runner.hint_masked,
+                "runner_path": "banded" if csr._runner.bg is not None else "ell",
+                "unicast_routes": len(routes),
+                "ksp2_next_hops": sum(
+                    len(routes[e.prefix].next_hops)
+                    for _, e in entries[:8] if e.prefix in routes
+                ),
+                "weighted_next_hops": sum(
+                    1 for r in routes.values() for nh in r.next_hops if nh.weight
+                ),
+            }
+        sweep = masked_sweep_record(
+            csr._runner,
+            np.full(8, csr.node_id[own], np.int32),
+            np.ones((8, csr.edge_capacity), dtype=bool),
+            timer,
+            want_dag=True,
+        )
+    finally:
+        close_pair(sides)
+    bgp = [p for p in agent_tables(sides["card"]["agent"])[0] if p.startswith("fc00:b:")]
+    if len(bgp) != 8 or any(s["ksp2_next_hops"] < 8 for s in steps.values()):
+        raise AssertionError("fabric96: BGP or KSP2 routes missing")
+    record = {
+        "phase": "ksp2_decision_fabric96",
+        "nodes": len(dbs),
+        "own_router": own,
+        "prefixes": {"ksp2": 8, "bgp": 8, "ucmp_prefix": 4, "ucmp_adj": 4},
+        "publication_keys": len(key_vals),
+        "build_s": t_build,
+        "steps": steps,
+        "masked_sweep": sweep,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    if timer.cuda:
+        record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return record
+
+
 def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         n_routers=N_ROUTERS, n_checked=N_CHECKED, kernel=None,
         outer_kernel=None, fabric_pods=FABRIC_PODS, check_pods=CHECK_PODS,
@@ -2668,11 +3276,19 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     del solver
     emit(spf_main_path(device, inp, timer))
     del inp
-    emit(
-        decision_main_path(
-            device, timer, n_nodes, n_advertisers, n_routers, n_checked
-        )
+    record, (wan_csr, wan_engine) = decision_main_path(
+        device, timer, n_nodes, n_advertisers, n_routers, n_checked
     )
+    emit(record)
+    zero_launch_counts()
+    record = ksp_dual_metric_wan100k(wan_csr, wan_engine, timer)
+    record["kernel_launches"] = launch_counts()
+    emit(record)
+    del wan_csr, wan_engine
+    zero_launch_counts()
+    record = srlg_whatif_grid1024(device, timer)
+    record["kernel_launches"] = launch_counts()
+    emit(record)
     b_main, t_main = fabric_rounds(device, fabric_pods)
     record, outer_timing = blocked_kernel_vs_plain(
         device, outer_kernel or bo.blocked_outer, t_main, b_main, timer
@@ -2690,6 +3306,10 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     )
     del closure
     emit(spf_reconverge_fabric96(device, check_pods, timer))
+    zero_launch_counts()
+    record = ksp2_decision_fabric96(device, check_pods, timer)
+    record["kernel_launches"] = launch_counts()
+    emit(record)
     blocked, outer_record = blocked_main_path(
         device, fabric_pods, n_advertisers, n_routers, n_checked, timer,
         outer_timing, threshold=node_shard_threshold,

@@ -17,10 +17,16 @@ re-ranks `out_slot` and re-encodes only the affected ELL rows, logging a
 capacity overflow, an oversized rewire) rebuilds the mirror, reusing the
 capacities when they still fit.
 
-The reference's forward banded decomposition and host runner
-(`banded`, `runner`, `run_batched_spf`) and the engine-less `spf_from`,
-`row_path_links` and `edges_of_links` belong to later slices (KSP,
-protection, what-if).
+The forward band decomposition (`banded`) and its fixed-sweep runner
+(`runner`, ops.banded.SpfRunner) carry the masked batches of KSP2,
+what-if and TI-LFA (`run_batched_spf`).  Unlike the reference, which
+builds the bands with every mirror, both are built on first use, so a
+mirror that only serves per-source queries never pays for them; the
+runner is staged on the engine's device, re-staged after an attribute
+refresh (a stale staged runner would read old metrics) and dropped on a
+rewire or a rebuild.  `row_path_links` turns one row of a masked run
+into the metric and path_links the KSP path trace walks, and
+`edges_of_links` maps each link to its directed edge ids.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..ops.banded import BandedGraph, SpfRunner, build_banded
 from ..ops.sssp import INF32, EllGraph, build_ell
 from .link_state import LinkState, NodeSpfResult, SpfResult
 
@@ -174,6 +181,13 @@ class CsrTopology:
     # fixed-sweep hint of the per-source relax; doubles when a run does
     # not reach the fixed point (engine.spf_results)
     _sweep_hint: int = 16
+    # forward band decomposition and runner, built on first use (the
+    # reference builds the bands with the mirror); `_banded_built` tells
+    # a topology without bands (None) from one not yet examined
+    _banded: Optional[BandedGraph] = None
+    _banded_built: bool = False
+    _runner: Optional[SpfRunner] = None
+    _runner_engine: object = None
 
     # directed-edge slots one rewire may touch before its in-place writes
     # rival a restage and the rebuild is the cheaper path
@@ -356,7 +370,101 @@ class CsrTopology:
             return False
         self._refresh_attributes(ls)
         self.version = ls.version
+        if self._runner is not None:
+            # the staged copies hold the old attributes
+            self._runner_engine.stage(self._runner)
         return True
+
+    # -- forward runner (KSP2, what-if, TI-LFA) -----------------------------
+
+    @property
+    def banded(self) -> Optional[BandedGraph]:
+        """The forward circulant-band decomposition (ops.banded
+        build_banded), None on a topology without bands; built on first
+        use."""
+        if not self._banded_built:
+            self._banded = build_banded(
+                self.edge_src, self.edge_dst, self.n_edges, self.n_nodes
+            )
+            self._banded_built = True
+        return self._banded
+
+    def runner(self, engine) -> SpfRunner:
+        """The forward SpfRunner over this mirror's arrays (the bands when
+        the topology has them, else the ELL), built on first use and
+        staged on `engine`'s device through `engine.stage`.  It reads
+        the same numpy arrays `refresh` rewrites in place, so its learned
+        hints survive attribute changes; a rewire or a rebuild drops it."""
+        if self._runner is None or self._runner_engine is not engine:
+            runner = SpfRunner(
+                self.ell,
+                self.banded,
+                self.edge_src,
+                self.edge_dst,
+                self.edge_metric,
+                self.edge_up,
+                self.node_overloaded,
+                self.n_edges,
+            )
+            engine.stage(runner)
+            self._runner, self._runner_engine = runner, engine
+        return self._runner
+
+    def run_batched_spf(
+        self,
+        sources: list[str],
+        engine,
+        use_link_metric: bool = True,
+        extra_edge_mask: Optional[np.ndarray] = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """One batch of sources through the forward runner on `engine`'s
+        device (reference: CsrTopology.run_batched_spf): (dist [S, N*],
+        dag [S, E_cap]) as numpy, N* being n_nodes on the banded path and
+        node_capacity on the ELL path.  `extra_edge_mask` [S, E_cap] bool
+        (False excludes) is the per-row exclusion of a masked batch."""
+        src_ids = np.asarray([self.node_id[s] for s in sources], dtype=np.int32)
+        return engine.forward(
+            self.runner(engine),
+            src_ids,
+            use_link_metric=use_link_metric,
+            extra_edge_mask=extra_edge_mask,
+        )
+
+    def spf_from(
+        self, sources: list[str], engine, use_link_metric: bool = True
+    ) -> dict[str, SpfResult]:
+        """Distances, SP-DAG and first hops of `sources` as SpfResults
+        (reference: CsrTopology.spf_from).  The port has no engine-less
+        path: this is the engine's per-source query."""
+        return engine.spf_results(self, sources, use_link_metric=use_link_metric)
+
+    def row_path_links(self, dist_row: np.ndarray, dag_row: np.ndarray) -> SpfResult:
+        """One row of a dist/DAG batch as an SpfResult with metrics and
+        path_links only, no first hops (reference:
+        CsrTopology.row_path_links): the shape `trace_one_path` walks."""
+        n, e = self.n_nodes, self.n_edges
+        reach = np.flatnonzero(dist_row[:n] < INF32)
+        names = self.node_names
+        result: SpfResult = {
+            names[i]: NodeSpfResult(m)
+            for i, m in zip(reach.tolist(), dist_row[reach].tolist())
+        }
+        links = self.edge_links
+        eids = np.flatnonzero(dag_row[:e])
+        for eid, v in zip(eids.tolist(), self.edge_dst[eids].tolist()):
+            result[names[v]].path_links.append(links[eid])
+        self._host_order_path_links(result)
+        return result
+
+    def edges_of_links(self) -> dict:
+        """Link -> its directed edge ids, both directions (reference:
+        CsrTopology.edges_of_links); parallel links map to their own
+        edges, retired slots to nothing."""
+        out: dict = {}
+        for e, lp in enumerate(self.edge_links):
+            if lp is not None:
+                out.setdefault(lp[0], []).append(e)
+        return out
 
     def _refresh_attributes(self, ls: LinkState) -> None:
         """Re-read metric/up/overload from the shared link objects into
@@ -493,6 +601,10 @@ class CsrTopology:
         out_changed = np.flatnonzero(new_out != self.out_slot).astype(np.int32)
         self.out_slot[:] = new_out
         self.max_out_slots = new_max
+        # the bands follow the live edges: rebuilt with the runner on use
+        self._banded_built = False
+        self._banded = None
+        self._runner = None
 
         # a slot retired and recycled in the same rewire is touched twice;
         # the delta reads the final state, so its indices are unique

@@ -13,10 +13,12 @@ the CUDA card unless the caller passes `device="cpu"` or an
 `spf_backend`.  Where the reference demotes its solver to the host
 Dijkstra for good when a rebuild raises, this module counts the failure
 (`decision.route_rebuild_failures`), keeps the pending updates for the
-next rebuild and lets the exception propagate.  The reference's trace
-spans (its `obs` tooling), the serving layer's defer hint and the BGP
-dry-run option (with BGP selection) are not ported yet; `what_if` and
-`get_ti_lfa` wait for the protection slice.
+next rebuild and lets the exception propagate.  `bgp_dry_run` marks
+BGP routes do-not-install.  The operator queries `what_if` (SRLG
+failure scenarios) and `get_ti_lfa` run on the event-base thread over
+the device backend's refreshed mirror and its engine
+(decision.protection_api).  The reference's trace spans (its `obs`
+tooling) and the serving layer's defer hint are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..types import (
 )
 from .link_state import LinkState, LinkStateChange
 from .prefix_state import PrefixState
+from .protection_api import ti_lfa, what_if
 from .rib import DecisionRouteDb, DecisionRouteUpdate
 from .rib_policy import PolicyError, RibPolicy, RibPolicyConfig
 from .spf_solver import SpfBackend, SpfSolver
@@ -135,6 +138,7 @@ class Decision(OpenrEventBase):
         eor_time_s: Optional[float] = None,
         enable_v4: bool = True,
         enable_ordered_fib: bool = False,
+        bgp_dry_run: bool = False,
         enable_best_route_selection: bool = False,
         enable_rib_policy: bool = False,
         spf_backend: Optional[SpfBackend] = None,
@@ -153,6 +157,7 @@ class Decision(OpenrEventBase):
         self.spf_solver = SpfSolver(
             my_node_name,
             enable_v4=enable_v4,
+            bgp_dry_run=bgp_dry_run,
             enable_best_route_selection=enable_best_route_selection,
             spf_backend=spf_backend,
             device=device,
@@ -476,17 +481,49 @@ class Decision(OpenrEventBase):
 
         return self.run_in_event_base_thread(_get).result()
 
-    def what_if(self, scenarios, area: str = "0", sources=None) -> list[dict]:
-        raise NotImplementedError(
-            "what-if failure analysis waits for the protection port "
-            "(ops/protection.py, decision/protection_api.py)"
-        )
+    def what_if(
+        self,
+        scenarios: list[list[tuple[str, str]]],
+        area: str = "0",
+        sources: Optional[list[str]] = None,
+    ) -> list[dict]:
+        """SRLG what-if failure analysis of `area` (protection_api.what_if):
+        one masked batch on the card; the impact view defaults to this
+        router (every source at scale is an output cubic in size and
+        would stall this thread)."""
+
+        def _compute() -> list[dict]:
+            ls = self.area_link_states.get(area)
+            if ls is None:
+                return []
+            srcs = sources if sources is not None else [self.my_node_name]
+            return what_if(
+                ls, scenarios, srcs, csr=self._protection_csr(ls),
+                engine=self.spf_solver.engine,
+            )
+
+        return self.run_in_event_base_thread(_compute).result()
 
     def get_ti_lfa(self, node: str = "", area: str = "0") -> dict:
-        raise NotImplementedError(
-            "TI-LFA backups wait for the protection port "
-            "(ops/protection.py, decision/protection_api.py)"
-        )
+        """Per-adjacency TI-LFA backups of `node` (this router by
+        default; protection_api.ti_lfa): one masked batch with the
+        SP-DAG on the card."""
+
+        def _compute() -> dict:
+            ls = self.area_link_states.get(area)
+            if ls is None:
+                return {"node": node or self.my_node_name, "error": "no area"}
+            return ti_lfa(
+                ls, node or self.my_node_name, csr=self._protection_csr(ls),
+                engine=self.spf_solver.engine,
+            )
+
+        return self.run_in_event_base_thread(_compute).result()
+
+    def _protection_csr(self, ls: LinkState):
+        """The backend's refreshed mirror of `ls`, whose forward runner the
+        queries reuse (None on a host backend: the query builds one)."""
+        return self.spf_solver.spf.csr_mirror(ls)
 
     def get_received_routes(self, **filters) -> list:
         return self.run_in_event_base_thread(

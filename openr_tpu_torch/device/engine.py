@@ -26,8 +26,9 @@ restage, the port demotes only a gap in the rewire log (a resident that
 fell behind the log's window) and lets every other error propagate.
 
 `counters` holds the fleet path's keys (ENGINE_COUNTER_KEYS) from the
-start and each residency key (RESIDENCY_COUNTER_KEYS) once bumped;
-`get_counters()` lists both families.  Snapshots (`export_resident`,
+start and each residency key (RESIDENCY_COUNTER_KEYS) or masked-batch
+key (MASKED_COUNTER_KEYS, `forward`) once bumped; `get_counters()`
+lists every family.  Snapshots (`export_resident`,
 `install_resident`) and the chaos `fault_hook` come in later slices.
 """
 
@@ -65,6 +66,15 @@ ENGINE_COUNTER_KEYS = (
     # fleet products whose uint16 run saturated, latched the mode off
     # and ran again in int32
     "device.engine.small_dist_retries",
+)
+
+# masked forward-runner batches (KSP2 through `forward`): the batches,
+# their rows, and their fixed-sweep runs (attempts and hint probes);
+# names of the port's choosing, the reference counts none
+MASKED_COUNTER_KEYS = (
+    "device.engine.masked_batches",
+    "device.engine.masked_rows",
+    "device.engine.masked_runs",
 )
 
 # the per-source SPF path's residency accounting (reference: engine.py
@@ -174,9 +184,9 @@ class DeviceResidencyEngine:
     # -- counters -----------------------------------------------------------
 
     def get_counters(self) -> dict[str, int]:
-        """Every key of both counter families, unbumped ones at 0."""
+        """Every key of the counter families, unbumped ones at 0."""
         return {
-            **{k: 0 for k in RESIDENCY_COUNTER_KEYS},
+            **{k: 0 for k in RESIDENCY_COUNTER_KEYS + MASKED_COUNTER_KEYS},
             **self.counters,
         }
 
@@ -188,6 +198,22 @@ class DeviceResidencyEngine:
     def stage(self, runner) -> None:
         """Pin a runner's tables and runtime arrays on this device."""
         runner.stage(self.device)
+
+    def forward(self, runner, sources, extra_edge_mask=None, **kwargs):
+        """`runner.forward` (ops.banded.SpfRunner) of a staged forward
+        runner, counted as one dispatch; a batch with `extra_edge_mask`
+        also counts as a masked batch of len(sources) rows and the
+        fixed-sweep runs it took."""
+        runs = runner.masked_runs
+        out = self.dispatch(
+            "forward", runner.forward, sources,
+            extra_edge_mask=extra_edge_mask, **kwargs,
+        )
+        if extra_edge_mask is not None:
+            self._bump("device.engine.masked_batches")
+            self._bump("device.engine.masked_rows", len(sources))
+            self._bump("device.engine.masked_runs", runner.masked_runs - runs)
+        return out
 
     def dispatch(self, op: str, fn: Callable, *args, **kwargs):
         """Run one unit of device work (`op` names it) and count it."""

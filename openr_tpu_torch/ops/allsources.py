@@ -327,7 +327,8 @@ def reduced_all_sources(
             raise ValueError("the ELL fallback does not warm-start")
 
         def attempt(sweeps: int):
-            return reverse_runner.run_once(dest, sweeps, raw_u16=True)
+            dist, _, ok = reverse_runner.run_once(dest, sweeps, raw_u16=True)
+            return dist, ok
 
         dist = reverse_runner.adapt(
             "hint",

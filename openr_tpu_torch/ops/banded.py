@@ -23,8 +23,17 @@ graph: the bands when `build_banded` finds them, else the bucketed ELL
 of ops.sssp, which it runs at a learned fixed-sweep hint (`adapt`,
 `run_once`); its `small_allowed` latches the uint16 mode off once a run
 saturates.  `affected_mask` is the worsening-direction warm-start
-support of the fleet view.  The per-row edge exclusions of the masked
-what-if variants come in a later slice.
+support of the fleet view.
+
+Per-row edge exclusions (KSP re-runs, SRLG what-if, TI-LFA) enter the
+residual as slot masks and the bands as cut barriers: a composed window
+of 2^(l+1) band edges that crosses an excluded edge is blocked for that
+row, so a masked edge is never jumped over (`_RelaxOps` with
+`row_allowed_T`).  `batched_sssp_banded` runs a fixed number of
+supersweeps and one exact verification relax; `spf_forward_banded`
+adds the uint16 verdict and the SP-DAG; `SpfRunner.forward` adapts the
+sweep hint of unmasked and masked batches separately (`hint`,
+`hint_masked`) and returns host arrays.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from .sssp import (
     WBIG16,
     EllGraph,
     domain,
+    forward_tail,
+    make_relax_allowed_T,
     spf_forward_ell_sweeps,
     u16_to_i32,
 )
@@ -203,6 +214,8 @@ class StagedArrays(NamedTuple):
     edge_up: torch.Tensor  # [E_cap] bool
     node_overloaded: torch.Tensor  # [N_cap] bool
     ell: Optional[EllGraph] = None  # tensors; None on a banded runner
+    edge_src: Optional[torch.Tensor] = None  # [E_cap] int32 (the SP-DAG)
+    edge_dst: Optional[torch.Tensor] = None  # [E_cap] int32
 
 
 def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -246,7 +259,12 @@ class _RelaxOps:
     single source of the relax semantics for the progressive loop and
     the epilogue's group tables.  Distances are int32 tensors; with
     `small_dist` they hold the 16-bit domain (`inf` INF16, `wbig`
-    WBIG16), as the reference's uint16 relax does."""
+    WBIG16), as the reference's uint16 relax does.
+
+    `row_allowed_T` [E_cap, S] bool (False excludes) adds per-row
+    exclusions: residual slot masks `resid_excl` [N, K, S] and per band
+    the cut positions `band_cut0` [N, S], which the composed levels
+    widen into barriers."""
 
     def __init__(
         self,
@@ -256,6 +274,7 @@ class _RelaxOps:
         resid_rounds: int,
         chord_mode: bool,
         small_dist: bool = False,
+        row_allowed_T: Optional[torch.Tensor] = None,
     ) -> None:
         self.bg = bg
         self.n = bg.n_nodes
@@ -269,11 +288,25 @@ class _RelaxOps:
         self.rw = _edge_weights(st, st.resid_eid, self.wbig)  # [N, K]
         self.rov = _gather(ov_n, st.resid_nbr)  # [N, K]
         self.resid_nbr = st.resid_nbr
+        self.resid_excl = None
+        self.band_cut0 = None
+        if row_allowed_T is not None:
+            s = row_allowed_T.shape[1]
+            eid = st.resid_eid
+            self.resid_excl = (eid >= 0)[:, :, None] & ~row_allowed_T.index_select(
+                0, eid.clamp(min=0).reshape(-1)
+            ).view(*eid.shape, s)
+            self.band_cut0 = [
+                (be >= 0)[:, None] & ~row_allowed_T.index_select(0, be.clamp(min=0))
+                for be in st.band_eid
+            ]
 
     def resid_cand(self, d: torch.Tensor, k: int) -> torch.Tensor:
         du = d.index_select(0, self.resid_nbr[:, k])  # [N, S]
         w = self.rw[:, k][:, None]
         allow = (w < self.wbig) & (~self.rov[:, k][:, None] | (du == 0))
+        if self.resid_excl is not None:
+            allow = allow & ~self.resid_excl[:, k]
         return torch.where(allow & (du < self.inf), du + w, self.inf)
 
     def relax_resid(self, d: torch.Tensor) -> torch.Tensor:
@@ -286,20 +319,29 @@ class _RelaxOps:
         w0, ov, _ = self.band_tabs[b]
         du = torch.roll(d, self.bg.offsets[b], 0)
         allow = (w0 < self.wbig) & (~ov | (du == 0))
+        if self.band_cut0 is not None:
+            allow = allow & ~self.band_cut0[b]
         return torch.where(allow & (du < self.inf), du + w0, self.inf)
 
     def relax_band0(self, d: torch.Tensor, b: int) -> torch.Tensor:
         return torch.minimum(d, self.band0_cand(d, b))
 
     def relax_band_levels(self, d: torch.Tensor, b: int) -> torch.Tensor:
-        """Composed-shift relaxes (transit-blocked; no source exception)."""
+        """Composed-shift relaxes (transit-blocked; no source exception).
+        With row exclusions a level's window of 2^(l+1) edges ending at v
+        is blocked for a row when any of its edges is cut there: the cut
+        mask doubles with the window (cut | cut rolled by c * 2^l)."""
         c = self.bg.offsets[b]
         _, _, levels = self.band_tabs[b]
+        cut = self.band_cut0[b] if self.band_cut0 is not None else None
         for level, wl in enumerate(levels):
             du = torch.roll(d, (c << (level + 1)) % self.n, 0)
             cand = torch.where(
                 (wl < self.wbig) & (du < self.inf), du + wl, self.inf
             )
+            if cut is not None:
+                cut = cut | torch.roll(cut, (c << level) % self.n, 0)
+                cand = torch.where(cut, self.inf, cand)
             d = torch.minimum(d, cand)
         return d
 
@@ -396,6 +438,94 @@ def affected_mask(
     return aff, done, passes
 
 
+def batched_sssp_banded(
+    dist0: torch.Tensor,
+    bg: BandedGraph,
+    st: StagedArrays,
+    n_supersweeps: int,
+    depth: int = 3,
+    resid_rounds: int = 1,
+    row_allowed_T: Optional[torch.Tensor] = None,
+    small_dist: bool = False,
+    chord_mode: bool = False,
+):
+    """Fixed-supersweep banded relax (reference: ops/banded.py
+    batched_sssp_banded): `n_supersweeps` supersweeps from `dist0` [N, S]
+    (original node order, int32 in the run's domain), then one exact
+    verification relax.  Returns (dist [N, S], converged 0-dim bool
+    tensor): converged means the verification changed nothing.  The
+    chord-mode supersweep has no composed levels (depth 0)."""
+    ops = _RelaxOps(
+        bg,
+        st,
+        0 if chord_mode else depth,
+        resid_rounds,
+        chord_mode,
+        small_dist=small_dist,
+        row_allowed_T=row_allowed_T,
+    )
+    d = dist0
+    for _ in range(n_supersweeps):
+        d = ops.supersweep(d)
+    v = ops.verify(d)
+    return v, (v == d).all()
+
+
+def spf_forward_banded(
+    sources: torch.Tensor,
+    bg: BandedGraph,
+    st: StagedArrays,
+    n_supersweeps: int,
+    depth: int = 3,
+    resid_rounds: int = 1,
+    extra_edge_mask: Optional[torch.Tensor] = None,
+    small_dist: bool = False,
+    use_link_metric: bool = True,
+    want_dag: bool = True,
+    chord_mode: bool = False,
+    raw_u16: bool = False,
+):
+    """Banded fixed-sweep forward (reference: ops/banded.py
+    spf_forward_banded with progressive=False and no dist0): (dist
+    [N, S] in original ids, dag [S, E_cap] bool or None, converged
+    0-dim bool tensor), the dist layout the kernel's native one (the
+    reference's transpose=False).  `st` holds the runtime arrays (a
+    metric plane goes in as `st.edge_metric`; the DAG reads
+    `st.edge_src` / `st.edge_dst`).  `extra_edge_mask` [S, E_cap] or
+    [E_cap] bool (False excludes) carries the per-row exclusions; the
+    bands and residual already apply up and overload.  The uint16 mode,
+    `raw_u16` and the DAG are as in ops.sssp.forward_tail.  The
+    progressive early-exit relax and its warm start live in
+    ops.allsources (the fleet product)."""
+    if not use_link_metric:
+        st = st._replace(edge_metric=torch.ones_like(st.edge_metric))
+    extra_T = None
+    row_allowed_T = None
+    if extra_edge_mask is not None:
+        extra_T = extra_edge_mask.T if extra_edge_mask.dim() == 2 else extra_edge_mask[:, None]
+        row_allowed_T = extra_T.expand(extra_T.shape[0], sources.shape[0])
+    dist, converged = batched_sssp_banded(
+        make_dist0_orig(sources, bg.n_nodes, small_dist=small_dist),
+        bg,
+        st,
+        n_supersweeps,
+        depth=depth,
+        resid_rounds=resid_rounds,
+        row_allowed_T=row_allowed_T,
+        small_dist=small_dist,
+        chord_mode=chord_mode,
+    )
+    allowed_T = None
+    if want_dag:
+        allowed_T = make_relax_allowed_T(
+            sources, st.edge_src, st.edge_up, st.node_overloaded, extra_T
+        )
+    return forward_tail(
+        dist, converged, small_dist, raw_u16, want_dag, st.edge_src,
+        st.edge_dst, st.edge_metric, allowed_T,
+    )
+
+
 def pick_small_dist(edge_metric, n_edges: int) -> bool:
     """True when every metric of the first `n_edges` edges (a numpy
     array) is below WBIG16 // 4 = 5000 (reference: ops/banded.py
@@ -408,19 +538,25 @@ def pick_small_dist(edge_metric, n_edges: int) -> bool:
 
 
 class SpfRunner:
-    """The relax settings of one mirrored (reversed) edge set.  With bands
-    (`bg`): composed-shift depth, chord mode, and the fixed-sweep hint
-    the progressive fleet product teaches.  Without (`bg` None): the
-    bucketed ELL (`ell`, ops.sssp), run at the learned hint through
-    `adapt`/`run_once`.  `stage` pins its tables and runtime arrays on a
-    device.  `sweeps` counts the relax sweeps run on either path (ELL
-    sweeps, verification sweeps included, or banded supersweeps) and
-    `runs` the fixed-sweep ELL calls (attempts and probes).
+    """The relax settings of one mirrored edge set (the reversed graph of
+    the fleet view, or a mirror's forward graph).  With bands (`bg`):
+    composed-shift depth, chord mode, and the fixed-sweep hint.  Without
+    (`bg` None): the bucketed ELL (`ell`, ops.sssp).  `stage` pins its
+    tables and runtime arrays on a device; `run_once` is one fixed-sweep
+    run on either path and `forward` adapts the hint around it
+    (`adapt`).  `sweeps` counts the relax sweeps run (ELL sweeps or
+    banded supersweeps, verification sweeps included, and the fleet
+    product's progressive supersweeps), `runs` the fixed-sweep calls
+    (attempts and probes) and `masked_runs` those with per-row
+    exclusions.
 
+    Masked batches need deeper relaxes than unmasked ones, so they learn
+    their own hint, `hint_masked` (reference: SpfRunner.hint_masked).
     `small_dist` says whether the next run takes the uint16 distance
     mode: `small_allowed` (latched off for good once a run saturated)
     and the metric gate, re-read from the numpy metrics on every run
-    because a mirror refresh rewrites them in place."""
+    because a mirror refresh rewrites them in place; a run over another
+    metric plane gates on that plane."""
 
     def __init__(
         self,
@@ -472,29 +608,36 @@ class SpfRunner:
         self.depth = depth
         self.resid_rounds = resid_rounds
         self.hint = hint
+        self.hint_masked = hint
         self.sweeps = 0
         self.runs = 0
+        self.masked_runs = 0
         self.small_allowed = True
         self._staged: Optional[StagedArrays] = None
 
     @property
     def small_dist(self) -> bool:
-        return self.small_allowed and pick_small_dist(
-            self.arrays[2], self.n_edges
-        )
+        return self._small_for(None)
+
+    def _small_for(self, metric_plane) -> bool:
+        """The uint16 mode of a run over `metric_plane` (numpy; None for
+        the runner's own metrics)."""
+        plane = self.arrays[2] if metric_plane is None else metric_plane
+        return self.small_allowed and pick_small_dist(plane, self.n_edges)
 
     def stage(self, device: torch.device) -> int:
         """Pin the tables (bands, else ELL buckets) and runtime arrays on
         `device`; returns the bytes staged."""
-        _, _, metric, up, overloaded = self.arrays
+        src, dst, metric, up, overloaded = self.arrays
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         runtime = [put(a) for a in (metric, up, overloaded)]
+        ends = [put(a) for a in (src, dst)]
         if self.bg is None:
             ell = self.ell.to(device)
-            self._staged = StagedArrays(None, None, None, *runtime, ell=ell)
+            self._staged = StagedArrays(None, None, None, *runtime, ell, *ends)
             tensors = [t for bk in ell.buckets for t in bk]
             tensors += [ell.new_of_old, ell.old_of_new]
         else:
@@ -502,9 +645,9 @@ class SpfRunner:
             tables = [
                 put(a) for a in (bg.band_eid, bg.resid_nbr, bg.resid_eid)
             ]
-            self._staged = StagedArrays(*tables, *runtime)
+            self._staged = StagedArrays(*tables, *runtime, None, *ends)
             tensors = tables
-        tensors += runtime
+        tensors += runtime + ends
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def call_arrays(self) -> StagedArrays:
@@ -528,7 +671,10 @@ class SpfRunner:
         A failed run in the uint16 mode at 32 sweeps or more latches
         `small_allowed` off instead of doubling (saturation also shows
         as a False verdict), so the next attempt runs the same sweeps in
-        int32.  attempt(sweeps) -> (result, ok); probe(sweeps) -> ok;
+        int32.  A shortest path has fewer than N_cap hops and every sweep
+        settles at least one more, so an int32 run that fails past
+        2 * N_cap sweeps raises instead of doubling for ever.
+        attempt(sweeps) -> (result, ok); probe(sweeps) -> ok;
         eff_small() -> whether the run that just failed was in the
         uint16 mode."""
         doubled_from: Optional[int] = None
@@ -550,27 +696,119 @@ class SpfRunner:
                 return result
             if eff_small() and sweeps >= 32:
                 self.small_allowed = False
+            elif sweeps > 2 * len(self.arrays[4]):
+                raise RuntimeError(
+                    f"relax did not converge in {sweeps} sweeps"
+                )
             else:
                 doubled_from = sweeps
                 setattr(self, hint_attr, sweeps * 2)
 
-    def run_once(self, sources: torch.Tensor, n_sweeps: int, raw_u16: bool = False):
-        """One fixed-sweep ELL relax from `sources` [S] (original ids):
-        (dist [N_cap, S] in original ids, converged host bool), at least
-        2 sweeps as in the reference, in the uint16 mode when
-        `small_dist` holds; dist is int32 / INF32, or with `raw_u16` a
-        uint16 run's torch.uint16 product (INF16 sentinel).  Banded
-        runners serve the fleet product through the progressive relax
-        (ops.allsources), not through fixed sweeps."""
-        if self.bg is not None:
-            raise NotImplementedError(
-                "the fixed-sweep banded relax (spf_forward_banded) is not "
-                "ported; banded runners run the progressive relax"
-            )
+    def forward(
+        self,
+        sources,
+        use_link_metric: bool = True,
+        extra_edge_mask=None,
+        want_dag: bool = True,
+        n_sweeps: Optional[int] = None,
+        metric_plane=None,
+    ):
+        """Distances (and the SP-DAG) of a batch of sources (reference:
+        SpfRunner.forward): (dist numpy [S, N*] int32, dag numpy [S, E_cap]
+        bool or None), N* being N on the banded path and N_cap on the ELL
+        path.  `extra_edge_mask` (numpy [S, E_cap] or [E_cap] bool, False
+        excludes) adds per-row exclusions and adapts `hint_masked`
+        instead of `hint`; `metric_plane` (numpy [E_cap] int32) replaces
+        the metrics for this call, the uint16 gate keyed on it.  With
+        `n_sweeps` one fixed-sweep run, which must converge (raises
+        otherwise); without, the learned hint through `adapt`."""
         st = self.call_arrays()
+        device = st.edge_up.device
+        src = torch.as_tensor(np.asarray(sources, dtype=np.int32), device=device)
+        mask = None
+        if extra_edge_mask is not None:
+            mask = torch.as_tensor(np.asarray(extra_edge_mask, dtype=bool), device=device)
+        plane = None
+        if metric_plane is not None:
+            plane = torch.as_tensor(np.asarray(metric_plane, dtype=np.int32), device=device)
+
+        def run(sweeps: int, dag: bool):
+            return self.run_once(
+                src, sweeps, use_link_metric=use_link_metric,
+                extra_edge_mask=mask, want_dag=dag, metric_plane=plane,
+                small=self._small_for(metric_plane),
+            )
+
+        def attempt(sweeps: int):
+            out = run(sweeps, want_dag)
+            return out, out[2]
+
+        if n_sweeps is not None:
+            dist, dag, ok = run(n_sweeps, want_dag)
+            if not ok:
+                raise RuntimeError(f"fixed {n_sweeps}-sweep run did not converge")
+        else:
+            dist, dag, _ = self.adapt(
+                "hint" if mask is None else "hint_masked",
+                attempt,
+                probe=lambda sweeps: run(sweeps, False)[2],
+                eff_small=lambda: self._small_for(metric_plane),
+            )
+        return (
+            dist.T.cpu().numpy(),
+            None if dag is None else dag.cpu().numpy(),
+        )
+
+    def run_once(
+        self,
+        sources: torch.Tensor,
+        n_sweeps: int,
+        raw_u16: bool = False,
+        *,
+        use_link_metric: bool = True,
+        extra_edge_mask: Optional[torch.Tensor] = None,
+        want_dag: bool = False,
+        metric_plane: Optional[torch.Tensor] = None,
+        small: Optional[bool] = None,
+    ):
+        """One fixed-sweep run from `sources` [S] (original ids), on the
+        bands when the runner has them, else on the ELL (at least 2
+        sweeps there, as in the reference): (dist [N*, S] in original
+        ids, dag [S, E_cap] bool or None, converged host bool).  dist is
+        int32 / INF32, or with `raw_u16` a uint16 run's torch.uint16
+        product (INF16 sentinel).  `extra_edge_mask` (a bool tensor
+        [S, E_cap] or [E_cap], False excludes), `use_link_metric`,
+        `want_dag` and `metric_plane` (an int32 tensor [E_cap] standing
+        in for the metrics) are those of the reference's run_once.  The
+        uint16 mode is `small` when given (the caller gated it on the
+        plane's host copy), else `small_dist`."""
+        st = self.call_arrays()
+        if metric_plane is not None:
+            st = st._replace(edge_metric=metric_plane)
+        if small is None:
+            small = self.small_dist
+        self.runs += 1
+        if extra_edge_mask is not None:
+            self.masked_runs += 1
+        if self.bg is not None:
+            self.sweeps += n_sweeps + 1
+            dist, dag, ok = spf_forward_banded(
+                sources,
+                self.bg,
+                st,
+                n_sweeps,
+                depth=self.depth,
+                resid_rounds=self.resid_rounds,
+                extra_edge_mask=extra_edge_mask,
+                small_dist=small,
+                use_link_metric=use_link_metric,
+                want_dag=want_dag,
+                chord_mode=self.chord_mode,
+                raw_u16=raw_u16,
+            )
+            return dist, dag, bool(ok)
         n_sweeps = max(n_sweeps, 2)
         self.sweeps += n_sweeps + 1
-        self.runs += 1
         return spf_forward_ell_sweeps(
             sources,
             st.ell,
@@ -578,6 +816,11 @@ class SpfRunner:
             st.edge_up,
             st.node_overloaded,
             n_sweeps,
-            small_dist=self.small_dist,
+            small_dist=small,
             raw_u16=raw_u16,
+            edge_src=st.edge_src,
+            edge_dst=st.edge_dst,
+            extra_edge_mask=extra_edge_mask,
+            use_link_metric=use_link_metric,
+            want_dag=want_dag,
         )

@@ -33,8 +33,16 @@ source begins a shortest path to the node.  torch has no uint32
 arithmetic on CUDA, so the words hold the reference's uint32 bit
 patterns in int32 (slot 31 is the sign bit; decode with
 `int(w) & 0xFFFFFFFF`).  The fixed-sweep forms run `n_sweeps` sweeps
-plus one verification sweep and return the converged verdict; the
-per-row masked variants (KSP, what-if) come in a later slice.
+plus one verification sweep and return the converged verdict.
+
+Per-row edge exclusions (KSP re-runs, SRLG what-if, TI-LFA) enter the
+relax as an [E, S] permission (`make_relax_allowed_T` with `extra_T`),
+gathered into slot space once per call (`row_allowed_T` of
+`batched_sssp_ell`): `spf_forward_ell_masked` runs it to the fixed
+point, `spf_forward_ell_sweeps` at a fixed sweep count.  The dense
+edge-list relax (`batched_sssp`, `make_dist0`, `make_relax_allowed`,
+`sp_dag_mask`) is the small-graph path of ops.protection: one
+scatter-min per sweep.
 """
 
 from __future__ import annotations
@@ -221,13 +229,16 @@ def make_dist0_T(
 
 def _slot_chunks(
     ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
-    unit_metric: bool = False, small_dist: bool = False,
+    unit_metric: bool = False, small_dist: bool = False, row_allowed_T=None,
 ):
     """Loop-invariant relax tables per bucket: (row offset, rows, chunks
     of (flat gather index, ok, transit, weight) over the bucket's slots).
     Permission and weight come from the runtime arrays through edge_id
     (every weight 1 with `unit_metric`); weights are clamped to WBIG
-    (WBIG16 with `small_dist`) so no sum leaves its domain."""
+    (WBIG16 with `small_dist`) so no sum leaves its domain.  With
+    `row_allowed_T` [E_cap, S] the per-row exclusions are gathered into
+    slot space here, once per call: a chunk's `ok` is then
+    [R, slots, S] instead of [R, slots, 1]."""
     ov_new = node_overloaded.index_select(0, ell.old_of_new)
     tables = []
     lo = 0
@@ -242,26 +253,35 @@ def _slot_chunks(
             w = edge_metric.index_select(0, e0).reshape(r, k)
             w = w.clamp(max=domain(small_dist)[1])
         step = max(1, CHUNK_ELEMS // max(1, r * s))
-        chunks = [
-            (
-                bk.nbr[:, j : j + step].reshape(-1),
-                ok[:, j : j + step, None],
-                transit[:, j : j + step, None],
-                w[:, j : j + step, None],
+        chunks = []
+        for j in range(0, k, step):
+            ok_j = ok[:, j : j + step, None]
+            if row_allowed_T is not None:
+                ids = e0.view(r, k)[:, j : j + step]
+                ok_j = ok_j & row_allowed_T.index_select(0, ids.reshape(-1)).view(
+                    r, ids.shape[1], s
+                )
+            chunks.append(
+                (
+                    bk.nbr[:, j : j + step].reshape(-1),
+                    ok_j,
+                    transit[:, j : j + step, None],
+                    w[:, j : j + step, None],
+                )
             )
-            for j in range(0, k, step)
-        ]
         tables.append((lo, r, chunks))
         lo += r
     return tables
 
 
 def _ell_relax(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
-               unit_metric: bool = False, small_dist: bool = False):
+               unit_metric: bool = False, small_dist: bool = False,
+               row_allowed_T=None):
     """One Jacobi sweep over [N_cap, S] relabelled distances, as a
     function of the sweep's input."""
     tables = _slot_chunks(
-        ell, edge_up, node_overloaded, edge_metric, s, unit_metric, small_dist
+        ell, edge_up, node_overloaded, edge_metric, s, unit_metric, small_dist,
+        row_allowed_T,
     )
     inf = domain(small_dist)[0]
 
@@ -299,6 +319,7 @@ def batched_sssp_ell(
     n_sweeps: Optional[int] = None,
     unit_metric: bool = False,
     small_dist: bool = False,
+    row_allowed_T: Optional[torch.Tensor] = None,
 ):
     """ELL relax (reference: ops/sssp.py batched_sssp_ell) from `dist0_T`
     [N_cap, S] int32 (relabelled rows), in the 16-bit domain with
@@ -311,11 +332,13 @@ def batched_sssp_ell(
     the runtime arrays are indexed by old node id / edge id.
 
     A slot relaxes iff its edge is up and its in-neighbour offers
-    transit (not overloaded) or is the column's source (d_u == 0).
+    transit (not overloaded) or is the column's source (d_u == 0), and,
+    with `row_allowed_T` [E_cap, S], the column may use its edge.
     `unit_metric` counts hops (every weight 1)."""
     n_cap, s = dist0_T.shape
     relax = _ell_relax(
-        ell, edge_up, node_overloaded, edge_metric, s, unit_metric, small_dist
+        ell, edge_up, node_overloaded, edge_metric, s, unit_metric, small_dist,
+        row_allowed_T,
     )
     if n_sweeps is not None:
         verify, ok = _fixed_sweeps(relax, dist0_T, n_sweeps)
@@ -343,15 +366,36 @@ def spf_forward_ell_sweeps(
     n_sweeps: int,
     small_dist: bool = False,
     raw_u16: bool = False,
+    *,
+    edge_src: Optional[torch.Tensor] = None,
+    edge_dst: Optional[torch.Tensor] = None,
+    extra_edge_mask: Optional[torch.Tensor] = None,
+    use_link_metric: bool = True,
+    want_dag: bool = False,
 ):
-    """Fixed-sweep ELL forward in the kernel's native layout (reference:
-    ops/sssp.py spf_forward_ell_sweeps with want_dag=False,
-    transpose=False): (dist [N_cap, S] in original node ids, converged
-    host bool).  dist is int32 / INF32; with `small_dist` the relax runs
-    in the 16-bit domain, the verdict includes the saturation guard, and
-    `raw_u16` returns the product as torch.uint16 with the INF16
-    sentinel (consumers key on dtype)."""
+    """Fixed-sweep ELL forward (reference: ops/sssp.py
+    spf_forward_ell_sweeps): (dist [N_cap, S] in original node ids, dag
+    [S, E_cap] bool or None, converged host bool).  dist keeps the
+    kernel's native layout (the reference's transpose=False) whatever
+    `want_dag`.
+
+    dist is int32 / INF32; with `small_dist` the relax runs in the 16-bit
+    domain, the verdict includes the saturation guard, and `raw_u16`
+    (without `want_dag`) returns the product as torch.uint16 with the
+    INF16 sentinel (consumers key on dtype).  `extra_edge_mask` [S, E_cap]
+    or [E_cap] bool (False excludes) adds per-row exclusions, which need
+    `edge_src`; `use_link_metric` False counts hops.  `want_dag` (which
+    needs `edge_src` and `edge_dst`) takes the SP-DAG in the run's own
+    domain, through `sp_dag_mask16_from_T` in the uint16 mode."""
     n_cap = int(node_overloaded.shape[0])
+    extra_T = None
+    if extra_edge_mask is not None:
+        extra_T = extra_edge_mask.T if extra_edge_mask.dim() == 2 else extra_edge_mask
+    allowed_T = None
+    if extra_T is not None or want_dag:
+        allowed_T = make_relax_allowed_T(
+            sources, edge_src, edge_up, node_overloaded, extra_T
+        )
     dist_T, converged = batched_sssp_ell(
         make_dist0_T(sources, ell.new_of_old, n_cap, small_dist),
         ell,
@@ -359,15 +403,45 @@ def spf_forward_ell_sweeps(
         node_overloaded,
         edge_metric,
         n_sweeps,
+        unit_metric=not use_link_metric,
         small_dist=small_dist,
+        row_allowed_T=allowed_T if extra_T is not None else None,
     )
-    dist = ell_dist_to_old_T(dist_T, ell)
-    if not small_dist:
-        return dist, converged
-    converged = u16_saturation_verdict(dist, converged)
-    if raw_u16:
-        return to_u16(dist), converged
-    return torch.where(dist >= INF16, INF32, dist), converged
+    return forward_tail(
+        ell_dist_to_old_T(dist_T, ell),
+        converged,
+        small_dist,
+        raw_u16,
+        want_dag,
+        edge_src,
+        edge_dst,
+        edge_metric if use_link_metric else torch.ones_like(edge_metric),
+        allowed_T,
+    )
+
+
+def forward_tail(
+    dist, converged, small_dist, raw_u16, want_dag, edge_src, edge_dst,
+    metric, allowed_T,
+):
+    """The common end of the fixed-sweep forwards (ELL here, banded in
+    ops.banded): the uint16 verdict and domain mapping, then the SP-DAG.
+    `dist` is [N*, S] in original ids and in the run's domain; returns
+    (dist, dag or None, converged)."""
+    dist16 = None
+    if small_dist:
+        converged = u16_saturation_verdict(dist, converged)
+        dist16 = dist
+        if raw_u16 and not want_dag:
+            return to_u16(dist), None, converged
+        dist = torch.where(dist >= INF16, INF32, dist)
+    if not want_dag:
+        return dist, None, converged
+    if dist16 is not None:
+        dag = sp_dag_mask16_from_T(dist16, edge_src, edge_dst, metric, allowed_T)
+    else:
+        dag = sp_dag_mask_from_T(dist, edge_src, edge_dst, metric, allowed_T)
+    return dist, dag, converged
 
 
 def make_relax_allowed_T(
@@ -375,14 +449,28 @@ def make_relax_allowed_T(
     edge_src: torch.Tensor,
     edge_up: torch.Tensor,
     node_overloaded: torch.Tensor,
+    extra_edge_mask_T: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[E, S] relax permission (reference: ops/sssp.py
-    make_relax_allowed_T without the per-row exclusions): edge up, and
-    its source not overloaded unless it is the column's own source."""
+    make_relax_allowed_T): edge up, its source not overloaded unless it
+    is the column's own source, and not excluded by `extra_edge_mask_T`
+    ([E, S] or [E] bool, False excludes)."""
     transit_ok = ~node_overloaded.index_select(0, edge_src)
-    return edge_up[:, None] & (
+    allowed = edge_up[:, None] & (
         transit_ok[:, None] | (edge_src[:, None] == sources[None, :])
     )
+    if extra_edge_mask_T is not None:
+        if extra_edge_mask_T.dim() == 1:
+            extra_edge_mask_T = extra_edge_mask_T[:, None]
+        allowed = allowed & extra_edge_mask_T
+    return allowed
+
+
+def _endpoint_rows(dist: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """dist rows of edge endpoints.  A banded product has only N rows,
+    while padding edges point at the padding node N_cap - 1: those
+    edges (down, so never allowed) read row N - 1 instead."""
+    return dist.index_select(0, ids.clamp(max=dist.shape[0] - 1))
 
 
 def sp_dag_mask_from_T(
@@ -395,12 +483,33 @@ def sp_dag_mask_from_T(
     """[S, E] shortest-path DAG (reference: ops/sssp.py
     sp_dag_mask_from_T): edge e = (u, v) is on some shortest path from a
     column's source iff it may relax there and d[u] + w(e) == d[v], with
-    `dist_old_T` [N_cap, S] in original ids.  Every equal-cost in-edge is
+    `dist_old_T` [N*, S] in original ids.  Every equal-cost in-edge is
     kept, as the host Dijkstra's path_links keep them."""
-    d_u = dist_old_T.index_select(0, edge_src)
-    d_v = dist_old_T.index_select(0, edge_dst)
+    d_u = _endpoint_rows(dist_old_T, edge_src)
+    d_v = _endpoint_rows(dist_old_T, edge_dst)
     dag_T = allowed_T & (d_u < INF32) & (d_u + edge_metric[:, None] == d_v)
     return dag_T.T
+
+
+def sp_dag_mask16_from_T(
+    dist16_old_T: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    allowed_T: torch.Tensor,
+) -> torch.Tensor:
+    """`sp_dag_mask_from_T` in the 16-bit domain (reference: ops/sssp.py
+    sp_dag_mask16_from_T): `dist16_old_T` [N*, S] is a uint16-mode
+    product (torch.uint16, or int32 with the INF16 sentinel), metrics
+    are clamped to WBIG16 and saturated entries are excluded by the
+    d_u < INF16 guard.  A finite d plus a clamped metric stays below
+    2^16, so these int32 sums equal the reference's uint16 ones."""
+    if dist16_old_T.dtype == torch.uint16:
+        dist16_old_T = u16_to_i32(dist16_old_T)
+    m16 = clamp_metric_u16(edge_metric)
+    d_u = _endpoint_rows(dist16_old_T, edge_src)
+    d_v = _endpoint_rows(dist16_old_T, edge_dst)
+    return (allowed_T & (d_u < INF16) & (d_u + m16[:, None] == d_v)).T
 
 
 def spf_forward_ell(
@@ -428,6 +537,45 @@ def spf_forward_ell(
     dist_old_T = ell_dist_to_old_T(dist_T, ell)
     metric = edge_metric if use_link_metric else torch.ones_like(edge_metric)
     allowed_T = make_relax_allowed_T(sources, edge_src, edge_up, node_overloaded)
+    dag = sp_dag_mask_from_T(dist_old_T, edge_src, edge_dst, metric, allowed_T)
+    return dist_old_T.T, dag
+
+
+def spf_forward_ell_masked(
+    sources: torch.Tensor,
+    ell: EllGraph,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    edge_up: torch.Tensor,
+    node_overloaded: torch.Tensor,
+    extra_edge_mask: torch.Tensor,
+    use_link_metric: bool = True,
+    want_dag: bool = True,
+):
+    """ELL forward with per-row edge exclusions, to the fixed point
+    (reference: ops/sssp.py spf_forward_ell_masked): `extra_edge_mask`
+    [S, E_cap] or [E_cap] bool, False excludes.  Returns (dist [S, N_cap]
+    int32 in original ids, dag [S, E_cap] bool, or None without
+    `want_dag`)."""
+    n_cap = int(node_overloaded.shape[0])
+    extra_T = extra_edge_mask.T if extra_edge_mask.dim() == 2 else extra_edge_mask
+    allowed_T = make_relax_allowed_T(
+        sources, edge_src, edge_up, node_overloaded, extra_T
+    )
+    dist_T = batched_sssp_ell(
+        make_dist0_T(sources, ell.new_of_old, n_cap),
+        ell,
+        edge_up,
+        node_overloaded,
+        edge_metric,
+        unit_metric=not use_link_metric,
+        row_allowed_T=allowed_T,
+    )
+    dist_old_T = ell_dist_to_old_T(dist_T, ell)
+    if not want_dag:
+        return dist_old_T.T, None
+    metric = edge_metric if use_link_metric else torch.ones_like(edge_metric)
     dag = sp_dag_mask_from_T(dist_old_T, edge_src, edge_dst, metric, allowed_T)
     return dist_old_T.T, dag
 
@@ -554,3 +702,74 @@ def spf_forward_full(
         ell, dag.T, out_slot, sources, edge_src, n_words, n_sweeps
     )
     return dist_old_T.T, dag, nh, dist_ok & nh_ok
+
+
+# -- the dense edge-list relax (small graphs) --------------------------------
+
+
+def make_dist0(sources: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """[S, N] int32 rows: 0 at each row's source, INF32 elsewhere
+    (reference: ops/sssp.py make_dist0)."""
+    ids = torch.arange(n_nodes, dtype=sources.dtype, device=sources.device)
+    d0 = torch.full(
+        (sources.shape[0], n_nodes), INF32, dtype=torch.int32, device=sources.device
+    )
+    return d0.masked_fill_(ids[None, :] == sources[:, None], 0)
+
+
+def make_relax_allowed(
+    sources: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_up: torch.Tensor,
+    node_overloaded: torch.Tensor,
+    extra_edge_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[S, E] relax permission (reference: ops/sssp.py
+    make_relax_allowed): `make_relax_allowed_T` row-major, with
+    `extra_edge_mask` [S, E] or [E] (False excludes)."""
+    extra_T = None
+    if extra_edge_mask is not None:
+        extra_T = extra_edge_mask.T if extra_edge_mask.dim() == 2 else extra_edge_mask
+    return make_relax_allowed_T(
+        sources, edge_src, edge_up, node_overloaded, extra_T
+    ).T
+
+
+def batched_sssp(
+    dist0: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    relax_allowed: torch.Tensor,
+) -> torch.Tensor:
+    """Edge-list relax to the fixed point (reference: ops/sssp.py
+    batched_sssp): per sweep every allowed edge offers d[u] + w to its
+    head and a scatter-min over the heads keeps the least, for at most
+    N sweeps.  dist0 [S, N] int32 and relax_allowed [S, E] bool; returns
+    dist [S, N] int32."""
+    s, n = dist0.shape
+    heads = edge_dst.long().expand(s, -1)
+    dist = dist0
+    for _ in range(n):
+        d_u = dist.index_select(1, edge_src)
+        cand = torch.where(relax_allowed & (d_u < INF32), d_u + edge_metric, INF32)
+        best = torch.full_like(dist, INF32).scatter_reduce_(1, heads, cand, "amin")
+        new = torch.minimum(dist, best)
+        if torch.equal(new, dist):
+            break
+        dist = new
+    return dist
+
+
+def sp_dag_mask(
+    dist: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_metric: torch.Tensor,
+    relax_allowed: torch.Tensor,
+) -> torch.Tensor:
+    """[S, E] SP-DAG of row-major distances (reference: ops/sssp.py
+    sp_dag_mask)."""
+    d_u = dist.index_select(1, edge_src)
+    d_v = dist.index_select(1, edge_dst)
+    return relax_allowed & (d_u < INF32) & (d_u + edge_metric[None, :] == d_v)

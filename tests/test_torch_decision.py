@@ -489,7 +489,13 @@ def test_rebuild_exception_counts_and_raises_without_demotion(pair):
 
 
 def test_protection_api_waits_for_its_port(pair):
-    with pytest.raises(NotImplementedError, match="protection"):
-        pair.port.what_if([[("1", "2")]])
-    with pytest.raises(NotImplementedError, match="protection"):
-        pair.port.get_ti_lfa()
+    """The protection queries the port used to refuse now answer as the
+    reference does, on the converged square."""
+    pair.push(square_publication())
+    pair.update()
+    scenarios = [[("1", "2")], [("1", "2"), ("1", "3")], [("1", "9")]]
+    got, want = pair.call(lambda d: d.what_if(scenarios))
+    assert got == want
+    assert got[1]["newly_unreachable_pairs"] == 3
+    got, want = pair.call(lambda d: d.get_ti_lfa())
+    assert got == want and len(got["adjacencies"]) == 2

@@ -169,7 +169,7 @@ def test_fixed_sweep_relax_equals_reference(name):
         )
         np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
         assert ok == bool(jok), n_sweeps
-        dist, ok = sssp.spf_forward_ell_sweeps(
+        dist, _, ok = sssp.spf_forward_ell_sweeps(
             src, st.ell, st.edge_metric, st.edge_up, st.node_overloaded,
             n_sweeps,
         )
@@ -194,7 +194,7 @@ def test_chunked_slots_equal_one_chunk(monkeypatch):
     whole = sssp.spf_forward_ell_sweeps(*args)
     monkeypatch.setattr(sssp, "CHUNK_ELEMS", 1)
     single = sssp.spf_forward_ell_sweeps(*args)
-    assert torch.equal(whole[0], single[0]) and whole[1] == single[1]
+    assert torch.equal(whole[0], single[0]) and whole[2] == single[2]
 
 
 def _reference_product(jcsr, jrunner, dests):

@@ -42,7 +42,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.splitlines()
-    assert int(n_modules) >= 31
+    assert int(n_modules) >= 35
     assert bad == "", bad
 
 

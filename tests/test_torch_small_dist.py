@@ -184,9 +184,9 @@ def test_ell_uint16_matches_int32_and_reference():
     st = runner.call_arrays()
     src = torch.arange(csr.n_nodes, dtype=torch.int32)
     args = (src, st.ell, st.edge_metric, st.edge_up, st.node_overloaded, 16)
-    d32, ok32 = sssp.spf_forward_ell_sweeps(*args)
-    d16, ok16 = sssp.spf_forward_ell_sweeps(*args, small_dist=True)
-    raw, okr = sssp.spf_forward_ell_sweeps(*args, small_dist=True, raw_u16=True)
+    d32, _, ok32 = sssp.spf_forward_ell_sweeps(*args)
+    d16, _, ok16 = sssp.spf_forward_ell_sweeps(*args, small_dist=True)
+    raw, _, okr = sssp.spf_forward_ell_sweeps(*args, small_dist=True, raw_u16=True)
     assert ok32 and ok16 and okr
     assert d16.dtype == torch.int32 and raw.dtype == torch.uint16
     assert torch.equal(d16, d32)
@@ -236,7 +236,7 @@ def test_ell_chain_saturates_in_a_direct_run():
     runner.stage(torch.device("cpu"))
     st = runner.call_arrays()
     src = torch.tensor([csr.node_id["c0"]], dtype=torch.int32)
-    raw, ok = sssp.spf_forward_ell_sweeps(
+    raw, _, ok = sssp.spf_forward_ell_sweeps(
         src, st.ell, st.edge_metric, st.edge_up, st.node_overloaded, 16,
         small_dist=True, raw_u16=True,
     )
