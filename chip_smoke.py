@@ -52,7 +52,8 @@ and its phases timed:
   `ti_lfa_backups(runner=)` called directly;
 - BASELINE config #3's dual-metric KSP2 on that mirror's forward
   runner (`ops.ksp.FusedKsp2Runner`, an IGP and a TE plane, 8
-  destinations) against scipy's Dijkstra;
+  destinations) against scipy's Dijkstra over the oracle Decision's
+  LinkState;
 - BASELINE config #4's SRLG what-if: 10 000 single-link failure
   variants of a 1024-node grid in one masked `SpfRunner.forward`;
 - the reference's reconvergence flow on the 10 080-node fabric: the
@@ -80,6 +81,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -2045,7 +2047,7 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
                 card["decision"].area_link_states["0"]
             )
         ).result()
-        steps["g_protection"] = protection_queries(
+        steps["g_protection"], graph = protection_queries(
             card["decision"], wan_csr, oracle["decision"].area_link_states["0"],
             router, timer,
         )
@@ -2080,7 +2082,7 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     if timer.cuda:
         record["card"] = card_line()
         record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    return record, (wan_csr, engine)
+    return record, (wan_csr, engine, graph)
 
 
 def spf_reconverge_fabric96(device, pods, timer, n_prefixes=128,
@@ -2695,26 +2697,65 @@ def masked_sweep_record(runner, sources, mask, timer, want_dag=False) -> dict:
     }
 
 
-def scipy_dist(csr, src: int, metric=None, drop=()) -> np.ndarray:
-    """The host oracle at scale: scipy's Dijkstra from `src` over the
-    mirror's up edges (no drained nodes), `drop` edge ids removed; INF32
-    where unreachable."""
+class OracleGraph(NamedTuple):
+    """The scipy oracle's directed edges: endpoints, metric, and the
+    mirror's id of each edge (what a metric plane and dropped edge ids
+    index)."""
+
+    src: np.ndarray
+    dst: np.ndarray
+    metric: np.ndarray
+    eid: np.ndarray
+    n: int
+
+
+def oracle_graph(ls, csr) -> OracleGraph:
+    """The scipy oracle's graph, read from the host oracle's LinkState:
+    both directions of every up link, each with the metric it
+    originates, and no drained node.  Each edge is matched to the id the
+    card mirror gives it through the mirror's host link table (links
+    compare by their (node, iface) pairs), so a TE plane and dropped edge
+    ids index it; the mirror's endpoint, metric and up arrays, which the
+    card's refresh writes, are not read."""
+    names = ls.node_names
+    if names != csr.node_names:
+        raise AssertionError("the oracle and the mirror name other nodes")
+    if any(ls.is_node_overloaded(v) for v in names):
+        raise AssertionError("the scipy oracle takes no drained node")
+    node_id = {v: i for i, v in enumerate(names)}
+    eid_of = {lp: e for e, lp in enumerate(csr.edge_links) if lp is not None}
+    rows = [
+        (node_id[frm], node_id[link.other_node_name(frm)],
+         link.metric_from_node(frm), eid_of[(link, frm)])
+        for link in ls.all_links
+        if link.is_up()
+        for frm in (link.n1, link.n2)
+    ]
+    a = np.asarray(rows, dtype=np.int64).reshape(-1, 4)
+    return OracleGraph(a[:, 0], a[:, 1], a[:, 2], a[:, 3], len(names))
+
+
+def scipy_dist(g: OracleGraph, src: int, metric=None, drop=(), drop_pairs=()) -> np.ndarray:
+    """The host oracle at scale: scipy's Dijkstra from `src` over
+    `g`'s edges, with the metrics `metric[eid]` of a plane when given,
+    less the edge ids `drop` and every edge between a node-id pair of
+    `drop_pairs`; INF32 where unreachable.  Parallel edges keep their
+    least metric."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
 
     from openr_tpu_torch.ops.sssp import INF32
 
-    if csr.node_overloaded[: csr.n_nodes].any():
-        raise AssertionError("the scipy oracle takes no drained node")
-    e, n = csr.n_edges, csr.n_nodes
-    up = csr.edge_up[:e].copy()
-    up[np.asarray(drop, dtype=np.int64)] = False
-    w = (csr.edge_metric if metric is None else metric)[:e][up]
-    g = csr_matrix(
-        (w.astype(np.float64), (csr.edge_src[:e][up], csr.edge_dst[:e][up])),
-        shape=(n, n),
-    )
-    d = dijkstra(g, indices=src)
+    w = g.metric if metric is None else np.asarray(metric, dtype=np.int64)[g.eid]
+    pair = np.minimum(g.src, g.dst) * g.n + np.maximum(g.src, g.dst)
+    cut = [min(a, b) * g.n + max(a, b) for a, b in drop_pairs]
+    keep = ~np.isin(g.eid, np.asarray(drop, dtype=np.int64)) & ~np.isin(pair, cut)
+    key, w = (g.src * g.n + g.dst)[keep], w[keep]
+    order = np.lexsort((w, key))
+    first = np.r_[True, key[order][1:] != key[order][:-1]]
+    key, w = key[order][first], w[order][first]
+    mat = csr_matrix((w.astype(np.float64), (key // g.n, key % g.n)), shape=(g.n, g.n))
+    d = dijkstra(mat, indices=src)
     return np.where(np.isinf(d), INF32, d).astype(np.int64)
 
 
@@ -2725,8 +2766,9 @@ def protection_queries(decision, csr, oracle_ls, router: str, timer) -> dict:
     scenarios, then `ti_lfa_backups(runner=)` called directly as the
     reference's bench does.  Two TI-LFA adjacencies are held against the
     host Dijkstra with the link ignored (`LinkState.run_spf`: counts and
-    every listed backup first-hop set), every scenario against scipy's
-    Dijkstra, and two rows of the direct call against scipy."""
+    every listed backup first-hop set), every scenario and two rows of
+    the direct call against scipy's Dijkstra over the oracle's graph
+    (oracle_graph, returned with the record)."""
     import torch
 
     from openr_tpu_torch.ops import protection as prot
@@ -2780,17 +2822,13 @@ def protection_queries(decision, csr, oracle_ls, router: str, timer) -> dict:
     what_if_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     src = csr.node_id[router]
-    pair_edges = {}
-    for e in range(csr.n_edges):
-        lp = csr.edge_links[e]
-        if lp is not None:
-            pair_edges.setdefault(tuple(sorted((lp[0].n1, lp[0].n2))), []).append(e)
-    d0 = scipy_dist(csr, src)
+    graph = oracle_graph(ls, csr)
+    node_id = {v: i for i, v in enumerate(ls.node_names)}
+    d0 = scipy_dist(graph, src)
     from openr_tpu_torch.ops.sssp import INF32
 
     for f, scen in enumerate(scenarios):
-        drop = [e for a, b in scen for e in pair_edges[tuple(sorted((a, b)))]]
-        d1 = scipy_dist(csr, src, drop=drop)
+        d1 = scipy_dist(graph, src, drop_pairs=[(node_id[a], node_id[b]) for a, b in scen])
         lost = int(((d0 < INF32) & (d1 >= INF32)).sum())
         degraded = int(((d0 < INF32) & (d1 < INF32) & (d1 > d0)).sum())
         if (rows[f]["newly_unreachable_pairs"], rows[f]["degraded_pairs"]) != (lost, degraded):
@@ -2821,7 +2859,7 @@ def protection_queries(decision, csr, oracle_ls, router: str, timer) -> dict:
     t0 = time.perf_counter()
     for d in range(2):
         e_failed = int(out_edges[d])
-        want = scipy_dist(csr, src, drop=[e_failed, int(rev[e_failed])])
+        want = scipy_dist(graph, src, drop=[e_failed, int(rev[e_failed])])
         if not np.array_equal(np.minimum(dist[d, : csr.n_nodes], INF32), want):
             raise AssertionError(f"ti_lfa_backups row {d} differs from scipy")
     survives = prot.build_edge_failure_masks(out_edges, rev, csr.edge_capacity)
@@ -2837,18 +2875,23 @@ def protection_queries(decision, csr, oracle_ls, router: str, timer) -> dict:
     }
     if timer.cuda:
         torch.cuda.synchronize()
-    return {"ti_lfa": ti_record, "what_if": what_if_record, "ti_lfa_backups": direct}
+    return (
+        {"ti_lfa": ti_record, "what_if": what_if_record, "ti_lfa_backups": direct},
+        graph,
+    )
 
 
-def ksp_dual_metric_wan100k(csr, engine, timer, n_dests: int = 8) -> dict:
+def ksp_dual_metric_wan100k(csr, engine, graph, timer, n_dests: int = 8) -> dict:
     """BASELINE config #3: fused dual-metric KSP2 (ops.ksp) on wan100k's
     forward runner, set up as the reference's bench
     (bench_ksp_dual_metric_wan100k): a TE plane of integers 1..100 from
     np.random.default_rng(17), 8 destinations from the same generator,
-    both planes in one call per question.  k1 equals scipy's Dijkstra,
-    every traced path sums to k1, and k2 equals scipy's Dijkstra with
-    the traced links (both directions) removed, on 4 destinations per
-    plane."""
+    both planes in one call per question.  k1 equals scipy's Dijkstra
+    over the oracle's `graph` (oracle_graph), every traced path sums to
+    k1, and k2 equals scipy's Dijkstra with the traced links (both
+    directions) removed, on 4 destinations per plane.  The timed calls
+    repeat the checked question without adaptation; each must converge
+    and answer as the checked call did."""
     import torch
 
     from openr_tpu_torch.ops import protection as prot
@@ -2871,13 +2914,22 @@ def ksp_dual_metric_wan100k(csr, engine, timer, n_dests: int = 8) -> dict:
     warm_s = time.perf_counter() - t0
     warm_runs = runner.runs - runs0
     warm_masked = runner.masked_runs - masked0
-    call_ms = timer.median_ms(lambda: fk.run(0, np.roll(dests, 1), adaptive=False), reps=3)
+    timed = []
+    call_ms = timer.median_ms(lambda: timed.append(fk.run(0, dests, adaptive=False)), reps=3)
+    for out in timed:
+        for p, (r, want) in enumerate(zip(out, res)):
+            if not (bool(r.ok_base) and bool(r.ok_masked) and bool(r.trace_ok)):
+                raise AssertionError(f"plane {p}: a timed fused call did not converge")
+            if not all(torch.equal(getattr(r, k), getattr(want, k)) for k in ("k1", "k2", "excl")):
+                raise AssertionError(f"plane {p}: a timed fused call answered otherwise")
     t0 = time.perf_counter()
     checked = []
     for p, metric in enumerate(planes):
         r = res[p]
         k1, k2, excl = (t.cpu().numpy() for t in (r.k1, r.k2, r.excl))
-        cd = scipy_dist(csr, 0, metric=metric)
+        # plane 0's oracle metrics are the LinkState's own
+        oracle_plane = None if p == 0 else metric
+        cd = scipy_dist(graph, 0, metric=oracle_plane)
         if not np.array_equal(k1, cd[dests]):
             raise AssertionError(f"plane {p}: k1 differs from scipy")
         for i in range(n_dests):
@@ -2887,7 +2939,7 @@ def ksp_dual_metric_wan100k(csr, engine, timer, n_dests: int = 8) -> dict:
         for i in range(0, n_dests, 2):
             ee = excl[i][excl[i] < e]
             rv = rev[ee]
-            cd2 = scipy_dist(csr, 0, metric=metric, drop=np.concatenate([ee, rv[rv >= 0]]))
+            cd2 = scipy_dist(graph, 0, metric=oracle_plane, drop=np.concatenate([ee, rv[rv >= 0]]))
             if int(k2[i]) != int(cd2[dests[i]]):
                 raise AssertionError(f"plane {p} dest {i}: k2 differs from scipy")
         checked.append({"k1": k1.tolist(), "k2": k2.tolist()})
@@ -3276,15 +3328,15 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     del solver
     emit(spf_main_path(device, inp, timer))
     del inp
-    record, (wan_csr, wan_engine) = decision_main_path(
+    record, (wan_csr, wan_engine, wan_graph) = decision_main_path(
         device, timer, n_nodes, n_advertisers, n_routers, n_checked
     )
     emit(record)
     zero_launch_counts()
-    record = ksp_dual_metric_wan100k(wan_csr, wan_engine, timer)
+    record = ksp_dual_metric_wan100k(wan_csr, wan_engine, wan_graph, timer)
     record["kernel_launches"] = launch_counts()
     emit(record)
-    del wan_csr, wan_engine
+    del wan_csr, wan_engine, wan_graph
     zero_launch_counts()
     record = srlg_whatif_grid1024(device, timer)
     record["kernel_launches"] = launch_counts()

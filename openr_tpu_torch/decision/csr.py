@@ -21,10 +21,10 @@ The forward band decomposition (`banded`) and its fixed-sweep runner
 (`runner`, ops.banded.SpfRunner) carry the masked batches of KSP2,
 what-if and TI-LFA (`run_batched_spf`).  Unlike the reference, which
 builds the bands with every mirror, both are built on first use, so a
-mirror that only serves per-source queries never pays for them; the
-runner is staged on the engine's device, re-staged after an attribute
-refresh (a stale staged runner would read old metrics) and dropped on a
-rewire or a rebuild.  `row_path_links` turns one row of a masked run
+mirror that only serves per-source queries never pays for them.  The
+runner reads the tensors of the mirror's resident in the engine, which
+an attribute refresh updates in place (a banded runner stages only its
+band tables), and is dropped on a rewire or a rebuild.  `row_path_links` turns one row of a masked run
 into the metric and path_links the KSP path trace walks, and
 `edges_of_links` maps each link to its directed edge ids.
 """
@@ -371,8 +371,8 @@ class CsrTopology:
         self._refresh_attributes(ls)
         self.version = ls.version
         if self._runner is not None:
-            # the staged copies hold the old attributes
-            self._runner_engine.stage(self._runner)
+            # write the changed attributes into the resident it reads
+            self._runner_engine.stage_forward(self._runner, self)
         return True
 
     # -- forward runner (KSP2, what-if, TI-LFA) -----------------------------
@@ -391,10 +391,12 @@ class CsrTopology:
 
     def runner(self, engine) -> SpfRunner:
         """The forward SpfRunner over this mirror's arrays (the bands when
-        the topology has them, else the ELL), built on first use and
-        staged on `engine`'s device through `engine.stage`.  It reads
-        the same numpy arrays `refresh` rewrites in place, so its learned
-        hints survive attribute changes; a rewire or a rebuild drops it."""
+        the topology has them, else the ELL), built on first use.  On
+        every call it reads the mirror's resident on `engine`, synced
+        (`engine.stage_forward`), so it shares the per-source path's
+        device copy.  It reads the same numpy arrays `refresh` rewrites
+        in place, so its learned hints survive attribute changes; a
+        rewire or a rebuild drops it."""
         if self._runner is None or self._runner_engine is not engine:
             runner = SpfRunner(
                 self.ell,
@@ -406,8 +408,8 @@ class CsrTopology:
                 self.node_overloaded,
                 self.n_edges,
             )
-            engine.stage(runner)
             self._runner, self._runner_engine = runner, engine
+        engine.stage_forward(self._runner, self)
         return self._runner
 
     def run_batched_spf(

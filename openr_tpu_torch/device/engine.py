@@ -199,6 +199,20 @@ class DeviceResidencyEngine:
         """Pin a runner's tables and runtime arrays on this device."""
         runner.stage(self.device)
 
+    def stage_forward(self, runner, csr) -> None:
+        """Point `csr`'s forward runner at `csr`'s resident, synced first:
+        the per-source path and the runner share one device copy of the
+        mirror, and the resident's in-place attribute writes reach the
+        runner too.  Only a banded runner's band tables are its own."""
+        res = self.sync(csr)
+        self._bump(
+            "device.engine.bytes_staged",
+            runner.share(
+                res.ell, res.edge_src, res.edge_dst, res.edge_metric,
+                res.edge_up, res.node_overloaded,
+            ),
+        )
+
     def forward(self, runner, sources, extra_edge_mask=None, **kwargs):
         """`runner.forward` (ops.banded.SpfRunner) of a staged forward
         runner, counted as one dispatch; a batch with `extra_edge_mask`

@@ -548,7 +548,8 @@ class SpfRunner:
     banded supersweeps, verification sweeps included, and the fleet
     product's progressive supersweeps), `runs` the fixed-sweep calls
     (attempts and probes) and `masked_runs` those with per-row
-    exclusions.
+    exclusions.  A mirror's forward runner `share`s the tensors of the
+    mirror's resident instead of staging its own copy.
 
     Masked batches need deeper relaxes than unmasked ones, so they learn
     their own hint, `hint_masked` (reference: SpfRunner.hint_masked).
@@ -649,6 +650,33 @@ class SpfRunner:
             tensors = tables
         tensors += runtime + ends
         return sum(t.numel() * t.element_size() for t in tensors)
+
+    def share(
+        self, ell, edge_src, edge_dst, edge_metric, edge_up, node_overloaded
+    ) -> int:
+        """Run over tensors another owner keeps on one device (a mirror's
+        resident in the engine): its ELL `ell` and its edge and node
+        arrays, whose in-place writes the runner then reads.  Only the
+        band tables are staged here, once per device; returns the bytes
+        staged."""
+        device = edge_up.device
+        runtime = (edge_metric, edge_up, node_overloaded)
+        if self.bg is None:
+            self._staged = StagedArrays(
+                None, None, None, *runtime, ell, edge_src, edge_dst
+            )
+            return 0
+        old = self._staged
+        if old is not None and old.band_eid.device == device:
+            tables, staged = (old.band_eid, old.resid_nbr, old.resid_eid), 0
+        else:
+            tables = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (self.bg.band_eid, self.bg.resid_nbr, self.bg.resid_eid)
+            )
+            staged = sum(t.numel() * t.element_size() for t in tables)
+        self._staged = StagedArrays(*tables, *runtime, None, edge_src, edge_dst)
+        return staged
 
     def call_arrays(self) -> StagedArrays:
         if self._staged is None:

@@ -15,8 +15,9 @@ counterpart for (BASELINE.json configs #4 and #5):
 Three paths run them: `runner` (ops.banded.SpfRunner, the bands or the
 ELL at an adaptive fixed sweep count, numpy results), `ell`
 (ops.sssp.spf_forward_ell_masked to the fixed point, tensors on the
-ELL's device) and otherwise the dense edge-list relax, for tiny graphs.
-The runner path answers from the arrays the runner captured, so a call
+ELL's device) and otherwise the dense edge-list relax, for tiny graphs,
+on `device`: the CUDA card unless the caller names another device or
+passes tensors, which keep theirs.  The runner path answers from the arrays the runner captured, so a call
 passing other arrays is refused (`_check_runner_arrays`).
 """
 
@@ -25,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device.engine import resolve_device
 from .sssp import (
     INF32,
     batched_sssp,
@@ -40,6 +42,17 @@ def _tensors(device, *arrays):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
+def _device_of(ell, first, device) -> torch.device:
+    """The device of a run without a runner: the ELL's; else `device`
+    when given; else that of `first` when it is a tensor; else the CUDA
+    card (resolve_device raises when there is none)."""
+    if ell is not None:
+        return ell.new_of_old.device
+    if device is None and isinstance(first, torch.Tensor):
+        return first.device
+    return resolve_device(device)
+
+
 def srlg_what_if(
     sources,  # [S] int32
     edge_src,  # [E]
@@ -50,15 +63,16 @@ def srlg_what_if(
     scenario_masks,  # [F, E] bool — True = the edge SURVIVES
     ell=None,  # ops.sssp.EllGraph of tensors: the masked ELL relax
     runner=None,  # ops.banded.SpfRunner (staged): the fixed-sweep runner
+    device=None,  # the dense path's device (see _device_of)
 ):
     """Distances under each failure scenario, [F, S, N*] int32
     (reference: ops/protection.py srlg_what_if).  The (scenario x
     source) cross product is flattened onto one batch: with `runner` it
     runs without an SP-DAG and comes back as numpy; with `ell` it runs
     the masked ELL relax on the ELL's device; otherwise the dense relax
-    runs one scenario at a time on the device of `sources` (a tensor)
-    or the CPU.  Without a runner the inputs are numpy arrays or tensors
-    on that device."""
+    runs one scenario at a time on `device`, by default the device of
+    `sources` when it is a tensor and else the CUDA card.  Without a
+    runner the inputs are numpy arrays or tensors on that device."""
     f_dim = int(np.shape(scenario_masks)[0])
     s_dim = int(np.shape(sources)[0])
     if runner is not None:
@@ -71,11 +85,7 @@ def srlg_what_if(
             flat_sources, extra_edge_mask=flat_masks, want_dag=False
         )
         return dist.reshape(f_dim, s_dim, -1)
-    device = (
-        ell.new_of_old.device
-        if ell is not None
-        else getattr(sources, "device", torch.device("cpu"))
-    )
+    device = _device_of(ell, sources, device)
     src, e_src, e_dst, metric, up, ov, masks = _tensors(
         device, sources, edge_src, edge_dst, edge_metric, edge_up,
         node_overloaded, scenario_masks,
@@ -131,15 +141,16 @@ def ti_lfa_backups(
     max_degree: int,
     ell=None,
     runner=None,
+    device=None,
 ):
     """Post-convergence SPF per protected out-edge (reference:
     ops/protection.py ti_lfa_backups): (dist [D, N*], dag [D, E]), row d
     the distances and SP-DAG with out_edge_ids[d] and its reverse
     removed; a -1 entry removes nothing.  With `runner` numpy comes back
-    (the masks run at the runner's adaptive sweep count); with `ell` or
-    on the dense path, tensors on the ELL's device or that of `source`
-    (the CPU for a numpy scalar).  `max_degree` is D, kept for the
-    reference's signature."""
+    (the masks run at the runner's adaptive sweep count); with `ell`,
+    tensors on the ELL's device; on the dense path, tensors on `device`,
+    by default the device of `source` when it is a tensor and else the
+    CUDA card.  `max_degree` is D, kept for the reference's signature."""
     del max_degree  # D is out_edge_ids' length
     d_dim = int(np.shape(out_edge_ids)[0])
     if runner is not None:
@@ -151,11 +162,7 @@ def ti_lfa_backups(
         )
         sources = np.full(d_dim, int(source), dtype=np.int32)
         return runner.forward(sources, extra_edge_mask=survives)
-    device = (
-        ell.new_of_old.device
-        if ell is not None
-        else getattr(source, "device", torch.device("cpu"))
-    )
+    device = _device_of(ell, source, device)
     survives = torch.from_numpy(
         build_edge_failure_masks(
             np.asarray(out_edge_ids), np.asarray(reverse_edge_ids),

@@ -3,7 +3,7 @@
 
     python scripts/profile_protection.py [--nodes 20000] [--device cpu]
 
-Builds `openr_tpu_torch.utils.topo.wan_topology(nodes)`, runs
+Runs on the CUDA card unless `--device` names another device.  Builds `openr_tpu_torch.utils.topo.wan_topology(nodes)`, runs
 `protection_api.ti_lfa` of w000000 and `protection_api.what_if` of three
 scenarios once to build and stage the forward runner and learn its
 masked hint, then once more under cProfile, and prints each call's wall
@@ -31,7 +31,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=20_000)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args()
 

@@ -26,7 +26,9 @@ from openr_tpu_torch.device.engine import DeviceResidencyEngine
 from openr_tpu_torch.ops import banded, sssp
 from openr_tpu_torch.utils import topo
 
-from torch_parity import adj, adj_dbs, mirrors, overload, to_port_dbs
+from openr_tpu.decision.csr import CsrTopology as JCsr
+from openr_tpu_torch.decision.csr import CsrTopology
+from torch_parity import LinkStatePair, adj, adj_dbs, mirrors, overload, to_port_dbs
 
 CPU = torch.device("cpu")
 
@@ -414,6 +416,49 @@ def test_forward_masked_latches_uint16_as_reference():
     assert not runner.small_allowed and not jrunner.small_allowed
     assert (runner.hint, runner.hint_masked) == (jrunner.hint, jrunner.hint_masked)
     assert dist.max() > sssp.WBIG16
+
+
+@pytest.mark.parametrize("name", ["wan256", "fat_tree4"])
+def test_forward_runner_shares_the_resident(name):
+    """The mirror's forward runner reads the tensors of the mirror's
+    resident in the engine (the bands are its only own copy); a metric
+    change reaches it as one incremental write into that resident, and
+    its masked results then equal the reference's on the refreshed
+    mirror."""
+    dbs = TOPOLOGIES[name]()
+    pair = LinkStatePair(dbs)
+    csr = CsrTopology.from_link_state(pair.ls)
+    jcsr = JCsr.from_link_state(pair.jls)
+    engine = DeviceResidencyEngine(CPU)
+    runner = csr.runner(engine)
+    res = engine._residents[id(csr)]
+
+    def shared() -> bool:
+        st = runner.call_arrays()
+        return (
+            st.edge_metric is res.edge_metric
+            and st.edge_up is res.edge_up
+            and st.node_overloaded is res.node_overloaded
+            and st.edge_src is res.edge_src
+            and st.edge_dst is res.edge_dst
+            and (runner.bg is not None or st.ell is res.ell)
+        )
+
+    assert shared()
+    dbs[3].adjacencies[0].metric += 7
+    pair.update(dbs[3])
+    assert csr.refresh(pair.ls) and jcsr.refresh(pair.jls)
+    counters = engine.get_counters()
+    assert counters["device.engine.full_restages"] == 1
+    assert counters["device.engine.incremental_updates"] == 1
+    assert csr.runner(engine) is runner and shared()
+    np.testing.assert_array_equal(res.edge_metric.numpy(), csr.edge_metric)
+    src = _sources(csr, 6)
+    mask = _masks(csr, 6, seed=37)
+    dist, dag = runner.forward(src, extra_edge_mask=mask)
+    jdist, jdag = jcsr.runner.forward(src, extra_edge_mask=mask)
+    np.testing.assert_array_equal(dist, jdist)
+    np.testing.assert_array_equal(dag, jdag)
 
 
 def test_forward_fixed_sweeps_raise_when_short():

@@ -54,7 +54,7 @@ def _path_kw(csr, path):
         return {"runner": csr.runner(DeviceResidencyEngine(CPU))}
     if path == "ell":
         return {"ell": csr.ell.to(CPU)}
-    return {}
+    return {"device": CPU}
 
 
 def _np(x):
@@ -153,6 +153,29 @@ def test_runner_path_refuses_other_arrays():
             up, csr.node_overloaded, np.ones((1, csr.edge_capacity), bool),
             runner=runner,
         )
+
+
+def test_dense_path_defaults_to_the_card(monkeypatch):
+    """Without a runner, an ELL or a device, numpy inputs go to the CUDA
+    card (an error where there is none); tensors keep their device."""
+    _, csr, _, _ = _build(grid_topology(3))
+    sources = np.zeros(1, np.int32)
+    masks = np.ones((1, csr.edge_capacity), bool)
+    rev = prot.build_reverse_edge_ids(csr.edge_src, csr.edge_dst)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prot.srlg_what_if(sources, *_arrays(csr), masks)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prot.ti_lfa_backups(np.int32(0), np.zeros(1, np.int32), *_arrays(csr),
+                            rev, max_degree=1)
+    dist = prot.srlg_what_if(torch.from_numpy(sources), *_arrays(csr), masks)
+    want = prot.srlg_what_if(sources, *_arrays(csr), masks, device=CPU)
+    assert dist.device == CPU
+    assert torch.equal(dist, want)
+    dist, dag = prot.ti_lfa_backups(torch.tensor(0, dtype=torch.int32),
+                                    np.zeros(1, np.int32), *_arrays(csr), rev,
+                                    max_degree=1)
+    assert dist.device == dag.device == CPU
 
 
 # -- TI-LFA ------------------------------------------------------------------------
