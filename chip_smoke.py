@@ -19,6 +19,16 @@ and its phases timed:
 - warm rebuilds of that WAN after four changes (a metric raised, the
   link down, the link restored, a node drained), each bit for bit equal
   to a cold view and launching K1's uint16 variant once;
+- the reference's flap storm on that WAN (`bench.py`
+  bench_flap_storm_wan100k): 1000 seeded metric events on 4 backup ring
+  links, in 4 chunks of 250, each chunk folded into the resident product
+  by one view of `FleetViewCache(delta=True)` (the incremental delta
+  rung: a certified frontier, a column-slab relax whose epilogue
+  launches K1's uint16 variant, the out-row re-encode), bit for bit
+  equal to a cold view, `full_restages` 1; then an adjacency down and
+  up (the row re-encode and a mirror rewire) and one node's links
+  raised (the frontier overflows, the designed fallback); K1 held
+  against its plain version on every slab, in both variants;
 - the saturation retry: a 65-ring (banded) and a 7-node chain (ELL) at
   metric 4000, whose uint16 runs saturate, latch the mode off and run
   again in int32 (the ring through K1's int32 variant), equal to the host
@@ -49,7 +59,9 @@ and its phases timed:
   operator queries on the card Decision's mirror (BASELINE config #5):
   `Decision.get_ti_lfa()` of the router and `Decision.what_if` of three
   SRLG scenarios, each against a host oracle, and
-  `ti_lfa_backups(runner=)` called directly;
+  `ti_lfa_backups(runner=)` called directly; then the storm's backup
+  links raised and restored in two publications, the card Decision
+  (`fleet_delta=True`) serving each fleet dump on the delta rung;
 - BASELINE config #3's dual-metric KSP2 on that mirror's forward
   runner (`ops.ksp.FusedKsp2Runner`, an IGP and a TE plane, 8
   destinations) against scipy's Dijkstra over the oracle Decision's
@@ -1096,8 +1108,9 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
     on it through the solver's warm-capable cache and cold through a fresh
     FleetViewCache: distances and bitmaps bit for bit, K1 launched once
     per view (its count set to 0 just before each view), (c) warm-started
-    as an improvement, and the routes of `checked` against the host
-    Dijkstra.  A worsening change whose affected set is not certified
+    as an improvement, the route build of `checked`, and the routes of
+    the first of them against the host Dijkstra.  A worsening change
+    whose affected set is not certified
     cold-starts by design; its record says so (`cold_fallback`)."""
     import dataclasses
 
@@ -1178,8 +1191,10 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
         t0 = time.perf_counter()
         dbs_out = solver.fleet_route_dbs(inp.area, inp.ps, nodes=checked)
         routes_s = time.perf_counter() - t0
+        # one router against the host Dijkstra (about 5 s each at 100k
+        # nodes; warm == cold above already holds every entry)
         t0 = time.perf_counter()
-        check_routes(inp, dbs_out, warm, checked)
+        check_routes(inp, dbs_out, warm, checked[:1])
         oracle_s = time.perf_counter() - t0
         record = {
             "change": name,
@@ -1198,6 +1213,7 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
             "warm_view_ms": warm_ms,
             "cold_view_ms": cold_ms,
             "route_build_checked_s": routes_s,
+            "oracle_checked_routers": checked[:1],
             "oracle_check_s": oracle_s,
         }
         if warm.affected_passes is not None:
@@ -1238,6 +1254,405 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
     if timer.cuda:
         result["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     return result
+
+
+def backup_ring_links(n_nodes: int, count: int = 4, metric: int = 10,
+                      chords: int = 2, seed: int = 0) -> list[tuple[int, int, int]]:
+    """The reference storm's flappy links (bench.py
+    bench_flap_storm_wan100k): of the WAN's directed +1 ring edges at
+    `metric`, in the mirror's (dst, src) edge order, `count` spread
+    evenly, as (src, dst, metric) node ids."""
+    from openr_tpu_torch.utils import topo
+
+    links, metrics = topo.wan_links(n_nodes, chords, seed)
+    src = np.concatenate([links[:, 0], links[:, 1]])
+    dst = np.concatenate([links[:, 1], links[:, 0]])
+    met = np.concatenate([metrics[:, 0], metrics[:, 1]])
+    order = np.lexsort((src, dst))
+    src, dst, met = src[order], dst[order], met[order]
+    ring = np.flatnonzero((dst == (src + 1) % n_nodes) & (met == metric))
+    picks = [int(ring[i * len(ring) // count]) for i in range(count)]
+    return [(int(src[e]), int(dst[e]), int(met[e])) for e in picks]
+
+
+def symmetric_ring_link(n_nodes: int, metric: int, avoid=(),
+                        chords: int = 2, seed: int = 0) -> tuple[int, int]:
+    """A +1 ring link of the WAN with `metric` in both directions, both
+    endpoints outside `avoid`, from the middle of the ring: (src, dst)."""
+    from openr_tpu_torch.utils import topo
+
+    links, metrics = topo.wan_links(n_nodes, chords, seed)
+    ring = np.flatnonzero(
+        (links[:, 1] == (links[:, 0] + 1) % n_nodes)
+        & (metrics[:, 0] == metric)
+        & (metrics[:, 1] == metric)
+        & ~np.isin(links[:, 0], list(avoid))
+        & ~np.isin(links[:, 1], list(avoid))
+    )
+    a, b = links[ring[len(ring) // 2]]
+    return int(a), int(b)
+
+
+def with_adjacency(db, other: str, metric=None, drop: bool = False):
+    """A copy of AdjacencyDatabase `db` with its adjacency to `other` at
+    `metric`, or without it (`drop`)."""
+    import dataclasses
+
+    adjs = []
+    for a in db.adjacencies:
+        if a.other_node_name != other:
+            adjs.append(a)
+        elif not drop:
+            adjs.append(dataclasses.replace(a, metric=metric))
+    return dataclasses.replace(db, adjacencies=adjs)
+
+
+def slab_record(d, groups, n_words, runner, timer, variant: str, check) -> dict:
+    """K1 on one delta slab [N, Pb] against its plain version: times (the
+    kernel the median of 20 calls, the plain version of 3) and the bound
+    of the slab's work."""
+    from openr_tpu_torch.ops import epilogue as ep
+
+    n, pb = d.shape
+    g = int(groups[0].shape[0])
+    small = variant == "uint16"
+    plan = ep.epilogue_plan(
+        n, pb, runner.bg.offsets, l2_bytes(d.device), g, d.element_size()
+    )
+    traffic = ep.epilogue_traffic(
+        groups[0].cpu().numpy(), groups[1].cpu().numpy(), pb, plan, small
+    )
+    bytes_moved = n * pb * d.element_size() + n * pb * n_words * 4 + 16 * g * n
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = (
+        traffic["active_pairs"] * pb * EPILOGUE_OPS
+        / int32_ops_per_s(timer.cuda) * 1e3
+    )
+    return {
+        "variant": variant,
+        "shape": {"N": n, "Pb": pb, "W": n_words, "G": g},
+        "parity": True,
+        "max_abs_err": check["max_abs_err"],
+        "ms": timer.median_ms(lambda: ep.fused_epilogue(d, *groups, n_words), reps=20),
+        "plain_ms": timer.ms(
+            lambda: ep.fused_epilogue_reference(d, *groups, n_words), reps=3
+        ),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms,
+        "slab_cols": plan.slab_cols,
+        "node_tile": plan.node_tile,
+    }
+
+
+def flap_storm_wan100k(device, inp, timer, n_events: int = 1000,
+                       n_chunks: int = 4, seed: int = 7):
+    """The reference's flap storm (bench.py bench_flap_storm_wan100k) at
+    full width through the port's entry points, on the main path's
+    LinkState and mirror: the 4 backup +1 ring links at the metric
+    ceiling (`backup_ring_links`) flap between their base metric and 90
+    in `n_events` seeded events (`default_rng(seed + 1)`), coalesced into
+    `n_chunks` chunks.  Each event is one `update_adjacency_database`;
+    each chunk is folded by one `view` of `FleetViewCache(delta=True)` on
+    one DeviceResidencyEngine (`delta_register` once, after the cold
+    view): warm_mode "delta", and product and bitmap equal bit for bit
+    to a cold view on a fresh `FleetViewCache(delta=False)`.  Then one
+    chunk of each other kind, each against a cold view: an adjacency of
+    a symmetric backup link down and up again (an edge-set change: the
+    row re-encode runs and the mirror rewires), and the primary links of
+    one node (the endpoint of a metric-1 ring link, its whole adjacency
+    set) raised to 90, whose frontier overflows the ladder (the designed
+    fallback).  K1's launches are counted over each delta view
+    (counts set to 0 just before it), and K1 is held against its plain
+    version on every slab the storm's relaxes gave it, in both variants.
+    Every changed link is restored at the end.  Returns (record, slab
+    records by variant, K1 uint16 launches over the storm's views)."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.decision.fleet import FleetViewCache, fleet_destinations
+    from openr_tpu_torch.device.engine import DeviceResidencyEngine
+    from openr_tpu_torch.ops import allsources as asrc
+    from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.ops.sssp import u16_dist_to_i32
+
+    ls, csr, names = inp.ls, inp.csr, inp.names
+    n = len(names)
+    dests = fleet_destinations(ls, inp.ps)
+    p = len(dests)
+    flappy = backup_ring_links(n)
+    dbs_now = dict(ls.get_adjacency_databases())
+
+    def set_metric(src: int, dst: int, metric: int) -> None:
+        db = with_adjacency(dbs_now[names[src]], names[dst], metric)
+        dbs_now[names[src]] = db
+        ls.update_adjacency_database(db)
+
+    counters: dict[str, int] = {}
+
+    def bump(name, k=1):
+        counters[name] = counters.get(name, 0) + k
+
+    engine = DeviceResidencyEngine(device)
+    engine.blocked.node_shard_threshold = n  # the fused rung, as main_path
+    cache = FleetViewCache(delta=True, bump=bump)
+    updater = cache._delta
+
+    # per-op times of the delta programs, and the slabs K1 took
+    op_ms: dict[str, float] = {}
+    dispatch = engine.delta_dispatch
+
+    def timed_dispatch(op, fn, *args, **kwargs):
+        if timer.cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return dispatch(op, fn, *args, **kwargs)
+        finally:
+            if timer.cuda:
+                torch.cuda.synchronize()
+            op_ms[op] = op_ms.get(op, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    engine.delta_dispatch = timed_dispatch
+    slabs = []
+    epilogue = engine.epilogue
+
+    def capturing_epilogue(d, *rest):
+        out = epilogue(d, *rest)
+        slabs.append((d, rest[:4], rest[4]))
+        return out
+
+    def delta_view(what):
+        """One view of the delta cache, K1's counts set to 0 just before
+        it and read just after: (view, record, the slab K1 took).  The
+        mirror is refreshed to the LinkState's version first, timed apart:
+        the cold view would share it."""
+        t0 = time.perf_counter()
+        csr.refresh(ls)
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        op_ms.clear()
+        slabs.clear()
+        c0 = dict(counters)
+        e0 = engine.get_counters()
+        zero_launch_counts()
+        engine.epilogue = capturing_epilogue
+        t0 = time.perf_counter()
+        try:
+            view = cache.view(ls, dests, csr=csr, engine=engine)
+            if timer.cuda:
+                torch.cuda.synchronize()
+        finally:
+            engine.epilogue = epilogue
+        view_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        e1 = engine.get_counters()
+        t0 = time.perf_counter()
+        cold = FleetViewCache(delta=False).view(ls, dests, csr=csr, engine=engine)
+        if timer.cuda:
+            torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        if not (same(view._dist_dev, cold._dist_dev) and same(view._bitmap_dev, cold._bitmap_dev)):
+            raise AssertionError(f"{what}: the delta cache's view differs from a cold view")
+        served = view.warm_mode == "delta"
+        rec = {
+            "warm_mode": view.warm_mode,
+            "bit_equal": True,
+            "version": ls.version,
+            "affected_cols": updater.last_cols if served else None,
+            "pb": updater.last_pb if served else None,
+            "relax_blocks": updater.last_blocks if served else None,
+            "frontier_passes": updater.last_passes,
+            "op_ms": dict(op_ms),
+            "host_csr_refresh_ms": refresh_ms,
+            "view_ms": view_ms,
+            "cold_view_ms": cold_ms,
+            "k1_launches": launches,
+            "delta_counters": {
+                k: counters.get(k, 0) - c0.get(k, 0)
+                for k in counters if counters.get(k, 0) != c0.get(k, 0)
+            },
+            "engine_delta": {
+                k.removeprefix("device.engine."): e1[k] - e0.get(k, 0)
+                for k in e1
+                if e1[k] != e0.get(k, 0) and not k.endswith("_us")
+            },
+        }
+        # a served view launches K1 once per relax; the fallback's legacy
+        # view at least once
+        k1 = launches[KERNEL_U16["name"]]
+        if sum(launches.values()) != k1 or (
+            k1 != int(bool(updater.last_cols)) if served else k1 < 1
+        ):
+            raise AssertionError(f"{what}: K1 launched {launches}")
+        slab = None
+        if served and updater.last_cols:
+            d, groups, n_words = slabs[-1]
+            slab = (d, groups, n_words, view._runner, view._out)
+        return view, rec, slab
+
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    first = cache.view(ls, dests, csr=csr, engine=engine)
+    if timer.cuda:
+        torch.cuda.synchronize()
+    cold_first_ms = (time.perf_counter() - t0) * 1e3
+    if first.warm or first._dist_dev.dtype != torch.uint16 or first.node_sharded:
+        raise AssertionError("flap storm: the first view is not a cold uint16 fused view")
+    engine.delta_register(
+        first._dist_dev.numel() * first._dist_dev.element_size()
+        + first._bitmap_dev.numel() * first._bitmap_dev.element_size()
+    )
+    cold_sweeps = first.sweep_hint
+
+    # the seeded event stream: (link, metric) per event, as bench.py
+    ev_rng = np.random.default_rng(seed + 1)
+    per_chunk = n_events // n_chunks
+    chunk_events = []
+    for _ in range(n_chunks):
+        events = []
+        for _ in range(per_chunk):
+            src, dst, base = flappy[int(ev_rng.integers(len(flappy)))]
+            events.append((src, dst, 90 if int(ev_rng.integers(2)) else base))
+        chunk_events.append(events)
+
+    version0 = ls.version
+    chunks, storm_slabs = [], []
+    k1_storm = 0
+    for c, events in enumerate(chunk_events):
+        v0 = ls.version
+        t0 = time.perf_counter()
+        for src, dst, metric in events:
+            set_metric(src, dst, metric)
+        t_events = time.perf_counter() - t0
+        view, rec, slab = delta_view(f"storm chunk {c}")
+        if view.warm_mode != "delta":
+            raise AssertionError(f"storm chunk {c}: served by {view.warm_mode}")
+        k1_storm += rec["k1_launches"][KERNEL_U16["name"]]
+        chunks.append(
+            {"chunk": c, "events": len(events), "version_advance": ls.version - v0,
+             "host_events_s": t_events, **rec}
+        )
+        if slab is not None:
+            storm_slabs.append((c, *slab))
+    storm_counters = dict(counters)
+    storm_engine = engine.get_counters()
+    advance = ls.version - version0
+    if storm_engine["device.engine.full_restages"] != 1:
+        raise AssertionError(f"flap storm: full_restages {storm_engine['device.engine.full_restages']}")
+    if storm_engine["device.engine.delta_overflow_fallbacks"] != 0:
+        raise AssertionError("flap storm: a chunk overflowed the bucket ladder")
+    if storm_counters.get("decision.delta.updates", 0) + storm_counters.get(
+        "decision.delta.noop_updates", 0
+    ) != n_chunks:
+        raise AssertionError(f"flap storm: {storm_counters}")
+    if storm_counters.get("decision.delta.events_coalesced", 0) != advance:
+        raise AssertionError(
+            f"flap storm: {storm_counters.get('decision.delta.events_coalesced')} "
+            f"events coalesced, LinkState advanced {advance}"
+        )
+    sweep_cols = sum(ch["relax_blocks"] * 4 * ch["pb"] for ch in chunks)
+    work_ratio = sweep_cols / (n_chunks * cold_sweeps * p)
+
+    # an edge-set change: a symmetric backup link's adjacency down, then up
+    avoid = {x for s, d, _ in flappy for x in (s, d)}
+    a, b = symmetric_ring_link(n, 10, avoid)
+    db_a = dbs_now[names[a]]
+    extra = {}
+    for what, db in (
+        ("adjacency_down", with_adjacency(db_a, names[b], drop=True)),
+        ("adjacency_up", db_a),
+    ):
+        seq0 = csr.rewire_seq
+        ls.update_adjacency_database(db)
+        dbs_now[names[a]] = db
+        view, rec, slab = delta_view(what)
+        if view.warm_mode != "delta" or "rows_bitmap" not in rec["op_ms"]:
+            raise AssertionError(f"{what}: {rec['warm_mode']}, ops {sorted(rec['op_ms'])}")
+        if csr.rewire_seq == seq0:
+            raise AssertionError(f"{what}: the mirror did not rewire")
+        extra[what] = {"link": [names[a], names[b]], "rewire_seq": csr.rewire_seq, **rec}
+        if slab is not None:
+            storm_slabs.append((what, *slab))
+
+    # primary links worsened: every out-adjacency of the endpoint of a
+    # metric-1 ring link raised to 90; its row loses every support in
+    # every column, so the frontier overflows and the fallback serves
+    pa, _ = symmetric_ring_link(n, 1, avoid | {a, b})
+    db_p = dbs_now[names[pa]]
+    raised = dataclasses.replace(
+        db_p,
+        adjacencies=[dataclasses.replace(x, metric=90) for x in db_p.adjacencies],
+    )
+    over0 = engine.get_counters()["device.engine.delta_overflow_fallbacks"]
+    fall0 = counters.get("decision.delta.fallbacks", 0)
+    ls.update_adjacency_database(raised)
+    view, rec, _ = delta_view("primary links worsened")
+    if (
+        view.warm_mode == "delta"
+        or counters.get("decision.delta.fallbacks", 0) != fall0 + 1
+        or engine.get_counters()["device.engine.delta_overflow_fallbacks"] != over0 + 1
+    ):
+        raise AssertionError(f"primary links worsened: {rec}")
+    extra["primary_worsened"] = {
+        "node": names[pa], "adjacencies": len(db_p.adjacencies), **rec
+    }
+    del view
+
+    # K1 against its plain version on the slabs the relaxes produced
+    slab_records = {"uint16": [], "int32": []}
+    for where, d, groups, n_words, runner, out in storm_slabs:
+        check = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d, groups, n_words)
+        slab_records["uint16"].append(
+            {"chunk": where, **slab_record(d, groups, n_words, runner, timer, "uint16", check)}
+        )
+        maps = asrc.build_epilogue_maps(runner.bg, out)
+        groups32, _ = relax_groups(runner, maps, n_words, d.device, False)
+        d32 = u16_dist_to_i32(d)
+        check32 = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d32, groups32, n_words)
+        b16, ok16 = ep.fused_epilogue(d, *groups, n_words)
+        b32, ok32 = ep.fused_epilogue(d32, *groups32, n_words)
+        if not (same(b16, b32) and bool(ok16) == bool(ok32)):
+            raise AssertionError(f"slab of {where}: the int32 and uint16 variants disagree")
+        slab_records["int32"].append(
+            {"chunk": where, **slab_record(d32, groups32, n_words, runner, timer, "int32", check32)}
+        )
+    del storm_slabs
+
+    # restore every link the phase changed
+    for src, dst, base in flappy:
+        set_metric(src, dst, base)
+    ls.update_adjacency_database(db_p)
+    csr.refresh(ls)
+    record = {
+        "phase": "flap_storm_wan100k",
+        "rung": "delta",
+        "nodes": n,
+        "destinations": p,
+        "events": n_events,
+        "chunks": chunks,
+        "flappy_links": [[names[s], names[d], m] for s, d, m in flappy],
+        "cold_view_first_ms": cold_first_ms,
+        "cold_sweeps": cold_sweeps,
+        "work_ratio": work_ratio,
+        "version_advance": advance,
+        "k1_uint16_launches": k1_storm,
+        "decision_counters": storm_counters,
+        "engine_counters": {
+            k.removeprefix("device.engine."): v
+            for k, v in storm_engine.items() if not k.endswith("_us")
+        },
+        "delta_dispatch_us": storm_engine["device.engine.delta_dispatch_us"],
+        "other_chunks": extra,
+        "k1_slabs": slab_records,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    if timer.cuda:
+        record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return record, slab_records, k1_storm
 
 
 class DecodeTimer:
@@ -1757,13 +2172,22 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     metric raised, (b) one prefix withdrawn by an expired key, (c) that
     prefix advertised again, (d) one node's adjacency key expired, (e) a
     static unicast and a static MPLS route, (f) a RibPolicy set, then
-    cleared.  After every step both agents' tables are equal element for
-    element, the card's engine counters moved as the step requires, and
-    neither Decision counted a rebuild failure.  The fleet dump
-    `get_fleet_route_dbs` of the main path's routers runs after the cold
-    start and after (a), on the fused rung, launching K1's uint16 variant
-    once each; four of its route DBs equal the oracle's
-    `get_route_db(router)`."""
+    cleared, (g) the operator queries, (h) the flap storm's four backup
+    links raised to 90 in one publication of their source nodes'
+    adjacency databases, then restored in another.  After every step
+    both agents' tables are equal element for element, the card's engine
+    counters moved as the step requires, and neither Decision counted a
+    rebuild failure.  The card Decision has the fleet views' delta rung
+    on (`fleet_delta=True`, as the reference daemon builds a device
+    Decision).  The fleet dump `get_fleet_route_dbs` of the main path's
+    routers runs after the cold start and after (a), on the fused rung,
+    and of the checked routers before (h) and after each of its
+    publications, each of those two served by the delta rung
+    (`decision.delta.updates` rises); each dump records its rung and
+    launches K1's uint16 variant once (none on a delta update that
+    re-relaxed no column), and four of its route DBs (only the router's
+    own in the dump that re-bases the view before (h)) equal the
+    oracle's `get_route_db(router)`."""
     import dataclasses
 
     import torch
@@ -1835,11 +2259,16 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     n_adj_labels = len(dbs[0].adjacencies)
     nbr = dbs[0].adjacencies[0].other_node_name
     x, db_x = names[n_nodes // 3], dbs[n_nodes // 3]
+    # step (h)'s backup links: the flap storm's, from their source nodes
+    backups = [(names[s], names[d]) for s, d, _ in backup_ring_links(n_nodes)]
+    backup_dbs = {s: dbs[names.index(s)] for s, _ in backups}
     del key_vals, dbs
 
     sides = {}
     for side, kwargs in (
-        ("card", {"device": device}),
+        # the card Decision as the reference daemon builds a device-backed
+        # one (openr_tpu/main.py): the fleet views' delta rung on
+        ("card", {"device": device, "fleet_delta": True}),
         ("oracle", {"spf_backend": HostSpfBackend(), "device": device}),
     ):
         kvq, staticq, routeq, fibq = (ReplicateQueue() for _ in range(4))
@@ -1917,27 +2346,47 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     routers = [names[i * n_nodes // n_routers] for i in range(n_routers)]
     checked = routers[:: max(1, n_routers // n_checked)][: n_checked - 1] + routers[-1:]
 
-    def fleet_dump(what):
+    card_solver = card["decision"].spf_solver
+
+    def fleet_dump(what, nodes=routers, oracle_routers=checked):
+        """The card Decision's fleet dump of `nodes`, K1's counts set to 0
+        just before it and read just after; the rung that served its view
+        (`warm_mode`: None cold, "improve" / "worsen" warm, "delta") is
+        recorded.  K1 runs once, except on a delta update that re-relaxed
+        no column (none)."""
         zero_launch_counts()
+        d0 = dict(card_solver.counters)
         gc_clock.take()
         t0 = time.perf_counter()
-        out = card["decision"].get_fleet_route_dbs(nodes=routers)
+        out = card["decision"].get_fleet_route_dbs(nodes=nodes)
         if timer.cuda:
             torch.cuda.synchronize()
         dump_s = time.perf_counter() - t0
         launches = launch_counts()
-        if launches[KERNEL_U16["name"]] != 1 or sum(launches.values()) != 1:
+        view = card_solver.fleet._views[card["decision"].area_link_states["0"]]
+        updater = card_solver.fleet._delta
+        want = 0 if view.warm_mode == "delta" and not updater.last_cols else 1
+        if launches[KERNEL_U16["name"]] != want or sum(launches.values()) != want:
             raise AssertionError(f"{what}: fleet dump launched {launches}")
         dump_gc = gc_clock.take()
         t0 = time.perf_counter()
-        for r in checked:
+        for r in oracle_routers:
             same_route_db(out[r], oracle["decision"].get_route_db(r), f"{what} {r}")
+        delta = {
+            k: card_solver.counters[k] - d0.get(k, 0)
+            for k in card_solver.counters
+            if k.startswith("decision.delta.")
+            and card_solver.counters[k] != d0.get(k, 0)
+        }
         return {
             "dump_s": dump_s,
             "gc_ms": dump_gc,
             "launches": launches,
+            "rung": view.warm_mode,
+            "affected_cols": updater.last_cols if view.warm_mode == "delta" else None,
+            "delta_counters": delta,
             "routers": len(out),
-            "checked_routers": checked,
+            "checked_routers": oracle_routers,
             "oracle_check_s": time.perf_counter() - t0,
         }
 
@@ -2052,6 +2501,30 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
             router, timer,
         )
         steps["g_protection"]["kernel_launches"] = launch_counts()
+
+        # (h) the backup links of the flap storm raised to 90 in one
+        # publication of their source nodes' adjacency databases, then
+        # restored; a fleet dump of the checked routers after each, on
+        # the delta rung (a first dump re-bases the view after (d)'s
+        # node expiry changed the universe; of its routes only the
+        # router's own are held against the oracle, whose other routers
+        # each cost a host Dijkstra)
+        dumps_rec["h_before"] = fleet_dump("fleet dump before (h)", checked, [router])
+        for what, metric, version in (("h_backups_raised", 90, 2), ("h_backups_restored", None, 3)):
+            key_vals = {}
+            for src, dst in backups:
+                db = backup_dbs[src]
+                if metric is not None:
+                    db = with_adjacency(db, dst, metric)
+                key_vals[adj_key(src)] = adj_value(db, version)
+            pub_h = Publication(key_vals=key_vals, area="0")
+            updates0 = card_solver.counters["decision.delta.updates"]
+            step = push(what, lambda s: s["kvq"].push(pub_h))
+            expect(step, what, queries=1, incremental_updates=1)
+            steps[what] = {"links": backups, **step}
+            dumps_rec[what] = fleet_dump(f"fleet dump after {what}", checked)
+            if card_solver.counters["decision.delta.updates"] <= updates0:
+                raise AssertionError(f"{what}: the delta rung did not serve the dump")
         decision_counters = card["decision"].get_counters()
         fib_counters = card["fib"].get_counters()
     finally:
@@ -3045,7 +3518,8 @@ def srlg_whatif_grid1024(device, timer, n_variants: int = 10_000, n_checked: int
 
 
 def decision_pair(router: str, device):
-    """A card Decision and a host-Dijkstra Decision (the oracle), each
+    """A card Decision (the fleet views' delta rung on, as the reference
+    daemon builds it) and a host-Dijkstra Decision (the oracle), each
     wired to its own Fib and MockFibAgent, running."""
     from openr_tpu_torch.decision.decision import Decision
     from openr_tpu_torch.decision.spf_solver import HostSpfBackend
@@ -3054,7 +3528,7 @@ def decision_pair(router: str, device):
 
     sides = {}
     for side, kwargs in (
-        ("card", {"device": device}),
+        ("card", {"device": device, "fleet_delta": True}),
         ("oracle", {"spf_backend": HostSpfBackend(), "device": device}),
     ):
         kvq, routeq, fibq = ReplicateQueue(), ReplicateQueue(), ReplicateQueue()
@@ -3326,6 +3800,15 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     k1_records["int32"]["launches"] = int32_launches
     emit(warm_rebuild(inp, solver, checked, timer))
     del solver
+    record, storm_slabs, storm_k1 = flap_storm_wan100k(device, inp, timer)
+    emit(record)
+    # K1 on the delta rung's slabs: the storm's launches and slab times
+    k1_records["uint16"]["launches_paths"] = {
+        "main_path": k1_records["uint16"]["launches"],
+        "flap_storm_wan100k": storm_k1,
+    }
+    for variant, slabs in storm_slabs.items():
+        k1_records[variant]["delta_slabs"] = slabs
     emit(spf_main_path(device, inp, timer))
     del inp
     record, (wan_csr, wan_engine, wan_graph) = decision_main_path(

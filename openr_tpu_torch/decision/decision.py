@@ -118,8 +118,10 @@ class DecisionPendingUpdates:
 
 
 class Decision(OpenrEventBase):
-    """The Decision event base.  `device` and `spf_backend` go to its
-    SpfSolver (the default: a DeviceSpfBackend on the CUDA card)."""
+    """The Decision event base.  `device`, `spf_backend` and
+    `fleet_delta` (the fleet views' incremental delta rung) go to its
+    SpfSolver (the default: a DeviceSpfBackend on the CUDA card, the
+    rung off)."""
 
     # a fleet dump builds one route DB per node into one response; at
     # 100k nodes an unbounded dump is a multi-GB allocation on this
@@ -143,6 +145,7 @@ class Decision(OpenrEventBase):
         enable_rib_policy: bool = False,
         spf_backend: Optional[SpfBackend] = None,
         device=None,
+        fleet_delta: Optional[bool] = None,
     ) -> None:
         super().__init__(name="decision")
         self.my_node_name = my_node_name
@@ -161,6 +164,7 @@ class Decision(OpenrEventBase):
             enable_best_route_selection=enable_best_route_selection,
             spf_backend=spf_backend,
             device=device,
+            fleet_delta=fleet_delta,
         )
         self.area_link_states: dict[str, LinkState] = {}
         self.prefix_state = PrefixState()

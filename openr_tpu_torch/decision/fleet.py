@@ -41,12 +41,22 @@ two designed verdicts, an affected set not certified within its pass
 budget and a warm relax that ends without its convergence certificate;
 both set `cold_fallback` (counted as `decision.fleet_warm_fallbacks`).
 An exception, such as a kernel launch or a CUDA error, propagates, so no
-failure of a kernel hides behind a second attempt.  The incremental
-delta rung comes in a later slice.
+failure of a kernel hides behind a second attempt.
+
+`FleetViewCache(delta=True)` (or OPENR_FLEET_DELTA=1; off by default,
+as in the reference) puts the incremental delta rung (decision.delta,
+ops.delta) before those gates: a rebuild over the same universe first
+folds the whole pending event batch into the previous banded product at
+a cost proportional to the affected columns, its slab epilogue
+launching K1, and labels the view `warm_mode == "delta"`; a designed
+gate failure falls through to the warm and cold paths.  The rung runs
+only on an engine the caller passes, as in the reference, whose
+engine-less views never take it.
 """
 
 from __future__ import annotations
 
+import os
 import weakref
 from typing import Optional
 
@@ -490,9 +500,30 @@ class FleetViewCache:
 
     Learned sweep hints are keyed by topology shape (node and edge
     counts): `_hints` holds cold counts, `_warm_hints` the counts of
-    warm rebuilds, which would undersize every later cold rebuild."""
+    warm rebuilds, which would undersize every later cold rebuild.
 
-    def __init__(self) -> None:
+    `delta` opts in to the incremental delta rung (None reads
+    OPENR_FLEET_DELTA, off unless "1"); `bump` is its counter sink
+    (`decision.delta.*`), `delta_min_p` the fewest destinations it
+    takes, `delta_parity` its cold parity gate (None reads
+    OPENR_DELTA_PARITY)."""
+
+    def __init__(
+        self,
+        delta: Optional[bool] = None,
+        bump=None,
+        delta_min_p: int = 32,
+        delta_parity: Optional[bool] = None,
+    ) -> None:
+        if delta is None:
+            delta = os.environ.get("OPENR_FLEET_DELTA", "0") == "1"
+        self._delta = None
+        if delta:
+            from .delta import DeltaProductUpdater
+
+            self._delta = DeltaProductUpdater(
+                bump=bump, min_p=delta_min_p, parity=delta_parity
+            )
         self._views: "weakref.WeakKeyDictionary[LinkState, FleetRouteView]" = (
             weakref.WeakKeyDictionary()
         )
@@ -525,7 +556,10 @@ class FleetViewCache:
         cached view warm-starts from it: an improvement-only change
         seeds the whole previous product, any other change the previous
         product minus its certified affected set (banded previous views
-        only).  The blocked rung's views seed nothing."""
+        only).  The blocked rung's views seed nothing.  With the delta
+        rung on and an `engine` given, a rebuild first tries to fold the
+        change into the cached product (decision.delta)."""
+        delta = self._delta if engine is not None else None
         if engine is None:
             engine = DeviceResidencyEngine(device)
         if not dest_names:
@@ -538,6 +572,14 @@ class FleetViewCache:
             csr.refresh(ls)
         prev = self._views.get(ls)
         view = FleetRouteView(csr, dest_names, engine)
+        if (
+            delta is not None
+            and (prev is None or not prev.node_sharded)
+            and delta.eligible(prev)
+            and delta.update(prev, view, engine)
+        ):
+            self._views[ls] = view
+            return view
         key = (csr.n_nodes, csr.n_edges)
         init_from = None
         down_from = None

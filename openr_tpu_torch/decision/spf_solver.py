@@ -52,6 +52,7 @@ from ..types import (
     normalize_prefix,
 )
 from .csr import CsrTopology
+from .delta import DELTA_COUNTER_KEYS
 from .fleet import FleetRouteView, FleetViewCache, fleet_destinations
 from .link_state import LinkState, Path, SpfResult, path_a_in_path_b, trace_one_path
 from .metric_vector import CompareResult, compare_metric_vectors
@@ -343,6 +344,7 @@ class SpfSolver:
         enable_best_route_selection: bool = False,
         spf_backend: Optional[SpfBackend] = None,
         device=None,
+        fleet_delta: Optional[bool] = None,
     ) -> None:
         self.my_node_name = my_node_name
         self.enable_v4 = enable_v4
@@ -351,14 +353,17 @@ class SpfSolver:
         self.spf = spf_backend if spf_backend is not None else DeviceSpfBackend(device)
         self._device = device
         self._engine: Optional[DeviceResidencyEngine] = self.spf.engine
-        self.fleet = FleetViewCache()
+        # `fleet_delta` opts the fleet views in to the incremental delta
+        # rung (None: the OPENR_FLEET_DELTA default, off)
+        self.fleet = FleetViewCache(delta=fleet_delta, bump=self._bump)
         self._fleet_views: dict[str, FleetRouteView] = {}
         # static route overlays (reference: Decision.cpp:372-425)
         self.static_unicast_routes: dict[str, list[NextHop]] = {}
         self.static_mpls_routes: dict[int, list[NextHop]] = {}
         # best-route selection cache (reference: bestRoutesCache_)
         self.best_routes_cache: dict[str, BestRouteSelectionResult] = {}
-        self.counters: dict[str, int] = {}
+        # the decision.delta.* family is pre-seeded, as in the reference
+        self.counters: dict[str, int] = {k: 0 for k in DELTA_COUNTER_KEYS}
 
     @property
     def engine(self) -> DeviceResidencyEngine:
@@ -1163,9 +1168,10 @@ class SpfSolver:
         computes one implicitly), or served from the cache.
 
         A view computed here (not served from the cache) bumps
-        `decision.fleet_rebuild_warm` or `_cold`, `_warm_down` for a
-        worsening warm start, and `decision.fleet_warm_fallbacks` when a
-        warm gate's designed verdict sent it cold.  A failure raises."""
+        `decision.fleet_rebuild_warm` or `_cold` (a delta update counts
+        as warm, as in the reference), `_warm_down` for a worsening warm
+        start, and `decision.fleet_warm_fallbacks` when a warm gate's
+        designed verdict sent it cold.  A failure raises."""
         views: dict[str, FleetRouteView] = {}
         for area, ls in area_link_states.items():
             dests = fleet_destinations(ls, prefix_state)

@@ -16,6 +16,10 @@ device the port computes on and two kinds of work:
 - **Fleet work**: it stages a view's reversed runner, owns the blocked
   APSP rung (`blocked`), and counts dispatches and kernel launches, in
   all and per kernel, and the ELL sweeps and affected-set passes.
+- **The delta rung** (`delta_bucket`, `delta_register`,
+  `delta_dispatch`): the front end of decision.delta's incremental
+  fleet updates, with the affected-column bucket ladder, the epoch pin
+  and the `device.engine.delta_*` accounting (DELTA_COUNTER_KEYS).
 
 The reference writes attribute and rewire deltas with scatter-free
 masked programs padded to power-of-two counts (a TPU scatter leaves the
@@ -26,10 +30,11 @@ restage, the port demotes only a gap in the rewire log (a resident that
 fell behind the log's window) and lets every other error propagate.
 
 `counters` holds the fleet path's keys (ENGINE_COUNTER_KEYS) from the
-start and each residency key (RESIDENCY_COUNTER_KEYS) or masked-batch
-key (MASKED_COUNTER_KEYS, `forward`) once bumped; `get_counters()`
-lists every family.  Snapshots (`export_resident`,
-`install_resident`) and the chaos `fault_hook` come in later slices.
+start and each residency key (RESIDENCY_COUNTER_KEYS), masked-batch
+key (MASKED_COUNTER_KEYS, `forward`) or delta-rung key
+(DELTA_COUNTER_KEYS) once bumped; `get_counters()` lists every family.
+Snapshots (`export_resident`, `install_resident`), the chaos
+`fault_hook` and the trace annotations come in later slices.
 """
 
 from __future__ import annotations
@@ -96,8 +101,21 @@ RESIDENCY_COUNTER_KEYS = (
     "device.engine.rewire_fallbacks",
 )
 
+# the delta rung's accounting (reference: engine.py ENGINE_COUNTER_KEYS)
+DELTA_COUNTER_KEYS = (
+    "device.engine.delta_dispatches",
+    "device.engine.delta_dispatch_us",
+    "device.engine.delta_bucket_hits",
+    "device.engine.delta_bucket_misses",
+    "device.engine.delta_overflow_fallbacks",
+)
+
 # source-batch padding ladder; above the last rung, next power of two
 S_BUCKETS = (1, 8, 64, 512)
+
+# affected-column padding ladder of the delta rung: a frontier of n_cols
+# columns runs at the smallest rung >= n_cols
+DELTA_P_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -180,13 +198,20 @@ class DeviceResidencyEngine:
         # this engine's device and launches phase 3 through
         # `blocked_outer` below
         self.blocked = BlockedApspEngine(parent=self)
+        # delta bucket keys seen: a first sighting is a miss
+        self._delta_buckets_seen: set = set()
 
     # -- counters -----------------------------------------------------------
 
     def get_counters(self) -> dict[str, int]:
         """Every key of the counter families, unbumped ones at 0."""
         return {
-            **{k: 0 for k in RESIDENCY_COUNTER_KEYS + MASKED_COUNTER_KEYS},
+            **{
+                k: 0
+                for k in RESIDENCY_COUNTER_KEYS
+                + MASKED_COUNTER_KEYS
+                + DELTA_COUNTER_KEYS
+            },
             **self.counters,
         }
 
@@ -265,6 +290,75 @@ class DeviceResidencyEngine:
             _outer.blocked_outer,
             dist, row_p, col_p, node_overloaded, k,
         )
+
+    # -- delta rung ---------------------------------------------------------
+
+    def delta_bucket(self, n_cols: int, p: int) -> Optional[int]:
+        """Padded slab width for an affected frontier of `n_cols` columns
+        out of a `p`-wide product, or None when the frontier bound is
+        exceeded (the frontier covers more than half the product, or its
+        bucket is at least p): the full product is then the cheaper
+        program and the caller's fallback."""
+        if n_cols <= 0:
+            return None
+        if 2 * n_cols > p:
+            self._bump("device.engine.delta_overflow_fallbacks")
+            return None
+        for b in DELTA_P_BUCKETS:
+            if n_cols <= b:
+                if b >= p:
+                    self._bump("device.engine.delta_overflow_fallbacks")
+                    return None
+                return b
+        self._bump("device.engine.delta_overflow_fallbacks")
+        return None
+
+    def delta_register(self, nbytes: int) -> None:
+        """Account the one full product a delta sequence starts from: a
+        storm keeps full_restages at 1, everything after it is folded
+        into that product."""
+        self._bump("device.engine.full_restages")
+        self._bump("device.engine.bytes_staged", int(nbytes))
+
+    def delta_dispatch(
+        self,
+        op: str,
+        fn: Callable,
+        *args,
+        csr=None,
+        expect_epoch: Optional[int] = None,
+        bucket_key: Optional[tuple] = None,
+        **kwargs,
+    ):
+        """Run one program of the delta rung (`op` names it): the epoch pin
+        (`expect_epoch` against `csr.version`) is checked before any
+        device work and raises EpochMismatchError; `bucket_key` names the
+        slab's shape cell, a first sighting counted as a miss and a
+        repeat as a hit; the call is counted and timed, a raising call
+        included.  The reference's chaos `fault_hook` and trace
+        annotation come with the chaos and observability slices."""
+        if (
+            expect_epoch is not None
+            and csr is not None
+            and int(csr.version) != int(expect_epoch)
+        ):
+            self._bump("device.engine.epoch_invalidations")
+            raise EpochMismatchError(int(expect_epoch), int(csr.version))
+        if bucket_key is not None:
+            if bucket_key in self._delta_buckets_seen:
+                self._bump("device.engine.delta_bucket_hits")
+            else:
+                self._delta_buckets_seen.add(bucket_key)
+                self._bump("device.engine.delta_bucket_misses")
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self._bump("device.engine.delta_dispatches")
+            self._bump(
+                "device.engine.delta_dispatch_us",
+                int((time.perf_counter() - t0) * 1e6),
+            )
 
     # -- residency ----------------------------------------------------------
 

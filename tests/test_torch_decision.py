@@ -488,9 +488,9 @@ def test_rebuild_exception_counts_and_raises_without_demotion(pair):
     assert normalized_update(got) == normalized_update(want)
 
 
-def test_protection_api_waits_for_its_port(pair):
-    """The protection queries the port used to refuse now answer as the
-    reference does, on the converged square."""
+def test_protection_queries_equal_reference(pair):
+    """`what_if` and `get_ti_lfa` of the port's Decision equal the
+    reference's on the converged square."""
     pair.push(square_publication())
     pair.update()
     scenarios = [[("1", "2")], [("1", "2"), ("1", "3")], [("1", "9")]]
