@@ -61,7 +61,23 @@ and its phases timed:
   SRLG scenarios, each against a host oracle, and
   `ti_lfa_backups(runner=)` called directly; then the storm's backup
   links raised and restored in two publications, the card Decision
-  (`fleet_delta=True`) serving each fleet dump on the delta rung;
+  (`fleet_delta=True`) serving each fleet dump on the delta rung; then
+  `QueryScheduler(DecisionBatchBackend(decision),
+  defer_hint=decision.pending_event_hint)` answering paths and KSP
+  queries equal to the host-Dijkstra Decision's;
+- traffic engineering on the WAN (the reference's `bench.py`
+  bench_te_wan100k): `TeOptimizer(engine)`'s soft descent under
+  torch.autograd, 512 sources toward 4 destinations, metrics 1..16, 12
+  steps in 3 anneal stages, each stage's rounded candidate gated by the
+  exact product (K1's uint16 variant, once per evaluation, every
+  evaluation equal to scipy's Dijkstra), then `hill_climb` with as many
+  evaluations; K1 held against its plain version on the first
+  evaluation's inputs; the first descent step held against the CPU's;
+- the query-serving layer on the WAN: `QueryScheduler(EngineBatchBackend
+  ({"0": ls}))` answering one burst of 256 paths, 4 what-if, 4 KSP and
+  2 coalesced optimize_metrics queries (K1 once per TE evaluation, and
+  held against its plain version on the first), against the host
+  Dijkstra and scipy, and one flap that invalidates a staged batch;
 - BASELINE config #3's dual-metric KSP2 on that mirror's forward
   runner (`ops.ksp.FusedKsp2Runner`, an IGP and a TE plane, 8
   destinations) against scipy's Dijkstra over the oracle Decision's
@@ -1346,6 +1362,31 @@ def slab_record(d, groups, n_words, runner, timer, variant: str, check) -> dict:
     }
 
 
+def slab_pair_records(d, groups, n_words, runner, out, timer, what: str) -> dict:
+    """K1 in both variants on one uint16 product `d` that a relax of
+    `runner` handed it (group tables `groups`, out-edge table `out`):
+    each variant bit for bit against its plain version and the two
+    variants against each other, then `slab_record` of each, by
+    variant."""
+    from openr_tpu_torch.ops import allsources as asrc
+    from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.ops.sssp import u16_dist_to_i32
+
+    check = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d, groups, n_words)
+    maps = asrc.build_epilogue_maps(runner.bg, out)
+    groups32, _ = relax_groups(runner, maps, n_words, d.device, False)
+    d32 = u16_dist_to_i32(d)
+    check32 = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d32, groups32, n_words)
+    b16, ok16 = ep.fused_epilogue(d, *groups, n_words)
+    b32, ok32 = ep.fused_epilogue(d32, *groups32, n_words)
+    if not (same(b16, b32) and bool(ok16) == bool(ok32)):
+        raise AssertionError(f"{what}: the int32 and uint16 variants disagree")
+    return {
+        "uint16": slab_record(d, groups, n_words, runner, timer, "uint16", check),
+        "int32": slab_record(d32, groups32, n_words, runner, timer, "int32", check32),
+    }
+
+
 def flap_storm_wan100k(device, inp, timer, n_events: int = 1000,
                        n_chunks: int = 4, seed: int = 7):
     """The reference's flap storm (bench.py bench_flap_storm_wan100k) at
@@ -1374,9 +1415,6 @@ def flap_storm_wan100k(device, inp, timer, n_events: int = 1000,
 
     from openr_tpu_torch.decision.fleet import FleetViewCache, fleet_destinations
     from openr_tpu_torch.device.engine import DeviceResidencyEngine
-    from openr_tpu_torch.ops import allsources as asrc
-    from openr_tpu_torch.ops import epilogue as ep
-    from openr_tpu_torch.ops.sssp import u16_dist_to_i32
 
     ls, csr, names = inp.ls, inp.csr, inp.names
     n = len(names)
@@ -1604,22 +1642,9 @@ def flap_storm_wan100k(device, inp, timer, n_events: int = 1000,
 
     # K1 against its plain version on the slabs the relaxes produced
     slab_records = {"uint16": [], "int32": []}
-    for where, d, groups, n_words, runner, out in storm_slabs:
-        check = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d, groups, n_words)
-        slab_records["uint16"].append(
-            {"chunk": where, **slab_record(d, groups, n_words, runner, timer, "uint16", check)}
-        )
-        maps = asrc.build_epilogue_maps(runner.bg, out)
-        groups32, _ = relax_groups(runner, maps, n_words, d.device, False)
-        d32 = u16_dist_to_i32(d)
-        check32 = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d32, groups32, n_words)
-        b16, ok16 = ep.fused_epilogue(d, *groups, n_words)
-        b32, ok32 = ep.fused_epilogue(d32, *groups32, n_words)
-        if not (same(b16, b32) and bool(ok16) == bool(ok32)):
-            raise AssertionError(f"slab of {where}: the int32 and uint16 variants disagree")
-        slab_records["int32"].append(
-            {"chunk": where, **slab_record(d32, groups32, n_words, runner, timer, "int32", check32)}
-        )
+    for where, *slab in storm_slabs:
+        for variant, rec in slab_pair_records(*slab, timer, f"slab of {where}").items():
+            slab_records[variant].append({"chunk": where, **rec})
     del storm_slabs
 
     # restore every link the phase changed
@@ -2174,7 +2199,8 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     static unicast and a static MPLS route, (f) a RibPolicy set, then
     cleared, (g) the operator queries, (h) the flap storm's four backup
     links raised to 90 in one publication of their source nodes'
-    adjacency databases, then restored in another.  After every step
+    adjacency databases, then restored in another, (i) the serving layer
+    over the card Decision (`decision_serving`).  After every step
     both agents' tables are equal element for element, the card's engine
     counters moved as the step requires, and neither Decision counted a
     rebuild failure.  The card Decision has the fleet views' delta rung
@@ -2525,6 +2551,11 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
             dumps_rec[what] = fleet_dump(f"fleet dump after {what}", checked)
             if card_solver.counters["decision.delta.updates"] <= updates0:
                 raise AssertionError(f"{what}: the delta rung did not serve the dump")
+
+        # (i) the serving layer over the card Decision
+        steps["i_serving"] = decision_serving(
+            card["decision"], oracle["decision"], checked, router
+        )
         decision_counters = card["decision"].get_counters()
         fib_counters = card["fib"].get_counters()
     finally:
@@ -3747,6 +3778,720 @@ def ksp2_decision_fabric96(device, pods, timer) -> dict:
     return record
 
 
+# TE and serving on the card: traffic engineering's descent and exact
+# gate (te_wan100k) and the query-serving layer (serving_wan100k)
+
+# tolerance of a descent step on the card against the port's CPU run:
+# tests/test_torch_te.py's, the reference against the port
+TE_RTOL = TE_ATOL = 1e-4
+
+
+def te_demand(n_nodes: int, node_capacity: int, n_sources: int = 512,
+              n_dests: int = 4):
+    """The reference's TE bench demand (bench.py bench_te_wan100k):
+    RandomState(0), `n_sources` sources with volumes U(0.5, 2.0) toward
+    `n_dests` destinations at linspace(0, n - 1), none on their own
+    rows.  Returns (dest ids, demand [node_capacity, n_dests])."""
+    rng = np.random.RandomState(0)
+    dests = np.linspace(0, n_nodes - 1, n_dests).astype(np.int32)
+    sources = rng.choice(n_nodes, size=n_sources, replace=False)
+    demand = np.zeros((node_capacity, n_dests), dtype=np.float32)
+    demand[sources] = rng.uniform(0.5, 2.0, size=(n_sources, n_dests)).astype(np.float32)
+    demand[dests, np.arange(n_dests)] = 0.0
+    return dests, demand
+
+
+def reverse_dijkstra(problem, metric, dest: int) -> np.ndarray:
+    """The exact distances v -> `dest` for integer `metric`: scipy's
+    Dijkstra from `dest` on the reversed up edges (parallel edges keep
+    their least metric), less every edge into a drained node other than
+    `dest` (the drain rule); INF32 where unreachable, [node_capacity]."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from openr_tpu_torch.ops.sssp import INF32
+
+    e = problem.n_edges
+    src = problem.edge_src[:e].astype(np.int64)
+    dst = problem.edge_dst[:e].astype(np.int64)
+    w = np.asarray(metric[:e], dtype=np.int64)
+    over = problem.node_overloaded
+    keep = problem.edge_up[:e] & ~(over[dst] & (dst != dest))
+    n = len(over)
+    key, w = (dst * n + src)[keep], w[keep]
+    order = np.lexsort((w, key))
+    first = np.r_[True, key[order][1:] != key[order][:-1]]
+    key, w = key[order][first], w[order][first]
+    mat = csr_matrix((w.astype(np.float64), (key // n, key % n)), shape=(n, n))
+    d = dijkstra(mat, indices=dest)
+    return np.where(np.isinf(d), INF32, d).astype(np.int64)
+
+
+class ExactLog:
+    """Records every ExactEvaluator evaluation until `close()`: the
+    candidate metrics, the distances it computed and its ms split into
+    host tables, product and load push."""
+
+    def __init__(self) -> None:
+        from openr_tpu_torch.te.exact import ExactEvaluator
+
+        self.cls = ExactEvaluator
+        self.evals: list[dict] = []
+        self.real = real, real_dist = ExactEvaluator.evaluate, ExactEvaluator.distances
+        evals = self.evals
+
+        def distances(ev, metric):
+            d = real_dist(ev, metric)
+            evals.append({"metric": np.asarray(metric).copy(), "dist": d})
+            return d
+
+        def evaluate(ev, metric):
+            obj = real(ev, metric)
+            evals[-1]["ms"] = dict(ev.last_ms)
+            evals[-1]["objective"] = obj
+            return obj
+
+        ExactEvaluator.distances = distances
+        ExactEvaluator.evaluate = evaluate
+
+    def take(self) -> list[dict]:
+        out = list(self.evals)
+        self.evals.clear()
+        return out
+
+    def close(self) -> None:
+        self.cls.evaluate, self.cls.distances = self.real
+
+
+class ExactK1Capture:
+    """Keeps K1's inputs of the first exact evaluation on `engine` until
+    `close()`: the product and group tables its counting epilogue took,
+    with the evaluation's reversed runner and out-edge table, for
+    `slab_pair_records` after the counted run."""
+
+    def __init__(self, engine) -> None:
+        from openr_tpu_torch.te.exact import ExactEvaluator
+
+        self.cls, self.engine = ExactEvaluator, engine
+        self.real_runner = real_runner = ExactEvaluator._runner
+        self.slab = None
+        staged = []
+
+        def runner(ev, metric):
+            r = real_runner(ev, metric)
+            staged[:] = [r, ev._out]
+            return r
+
+        self.epilogue = epilogue = engine.epilogue
+
+        def capturing(d, *rest):
+            out = epilogue(d, *rest)
+            if self.slab is None:
+                self.slab = (d, rest[:4], rest[4], *staged)
+            return out
+
+        ExactEvaluator._runner = runner
+        engine.epilogue = capturing
+
+    def close(self) -> None:
+        self.cls._runner = self.real_runner
+        self.engine.epilogue = self.epilogue
+
+
+def check_exact_evals(problem, evals, what: str) -> float:
+    """Each evaluation's distances against reverse_dijkstra, bit for bit;
+    returns the oracle's seconds."""
+    t0 = time.perf_counter()
+    for i, ev in enumerate(evals):
+        for p, dest in enumerate(problem.dest_ids):
+            want = reverse_dijkstra(problem, ev["metric"], int(dest))
+            if not np.array_equal(ev["dist"][:, p], want):
+                raise AssertionError(f"{what}: evaluation {i} column {p} differs from Dijkstra")
+    return time.perf_counter() - t0
+
+
+def descent_step_record(problem, device, timer) -> dict:
+    """The first descent step of the optimizer's anneal (tau 1.0, the
+    initial metrics, zero moments) on the card and on the CPU at full
+    width: objective and gradient held at TE_RTOL / TE_ATOL, and one
+    card step profiled for its kernel launches and device time."""
+    import torch
+
+    from openr_tpu_torch.te import soft
+
+    def tensors(dev):
+        def put(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+
+        metric = put(problem.edge_metric, torch.float32)
+        return (
+            metric, torch.zeros_like(metric), torch.zeros_like(metric), np.float32(1),
+            put(problem.edge_src, torch.int64), put(problem.edge_dst, torch.int64),
+            put(problem.edge_up, torch.bool), put(problem.node_overloaded, torch.bool),
+            put(problem.dest_ids, torch.int64), put(problem.demand, torch.float32),
+            put(problem.capacity, torch.float32),
+            *(np.float32(x) for x in (1.0, 0.1, 0.75, problem.metric_lo, problem.metric_hi)),
+        )
+
+    kw = dict(n_sweeps=64, flow_sweeps=48, return_grad=True)
+    out = {}
+    t0 = time.perf_counter()
+    card = soft.te_descent_step(*tensors(device), **kw)
+    out["card"] = [t.cpu().numpy() for t in card]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cpu"] = [t.numpy() for t in soft.te_descent_step(*tensors("cpu"), **kw)]
+    cpu_s = time.perf_counter() - t0
+    names = ("objective", "metric", "m", "v", "grad")
+    err = {}
+    for name, g, w in zip(names, out["card"], out["cpu"]):
+        err[name] = float(np.max(np.abs(g.astype(np.float64) - w)))
+        # metric' is not held: Adam's first step moves each metric by
+        # about lr * sign(grad), so a gradient within float noise of 0
+        # may step either way
+        if name != "metric" and not np.allclose(g, w, rtol=TE_RTOL, atol=TE_ATOL):
+            raise AssertionError(f"te descent step: {name} on the card differs from the CPU")
+    grad, grad_cpu = out["card"][4], out["cpu"][4]
+    if not np.isfinite(grad).all() or (grad[~problem.edge_up] != 0).any():
+        raise AssertionError("te descent step: gradient not finite or leaking into padding")
+    moved_apart = np.abs(out["card"][1] - out["cpu"][1]) > TE_ATOL
+    record = {
+        "max_abs_err_vs_cpu": err,
+        "metric_steps_apart": {
+            "edges": int(moved_apart.sum()),
+            "max_abs_grad_there": float(np.abs(grad_cpu[moved_apart]).max())
+            if moved_apart.any() else 0.0,
+        },
+        "max_abs_grad": float(np.abs(grad).max()),
+        "objective": float(out["card"][0]),
+        "grad_nonzero": int((grad != 0).sum()),
+        "first_call_s": card_s,
+        "cpu_s": cpu_s,
+    }
+    if timer.cuda:
+        record["profiled_step"] = profiled_step(
+            lambda: soft.te_descent_step(*tensors(device), **kw)
+        )
+    return record
+
+
+def profiled_step(fn) -> dict:
+    """One call of `fn` under torch.profiler: its wall time (with the
+    profiler's overhead), the device kernels it launched, their summed
+    device time and the device's idle share of the wall time.  A
+    profiler that cannot trace the card is reported, not fatal: it is
+    instrumentation, not the path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [
+            e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        ]
+        by_name: dict = {}
+        for e in kernels:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+        busy_ms = sum(ms for _, ms in by_name.values())
+    except Exception as e:  # noqa: BLE001
+        return {"error": repr(e)}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {
+        "wall_ms": wall_ms,
+        "kernel_launches": len(kernels),
+        "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+        "top_kernels": [
+            {"name": name[:80], "launches": n, "ms": ms} for name, (n, ms) in top
+        ],
+    }
+
+
+def te_wan100k(device, backend, ls, timer, steps: int = 12, round_trips: int = 3) -> dict:
+    """The reference's TE bench at wan100k (bench.py bench_te_wan100k) on
+    the port: `TeOptimizer(engine)` over the mirror of `ls` (the main
+    path's WAN), metric box 1..16, 512 sources toward 4 destinations,
+    `steps` descent steps in `round_trips` anneal stages, 64 softmin and
+    48 flow sweeps; then `hill_climb` with the same number of exact
+    evaluations.  Every exact evaluation equals scipy's Dijkstra on the
+    reversed graph for the 4 destinations, bit for bit; re-evaluating
+    the result gives its objective exactly; the metrics are integers in
+    [1, 16]; K1's uint16 variant launches once per exact evaluation
+    (counts set to 0 just before each search and read just after), and
+    on the first evaluation's inputs K1 equals its plain version bit for
+    bit in both variants (`slab_pair_records`, timed against its bound);
+    the first descent step on the card equals the port's CPU run at
+    TE_RTOL / TE_ATOL."""
+    import torch
+
+    from openr_tpu_torch.te import TeOptimizer, TeProblem, hill_climb
+    from openr_tpu_torch.te import soft
+    from openr_tpu_torch.te.exact import ExactEvaluator
+
+    t_phase = time.perf_counter()
+    csr = backend.csr_mirror(ls)
+    engine = backend.engine
+    dests, demand = te_demand(csr.n_nodes, csr.node_capacity)
+    problem = TeProblem.from_topology(csr, dests, demand, metric_lo=1, metric_hi=16)
+    step_ms = []
+    real_step = soft.te_descent_step
+
+    def timed_step(*args, **kwargs):
+        if timer.cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*args, **kwargs)
+        if timer.cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    log = ExactLog()
+    capture = ExactK1Capture(engine)
+    soft.te_descent_step = timed_step
+    try:
+        if timer.cuda:
+            torch.cuda.reset_peak_memory_stats()
+        opt = TeOptimizer(engine)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        res = opt.optimize(
+            problem, steps=steps, round_trips=round_trips, n_sweeps=64, flow_sweeps=48,
+        )
+        te_wall_s = time.perf_counter() - t0
+        te_launches = launch_counts()
+        te_evals = log.take()
+        peak = torch.cuda.max_memory_allocated() if timer.cuda else None
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        _hm, hill_obj, hill_evals = hill_climb(
+            problem, rounds=res.round_trips, seed=1, engine=engine
+        )
+        hill_wall_s = time.perf_counter() - t0
+        hill_launches = launch_counts()
+        hill_log = log.take()
+    finally:
+        soft.te_descent_step = real_step
+        log.close()
+        capture.close()
+    for what, evals, launches in (
+        ("te", te_evals, te_launches), ("hill", hill_log, hill_launches),
+    ):
+        if launches[KERNEL_U16["name"]] != len(evals) or sum(launches.values()) != len(evals):
+            raise AssertionError(f"{what}: {len(evals)} exact evaluations launched {launches}")
+    if len(te_evals) != res.round_trips or len(hill_log) != hill_evals:
+        raise AssertionError("te: evaluation count differs from the search's own")
+    oracle_s = check_exact_evals(problem, te_evals + hill_log, "te_wan100k")
+    live = res.metrics[: problem.n_edges][problem.edge_up[: problem.n_edges]]
+    if res.metrics.dtype != np.int32 or live.min() < 1 or live.max() > 16:
+        raise AssertionError("te: metrics not integers in [1, 16]")
+    again = ExactEvaluator(
+        problem.edge_src, problem.edge_dst, problem.edge_up, problem.node_overloaded,
+        problem.n_edges, problem.n_nodes, problem.dest_ids, problem.demand,
+        problem.capacity, engine=engine,
+    ).evaluate(res.metrics)
+    if again != res.objective_after:
+        raise AssertionError(f"te: re-evaluation {again} != {res.objective_after}")
+    # K1 against its plain version on the first exact evaluation's inputs
+    k1_exact = slab_pair_records(*capture.slab, timer, "te exact evaluation")
+    del capture
+    step = descent_step_record(problem, device, timer)
+    counters = opt.get_counters()
+    record = {
+        "phase": "te_wan100k",
+        "nodes": csr.n_nodes,
+        "edges": int(problem.n_edges),
+        "sources": 512,
+        "dests": dests.tolist(),
+        "te_wall_s": te_wall_s,
+        "te_steps": res.steps,
+        "te_round_trips": res.round_trips,
+        "te_accepted": res.accepted,
+        "te_changed_edges": len(res.changed_edges),
+        "exact_objective_before": res.objective_before,
+        "exact_objective_after": res.objective_after,
+        "hill_wall_s": hill_wall_s,
+        "hill_evals": hill_evals,
+        "hill_objective_after": hill_obj,
+        "te_beats_or_matches_hill": bool(res.objective_after <= hill_obj + 1e-9),
+        "descent_step_ms": step_ms,
+        "exact_eval_ms": [e["ms"] for e in te_evals + hill_log],
+        "k1_launches": {"te": te_launches, "hill": hill_launches},
+        "k1_exact": k1_exact,
+        "oracle_s": oracle_s,
+        "first_step": step,
+        "counters": {k: v for k, v in counters.items() if not k.endswith("_milli")},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    if timer.cuda:
+        record["card"] = card_line()
+        record["peak_device_bytes"] = peak
+    return record
+
+
+def undrain(ls) -> list[str]:
+    """Publish every drained node of `ls` undrained; returns them."""
+    import dataclasses
+
+    dbs = ls.get_adjacency_databases()
+    drained = [v for v, db in dbs.items() if db.is_overloaded]
+    for v in drained:
+        ls.update_adjacency_database(dataclasses.replace(dbs[v], is_overloaded=False))
+    return drained
+
+
+def path_links_key(paths) -> list:
+    return [[link.ordered_names for link in p] for p in paths]
+
+
+def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
+                    n_paths: int = 256, n_checked: int = 8) -> dict:
+    """The query-serving layer at wan100k (no drained node: the scipy
+    oracle takes none): `EngineBatchBackend({"0": ls})` on `backend`
+    (the card's DeviceSpfBackend) before
+    `QueryScheduler(max_pending=1024, max_coalesce=64)`, one burst of
+    `n_paths` single-source paths queries drawn from `n_routers` routers
+    (RandomState(5)), 4 what-if queries of 2 single-link scenarios each
+    over the same 2 sources, 4 KSP queries (k = 2 from w000000, 8
+    destinations each) and 2 identical optimize_metrics queries (64
+    demand triples from RandomState(6), bounds 1..16, 12 steps), K1's
+    counts set to 0 just before the burst and read just after; then one
+    flap that lands in a staged paths batch (`trace_hook`), which the
+    scheduler invalidates and recomputes.  Checks: `n_checked` routers'
+    answers (first those whose host Dijkstra `ls` has cached) equal the
+    host Dijkstra's SpfResults; what-if and KSP equal
+    scipy's Dijkstra (the oracles of `protection_queries` and
+    `ksp_dual_metric_wan100k`, on two destinations of each KSP query);
+    the TE reply re-evaluates exactly, and on its first exact
+    evaluation's inputs K1 equals its plain version in both variants
+    (`slab_pair_records`); every
+    future resolves, replies + errors + shed equal the submitted, no
+    error and no host fallback; the flap's replies carry the new
+    epoch."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.ops.sssp import INF32
+    from openr_tpu_torch.serving import EngineBatchBackend, QueryScheduler
+    from openr_tpu_torch.serving.backend import _te_problem_from_csr
+    from openr_tpu_torch.te.exact import ExactEvaluator
+
+    t_phase = time.perf_counter()
+    csr = backend.csr_mirror(ls)
+    names = csr.node_names
+    n = csr.n_nodes
+    rng = np.random.RandomState(5)
+    routers = [names[i * n // n_routers] for i in range(n_routers)]
+    path_srcs = [routers[i] for i in rng.randint(n_routers, size=n_paths)]
+    wi_sources = (routers[0], routers[n_routers // 2])
+    link_ids = rng.choice(csr.n_edges, size=8, replace=False)
+    wi_links = [csr.edge_links[int(e)][0] for e in link_ids]
+    wi_scen = [
+        [[(wi_links[2 * q + j].n1, wi_links[2 * q + j].n2)] for j in range(2)]
+        for q in range(4)
+    ]
+    ksp_src = names[0]
+    ksp_dests = [names[int(i)] for i in rng.choice(np.arange(1, n), size=32, replace=False)]
+    drng = np.random.RandomState(6)
+    te_dests = [names[int(i)] for i in np.linspace(0, n - 1, 4).astype(int)]
+    demand = tuple(
+        (names[int(drng.randint(n))], te_dests[int(drng.randint(4))], float(drng.uniform(0.5, 2.0)))
+        for _ in range(64)
+    )
+    demand = tuple(t for t in demand if t[0] != t[1])
+    # the checked routers: those asked whose host Dijkstra `ls` has
+    # cached (spf_main_path checked them), then every
+    # (n_routers // n_checked)-th one asked
+    asked = [s for s in routers if s in set(path_srcs)]
+    cached = [s for s in asked if (s, True) in ls._spf_results]
+    checked = list(dict.fromkeys(cached + asked[:: n_routers // n_checked]))[:n_checked]
+
+    sched = QueryScheduler(EngineBatchBackend({"0": ls}, spf_backend=backend),
+                           max_pending=1024, max_coalesce=64)
+    sched.run()
+    capture = ExactK1Capture(backend.engine)
+    try:
+        zero_launch_counts()
+        t_burst = time.perf_counter()
+        futs = [("paths", sched.submit("paths", sources=(s,))) for s in path_srcs]
+        futs += [
+            ("what_if", sched.submit("what_if", sources=wi_sources, scenarios=sc))
+            for sc in wi_scen
+        ]
+        futs += [
+            ("ksp", sched.submit("ksp", sources=(ksp_src,), dests=ksp_dests[8 * q: 8 * q + 8], k=2))
+            for q in range(4)
+        ]
+        futs += [
+            ("optimize_metrics", sched.submit(
+                "optimize_metrics", demand=demand, bounds=(1, 16), steps=12))
+            for _ in range(2)
+        ]
+        # replies in submission order; a paths reply keeps only the
+        # checked routers' answers, so the host holds a batch or two of
+        # SpfResults at a time and not the whole burst's
+        n_submitted = len(futs)
+        by_op: dict = {}
+        answers, errors = {}, []
+        for i, (op, f) in enumerate(futs):
+            futs[i] = None
+            try:
+                r = f.result(900)
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"{op}: {e!r}")
+                continue
+            if op == "paths":
+                answers.update((s, v) for s, v in r.value.items() if s in checked)
+                r = dataclasses.replace(r, value=None)
+            by_op.setdefault(op, []).append(r)
+        del futs, f
+        burst_s = time.perf_counter() - t_burst
+        launches = launch_counts()
+        counters = sched.get_counters()
+        shed = counters["serving.shed"]
+        if errors or shed or sum(map(len, by_op.values())) != n_submitted:
+            raise AssertionError(f"serving burst: {len(errors)} errors, {shed} shed: {errors[:3]}")
+
+        # paths: the checked routers against the host Dijkstra
+        t0 = time.perf_counter()
+        for s in checked:
+            want = ls.get_spf_result(s)
+            if spf_key(answers[s]) != spf_key(want):
+                raise AssertionError(f"serving paths {s}: differs from the host Dijkstra")
+        paths_oracle_s = time.perf_counter() - t0
+        del answers
+
+        # what-if and KSP against scipy's Dijkstra
+        t0 = time.perf_counter()
+        graph = oracle_graph(ls, csr)
+        node_id = csr.node_id
+        base = {s: scipy_dist(graph, node_id[s]) for s in wi_sources}
+        for q, r in enumerate(by_op["what_if"]):
+            for f, row in enumerate(r.value):
+                lost = degraded = 0
+                (a, b), = wi_scen[q][f]
+                for s, d0 in base.items():
+                    d1 = scipy_dist(graph, node_id[s], drop_pairs=[(node_id[a], node_id[b])])
+                    lost += int(((d0 < INF32) & (d1 >= INF32)).sum())
+                    degraded += int(((d0 < INF32) & (d1 < INF32) & (d1 > d0)).sum())
+                if (row["newly_unreachable_pairs"], row["degraded_pairs"]) != (lost, degraded):
+                    raise AssertionError(f"serving what-if {q}/{f}: {row} against ({lost}, {degraded})")
+        d_src = scipy_dist(graph, node_id[ksp_src])
+        ksp_rows = 0
+        for q, r in enumerate(by_op["ksp"]):
+            # two destinations of each query against scipy
+            for dest, paths in list(r.value.items())[:: max(1, len(r.value) // 2)][:2]:
+                first = backend.get_kth_paths(ls, ksp_src, dest, 1)
+                pairs = {(node_id[l.n1], node_id[l.n2]) for p in first for l in p}
+                cost1 = [path_cost(p, ksp_src) for p in first]
+                if any(c != d_src[node_id[dest]] for c in cost1):
+                    raise AssertionError(f"serving ksp {dest}: a first path is not shortest")
+                d2 = scipy_dist(graph, node_id[ksp_src], drop_pairs=sorted(pairs))[node_id[dest]]
+                cost2 = [path_cost(p, ksp_src) for p in paths]
+                if (d2 >= INF32) != (not paths) or any(c != d2 for c in cost2):
+                    raise AssertionError(f"serving ksp {dest}: second paths {cost2} against {d2}")
+                used = [l for p in paths for l in p]
+                if len(used) != len(set(used)) or set(used) & {l for p in first for l in p}:
+                    raise AssertionError(f"serving ksp {dest}: paths not edge-disjoint")
+                ksp_rows += 1
+        protection_oracle_s = time.perf_counter() - t0
+
+        # optimize_metrics: one descent run, re-evaluated exactly
+        te_replies = [r.value for r in by_op["optimize_metrics"]]
+        if te_replies[0] != te_replies[1] or by_op["optimize_metrics"][0].batch_size != 2:
+            raise AssertionError("serving optimize_metrics: the identical queries did not coalesce")
+        te_reply = te_replies[0]
+        problem = _te_problem_from_csr(csr, demand, (1, 16))
+        metric = np.where(problem.edge_up, problem.edge_metric, 1).astype(np.int32)
+        e = problem.n_edges
+        # the proposals name (src, dst) pairs: every up edge of a pair
+        # takes its metric
+        cap = np.int64(csr.node_capacity)
+        key = problem.edge_src[:e].astype(np.int64) * cap + problem.edge_dst[:e]
+        order = np.argsort(key, kind="stable")
+        props = np.array(
+            [(node_id[u], node_id[v], m) for u, v, m in te_reply["proposedMetrics"]],
+            dtype=np.int64,
+        ).reshape(-1, 3)
+        pkey = props[:, 0] * cap + props[:, 1]
+        lo = np.searchsorted(key[order], pkey, side="left")
+        count = np.searchsorted(key[order], pkey, side="right") - lo
+        starts = np.repeat(lo - np.cumsum(count) + count, count)
+        hit = order[starts + np.arange(count.sum())]
+        value = np.repeat(props[:, 2], count)
+        live = problem.edge_up[hit]
+        metric[hit[live]] = value[live]
+        again = ExactEvaluator(
+            problem.edge_src, problem.edge_dst, problem.edge_up, problem.node_overloaded,
+            problem.n_edges, problem.n_nodes, problem.dest_ids, problem.demand,
+            problem.capacity, engine=backend.engine,
+        ).evaluate(metric)
+        if again != te_reply["objectiveAfter"]:
+            raise AssertionError(f"serving optimize_metrics: re-evaluation {again} != reply")
+        te_evals = te_reply["roundTrips"]
+        if launches[KERNEL_U16["name"]] != te_evals or sum(launches.values()) != te_evals:
+            raise AssertionError(f"serving burst: {te_evals} exact evaluations launched {launches}")
+        # K1 against its plain version on the reply's first exact evaluation
+        k1_exact = slab_pair_records(*capture.slab, timer, "serving exact evaluation")
+
+        # one flap landing in a staged paths batch
+        flapped = {}
+        flap_router = routers[1]
+
+        def flap(event, batch):
+            if event == "stage" and batch.op == "paths" and not flapped:
+                db = ls.get_adjacency_databases()[flap_router]
+                first_adj = db.adjacencies[0]
+                raised = dataclasses.replace(
+                    db, adjacencies=[dataclasses.replace(first_adj, metric=first_adj.metric + 7),
+                                     *db.adjacencies[1:]],
+                )
+                flapped["epoch_pinned"] = batch.epoch
+                ls.update_adjacency_database(raised)
+                flapped["epoch_after"] = int(ls.version)
+
+        inval0 = sched.get_counters()["serving.invalidations"]
+        sched.trace_hook = flap
+        t0 = time.perf_counter()
+        after = [sched.submit("paths", sources=(s,)).result(900) for s in checked[:1]]
+        flap_s = time.perf_counter() - t0
+        sched.trace_hook = None
+        final = sched.get_counters()
+        if final["serving.invalidations"] <= inval0 or any(r.epoch != int(ls.version) for r in after):
+            raise AssertionError(f"serving flap: {final}, epochs {[r.epoch for r in after]}")
+        csr = backend.csr_mirror(ls)
+        want = scipy_dist(oracle_graph(ls, csr), node_id[checked[0]])
+        got = after[0].value[checked[0]]
+        if any(got[names[j]].metric != want[j] for j in range(n) if want[j] < INF32):
+            raise AssertionError("serving flap: the recomputed answer differs from scipy")
+        submitted = n_submitted + len(after)
+        if final["serving.replies"] + final["serving.errors"] + final["serving.shed"] != submitted:
+            raise AssertionError(f"serving: {final} against {submitted} submitted")
+        if final["serving.errors"] or final["serving.host_fallbacks"]:
+            raise AssertionError(f"serving: errors or host fallbacks {final}")
+    finally:
+        sched.stop()
+        capture.close()
+
+    def lat(op):
+        us = [r.latency_us for r in by_op[op]]
+        return {"p50_ms": float(np.median(us)) / 1e3, "max_ms": max(us) / 1e3, "n": len(us)}
+
+    record = {
+        "phase": "serving_wan100k",
+        "nodes": n,
+        "submitted": submitted,
+        "burst_s": burst_s,
+        "latency": {op: lat(op) for op in by_op},
+        "batch_sizes": {op: sorted({r.batch_size for r in by_op[op]}) for op in by_op},
+        "counters": {k: v for k, v in final.items() if ".hist_us." not in k},
+        "k1_launches": launches,
+        "te_reply": {k: v for k, v in te_reply.items() if k != "proposedMetrics"},
+        "te_proposed_metrics": len(te_reply["proposedMetrics"]),
+        "checked_routers": checked,
+        "checked_cached": len(cached),
+        "ksp_rows_checked": ksp_rows,
+        "k1_exact": k1_exact,
+        "flap": {**flapped, "router": flap_router, "query_s": flap_s},
+        "paths_oracle_s": paths_oracle_s,
+        "protection_oracle_s": protection_oracle_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    if timer.cuda:
+        record["card"] = card_line()
+        record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return record
+
+
+def path_cost(path, src: str) -> int:
+    """The metric of a path of links traced from `src`."""
+    cost, at = 0, src
+    for link in path:
+        cost += link.metric_from_node(at)
+        at = link.other_node_name(at)
+    return cost
+
+
+def spf_key(result) -> dict:
+    """An SpfResult as plain values: per node the metric, the ordered
+    path links ((node, iface) pairs, from node) and the sorted next
+    hops."""
+    return {
+        node: (
+            r.metric,
+            [(link.ordered_names, prev) for link, prev in r.path_links],
+            sorted(r.next_hops),
+        )
+        for node, r in result.items()
+    }
+
+
+def decision_serving(card, oracle, routers, router) -> dict:
+    """Step (i) of decision_main_path: the serving layer as the daemon
+    wires it, `QueryScheduler(DecisionBatchBackend(decision),
+    defer_hint=decision.pending_event_hint)` over the card Decision: 8
+    paths queries over `routers` (each asked more than once, so
+    duplicates merge in a batch) and one KSP query (k = 2 from `router`
+    to another of them), every answer equal to the host-Dijkstra
+    Decision's (`oracle`, whose LinkState caches the Dijkstra of
+    `routers` from the fleet dumps' checks)."""
+    from openr_tpu_torch.serving import DecisionBatchBackend, QueryScheduler
+
+    sched = QueryScheduler(
+        DecisionBatchBackend(card), defer_hint=card.pending_event_hint
+    )
+    dests = [r for r in routers if r != router][:1]
+    sched.run()
+    try:
+        t0 = time.perf_counter()
+        paths = [sched.submit("paths", sources=(s,)) for s in (list(routers) * 8)[:8]]
+        ksp = sched.submit("ksp", sources=(router,), dests=tuple(dests), k=2)
+        got = [f.result(900) for f in paths]
+        got_ksp = ksp.result(900)
+        wall_s = time.perf_counter() - t0
+        counters = sched.get_counters()
+    finally:
+        sched.stop()
+
+    def answers():
+        ls = oracle.area_link_states["0"]
+        spf = oracle.spf_solver.spf
+        return (
+            {s: spf.get_spf_result(ls, s) for s in routers},
+            {d: spf.get_kth_paths(ls, router, d, 2) for d in dests},
+        )
+
+    t0 = time.perf_counter()
+    want, want_ksp = oracle.run_in_event_base_thread(answers).result()
+    oracle_s = time.perf_counter() - t0
+    for r in got:
+        for s, res in r.value.items():
+            if spf_key(res) != spf_key(want[s]):
+                raise AssertionError(f"(i) paths {s}: differs from the host-Dijkstra Decision")
+    for d in dests:
+        if path_links_key(got_ksp.value[d]) != path_links_key(want_ksp[d]):
+            raise AssertionError(f"(i) ksp {d}: differs from the host-Dijkstra Decision")
+    if counters["serving.errors"] or counters["serving.replies"] != len(paths) + 1:
+        raise AssertionError(f"(i) serving counters {counters}")
+    return {
+        "paths_queries": len(paths),
+        "ksp_dests": dests,
+        "ksp_second_paths": [len(got_ksp.value[d]) for d in dests],
+        "batch_sizes": sorted({r.batch_size for r in got}),
+        "wall_s": wall_s,
+        "oracle_s": oracle_s,
+        "counters": {k: v for k, v in counters.items() if ".hist_us." not in k},
+    }
+
+
 def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         n_routers=N_ROUTERS, n_checked=N_CHECKED, kernel=None,
         outer_kernel=None, fabric_pods=FABRIC_PODS, check_pods=CHECK_PODS,
@@ -3809,7 +4554,30 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     }
     for variant, slabs in storm_slabs.items():
         k1_records[variant]["delta_slabs"] = slabs
-    emit(spf_main_path(device, inp, timer))
+    # warm_rebuild's drained node restored before spf_main_path: the
+    # serving phase's scipy oracle takes no drained node, and its host
+    # Dijkstra check then reuses the LinkState's cached results of the
+    # sources spf_main_path checked
+    restored = undrain(inp.ls)
+    record = spf_main_path(device, inp, timer)
+    record["undrained_first"] = restored
+    emit(record)
+    # TE and serving on that LinkState and the main path's first
+    # solver's DeviceSpfBackend (mirror and engine); K1 on each path's
+    # first exact evaluation goes into its records as "te_exact"
+    record = te_wan100k(device, inp.solver.spf, inp.ls, timer)
+    emit(record)
+    paths = k1_records["uint16"]["launches_paths"]
+    paths["te_wan100k"] = record["k1_launches"]["te"][KERNEL_U16["name"]]
+    te_exact = [("te_wan100k", record["k1_exact"])]
+    record = serving_wan100k(device, inp.solver.spf, inp.ls, timer)
+    emit(record)
+    paths["serving_wan100k"] = record["k1_launches"][KERNEL_U16["name"]]
+    te_exact.append(("serving_wan100k", record["k1_exact"]))
+    for variant in k1_records:
+        k1_records[variant]["te_exact"] = [
+            {"path": path, **recs[variant]} for path, recs in te_exact
+        ]
     del inp
     record, (wan_csr, wan_engine, wan_graph) = decision_main_path(
         device, timer, n_nodes, n_advertisers, n_routers, n_checked

@@ -17,8 +17,10 @@ next rebuild and lets the exception propagate.  `bgp_dry_run` marks
 BGP routes do-not-install.  The operator queries `what_if` (SRLG
 failure scenarios) and `get_ti_lfa` run on the event-base thread over
 the device backend's refreshed mirror and its engine
-(decision.protection_api).  The reference's trace spans (its `obs`
-tooling) and the serving layer's defer hint are not ported yet.
+(decision.protection_api).  `pending_event_hint` counts the topology
+events admitted since the last rebuild, for the serving layer's
+bounded batch hold.  The reference's trace spans (its `obs` tooling)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -176,10 +178,19 @@ class Decision(OpenrEventBase):
         self._rebuild_debounced: Optional[AsyncDebounce] = None
         self._cold_start_pending = eor_time_s is not None
         self._ordered_fib_timeout = None
+        # publications admitted that need a route update the last rebuild
+        # has not folded in yet (pending_event_hint)
+        self._pending_events = 0
         self.counters: dict[str, int] = {"decision.route_rebuild_failures": 0}
 
     def _bump(self, counter: str, n: int = 1) -> None:
         self.counters[counter] = self.counters.get(counter, 0) + n
+
+    def pending_event_hint(self) -> int:
+        """Topology events admitted but not yet folded into routes: non-zero
+        while a flap storm is being debounced.  A plain int read from any
+        thread (the serving layer's hold on it is bounded)."""
+        return self._pending_events
 
     def get_counters(self) -> dict[str, int]:
         """Module and solver counters merged."""
@@ -226,6 +237,7 @@ class Decision(OpenrEventBase):
                 return
             self.process_publication(pub)
             if self.pending_updates.needs_route_update():
+                self._pending_events += 1
                 self._rebuild_debounced()
 
     async def _static_routes_fiber(self) -> None:
@@ -381,6 +393,8 @@ class Decision(OpenrEventBase):
         self.pending_updates.add_event("ROUTE_UPDATE")
         update.perf_events = self.pending_updates.move_out_events()
         self.pending_updates.reset()
+        # every admitted event is folded in
+        self._pending_events = 0
         self._route_updates_queue.push(update)
 
     def _compute_route_update(self) -> DecisionRouteUpdate:

@@ -255,9 +255,18 @@ class DeviceResidencyEngine:
         return out
 
     def dispatch(self, op: str, fn: Callable, *args, **kwargs):
-        """Run one unit of device work (`op` names it) and count it."""
-        self.counters["device.engine.dispatches"] += 1
-        return fn(*args, **kwargs)
+        """Run one unit of device work (`op` names it), count it and time
+        it into `device.engine.dispatch_us` (host wall time of the call,
+        which includes the device work it waits for)."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.counters["device.engine.dispatches"] += 1
+            self._bump(
+                "device.engine.dispatch_us",
+                int((time.perf_counter() - t0) * 1e6),
+            )
 
     def _launch(self, name: str, kernel: Callable, *args):
         """Call a kernel wrapper and count the launches it made."""

@@ -11,10 +11,11 @@ openr/messaging/ReplicateQueue.h:23):
 
 push/get may be called from any thread and aget() from any event loop;
 async waiters are woken with call_soon_threadsafe and retry the pop, so
-no item is reserved for a waiter that was cancelled.  The reference's
-race-detector, schedule-explorer and trace hooks (its `analysis` and
-`obs` tooling) and the bounded queue's shed callback (its serving
-layer's) are not ported.
+no item is reserved for a waiter that was cancelled.  A bounded queue
+hands each item it sheds to its `on_shed` callback, outside the lock
+(the serving layer turns a shed query into an explicit error reply).
+The reference's race-detector, schedule-explorer and trace hooks (its
+`analysis` and `obs` tooling) are not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import asyncio
 import threading
 from collections import deque
-from typing import Generic, Iterable, Optional, TypeVar
+from typing import Callable, Generic, Iterable, Optional, TypeVar
 
 T = TypeVar("T")
 
@@ -59,9 +60,15 @@ class RQueue(Generic[T]):
 
 
 class RWQueue(Generic[T]):
-    def __init__(self, maxlen: Optional[int] = None) -> None:
+    def __init__(
+        self,
+        maxlen: Optional[int] = None,
+        on_shed: Optional[Callable[[T], None]] = None,
+    ) -> None:
         self._items: deque[T] = deque()
         self._maxlen = maxlen
+        # called with each item the bounded queue sheds
+        self._on_shed = on_shed
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._closed = False
@@ -71,18 +78,23 @@ class RWQueue(Generic[T]):
         self._num_overflows = 0
 
     def push(self, item: T) -> bool:
+        shed: Optional[T] = None
         with self._lock:
             if self._closed:
                 return False
             if self._maxlen is not None and len(self._items) >= self._maxlen:
                 # bounded: shed the OLDEST item (later state supersedes it)
-                self._items.popleft()
+                shed = self._items.popleft()
                 self._num_overflows += 1
             self._items.append(item)
             self._num_pushed += 1
             self._cond.notify()
             waiters, self._async_waiters = self._async_waiters, []
         self._wake(waiters)
+        if shed is not None and self._on_shed is not None:
+            # outside the lock: the handler may complete futures whose
+            # callbacks must not run under it
+            self._on_shed(shed)
         return True
 
     def close(self) -> None:

@@ -499,3 +499,28 @@ def test_protection_queries_equal_reference(pair):
     assert got[1]["newly_unreachable_pairs"] == 3
     got, want = pair.call(lambda d: d.get_ti_lfa())
     assert got == want and len(got["adjacencies"]) == 2
+
+
+def test_pending_event_hint_across_a_publication():
+    """Reference: Decision.pending_event_hint (decision.py:176-181): a
+    publication that needs a route update raises the hint until the
+    debounced rebuild folds it in, in both packages."""
+    pair = DecisionPair(with_static=False)
+    for side in pair.sides.values():
+        # a debounce long enough to read the raised hint
+        side[4]._debounce_bounds = (0.3, 0.5)
+    pair.run()
+    try:
+        before = [d.pending_event_hint() for d in (pair.port, pair.ref)]
+        pair.push(square_publication())
+        seen = []
+        for d in (pair.port, pair.ref):
+            deadline = time.monotonic() + 5
+            while d.pending_event_hint() == 0 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            seen.append(d.pending_event_hint())
+        pair.update()
+        after = [d.pending_event_hint() for d in (pair.port, pair.ref)]
+        assert (before, seen, after) == ([0, 0], [1, 1], [0, 0])
+    finally:
+        pair.close()

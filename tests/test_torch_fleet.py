@@ -156,7 +156,10 @@ def test_fleet_route_dbs_match_reference_every_node(name):
 
     solver = SpfSolver(names[0], device="cpu")
     got = solver.fleet_route_dbs({"0": ls}, ps)
-    assert solver.engine.counters == {
+    counters = dict(solver.engine.counters)
+    # the one dispatch is timed, as the reference's is
+    assert counters.pop("device.engine.dispatch_us") >= 0
+    assert counters == {
         "device.engine.dispatches": 1,
         # CPU tensors: plain versions, no kernel launched
         "device.engine.kernel_launches": 0,

@@ -200,6 +200,30 @@ def bounded_queue_sheds_oldest(rt):
     return [q.get(), q.get()], q.stats()
 
 
+def bounded_queue_on_shed(rt):
+    q = None
+    shed = []
+
+    def on_shed(item):
+        # called outside the queue lock, once per dropped item
+        shed.append((item, q._lock.locked()))
+
+    q = rt.RWQueue(maxlen=2, on_shed=on_shed)
+    pushed = [q.push(i) for i in range(5)]
+    return pushed, shed, [q.get(), q.get()], q.stats()
+
+
+def on_shed_only_on_overflow(rt):
+    shed = []
+    q = rt.RWQueue(maxlen=3, on_shed=shed.append)
+    for i in range(3):
+        q.push(i)
+    q.get()
+    q.push(3)
+    q.close()
+    return shed, q.push(4), shed, q.stats()["overflows"]
+
+
 QUEUE_SCENARIOS = {
     "fifo_order": (fifo_order, (True, 100, list(range(100)))),
     "try_get": (try_get, [None, "x"]),
@@ -220,6 +244,16 @@ QUEUE_SCENARIOS = {
         bounded_queue_sheds_oldest,
         ([2, 3], {"size": 0, "num_pushed": 4, "num_read": 2, "overflows": 2}),
     ),
+    "bounded_queue_on_shed": (
+        bounded_queue_on_shed,
+        (
+            [True] * 5,
+            [(0, False), (1, False), (2, False)],
+            [3, 4],
+            {"size": 0, "num_pushed": 5, "num_read": 2, "overflows": 3},
+        ),
+    ),
+    "on_shed_only_on_overflow": (on_shed_only_on_overflow, ([], False, [], 0)),
 }
 
 
