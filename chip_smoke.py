@@ -65,6 +65,31 @@ and its phases timed:
   `QueryScheduler(DecisionBatchBackend(decision),
   defer_hint=decision.pending_event_hint)` answering paths and KSP
   queries equal to the host-Dijkstra Decision's;
+- the node's KvStore feeding the card Decision on the same WAN
+  (`kvstore_decision_wan100k`): three port KvStores on one
+  `InProcessTransport` in a chain, `seed` – `transit` – w000000,
+  `seed` holding `decision_main_path`'s 101 024 cold Values set in
+  batches; two 3-way full syncs down the chain into w000000, whose
+  KvStore updates queue feeds a card Decision (`fleet_delta=True`) →
+  Fib and a host-Dijkstra Decision → Fib; every store's `dump_hashes`
+  equal, both agents equal, and the card's fleet dump of the checked
+  routers (K1's uint16 variant once) equal to `decision_main_path`'s
+  cold dump; then step (a)'s raised database persisted by `seed`'s
+  `KvStoreClientInternal` and flooded through `transit` (agents equal,
+  the fleet dump equal to the one after (a), K1 held against its plain
+  version on a delta slab in both variants), and one node's adjacency
+  key set again with a 3 s TTL and expired by every store's countdown
+  (agents equal after the expiry);
+- the node stack as the daemon composes it (`node_ring`): the
+  reference's 3-node ring (`tests/test_system.py` `RingFixture`) on one
+  `MockIoProvider` and one `InProcessTransport`, each node with
+  KvStore, Spark, LinkMonitor fed link events, a `KvStoreClientInternal`,
+  PrefixManager advertising a loopback, and a card Decision and a
+  host-Dijkstra Decision on the same KvStore updates, each → Fib; it
+  converges, reroutes around a cut link, takes the link back and
+  drains a node, every node's card and host tables equal and as
+  expected after each step; then the ring again with flood
+  optimization on and the reference's SPT (no kernel launches);
 - traffic engineering on the WAN (the reference's `bench.py`
   bench_te_wan100k): `TeOptimizer(engine)`'s soft descent under
   torch.autograd, 512 sources toward 4 destinations, metrics 1..16, 12
@@ -2213,7 +2238,13 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     launches K1's uint16 variant once (none on a delta update that
     re-relaxed no column), and four of its route DBs (only the router's
     own in the dump that re-bases the view before (h)) equal the
-    oracle's `get_route_db(router)`."""
+    oracle's `get_route_db(router)`.
+
+    Returns the record, the card mirror, engine and scipy graph the KSP
+    phase takes, and what `kvstore_decision_wan100k` takes
+    (`KvHandoff`): the cold publication's Values, step (a)'s raised
+    database, and the checked routers' route DBs of the cold dump and
+    of the dump after (a)."""
     import dataclasses
 
     import torch
@@ -2374,12 +2405,15 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
 
     card_solver = card["decision"].spf_solver
 
-    def fleet_dump(what, nodes=routers, oracle_routers=checked):
+    kept_dbs = {}
+
+    def fleet_dump(what, nodes=routers, oracle_routers=checked, keep=None):
         """The card Decision's fleet dump of `nodes`, K1's counts set to 0
         just before it and read just after; the rung that served its view
         (`warm_mode`: None cold, "improve" / "worsen" warm, "delta") is
         recorded.  K1 runs once, except on a delta update that re-relaxed
-        no column (none)."""
+        no column (none).  With `keep`, the route DBs of `oracle_routers`
+        go into `kept_dbs[keep]`."""
         zero_launch_counts()
         d0 = dict(card_solver.counters)
         gc_clock.take()
@@ -2398,6 +2432,8 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
         t0 = time.perf_counter()
         for r in oracle_routers:
             same_route_db(out[r], oracle["decision"].get_route_db(r), f"{what} {r}")
+        if keep is not None:
+            kept_dbs[keep] = {r: out[r] for r in oracle_routers}
         delta = {
             k: card_solver.counters[k] - d0.get(k, 0)
             for k in card_solver.counters
@@ -2421,12 +2457,13 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     try:
         # cold start: one publication of every database
         step = push("cold start", lambda s: s["kvq"].push(publication))
+        cold_values = publication.key_vals
         del publication
         expect(step, "cold start", queries=1, full_restages=1)
         if step["mpls_routes"] < n_advertisers + n_adj_labels:
             raise AssertionError("cold start: node or adjacency label routes missing")
         steps["cold"] = step
-        dumps_rec["cold"] = fleet_dump("fleet dump after the cold start")
+        dumps_rec["cold"] = fleet_dump("fleet dump after the cold start", keep="cold")
 
         # (a) one link's metric raised
         first = db_x.adjacencies[0]
@@ -2447,7 +2484,7 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
         step = push("metric raised", lambda s: s["kvq"].push(pub_a()))
         expect(step, "metric raised", queries=1, incremental_updates=1)
         steps["a_metric_raised"] = {"link": [x, first.other_node_name], **step}
-        dumps_rec["a_metric_raised"] = fleet_dump("fleet dump after (a)")
+        dumps_rec["a_metric_raised"] = fleet_dump("fleet dump after (a)", keep="a")
 
         # (b) one prefix withdrawn by an expired key, (c) advertised again
         node_p, prefix_p = advertisers[n_advertisers // 2], prefixes[n_advertisers // 2]
@@ -2586,7 +2623,634 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     if timer.cuda:
         record["card"] = card_line()
         record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    return record, (wan_csr, engine, graph)
+    handoff = KvHandoff(
+        values=cold_values, router=router, checked=checked, raised=raised,
+        expiring=y, cold_dbs=kept_dbs["cold"], a_dbs=kept_dbs["a"],
+    )
+    return record, (wan_csr, engine, graph), handoff
+
+
+class KvHandoff(NamedTuple):
+    """What `decision_main_path` hands `kvstore_decision_wan100k`: the
+    cold publication's Values (key -> Value), the router and its checked
+    routers, step (a)'s raised adjacency database, the node step (d)
+    expired, and the checked routers' route DBs of the cold fleet dump
+    and of the dump after (a)."""
+
+    values: dict
+    router: str
+    checked: list
+    raised: object
+    expiring: str
+    cold_dbs: dict
+    a_dbs: dict
+
+
+def wait_until(cond, timeout: float, what: str, interval: float = 0.05) -> float:
+    """Poll `cond` until it holds; raise after `timeout` s.  Returns the
+    seconds it took."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not reached within {timeout} s")
+        time.sleep(interval)
+    return time.perf_counter() - t0
+
+
+def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
+                             batch: int = 8192, ttl_ms: int = 3000) -> dict:
+    """This slice's main path at full width: the node's KvStore feeding
+    the card Decision, as the daemon wires it (openr_tpu/main.py:157-262).
+    Three port KvStores on one `InProcessTransport` in a chain, `seed` –
+    `transit` – the router (w000000), flood optimization off; `seed`
+    holds `decision_main_path`'s cold publication (101 024 keys) set in
+    batches before any peering.  The router's `kvstore_updates` queue has
+    two readers: a card `Decision(router, device, fleet_delta=True)` →
+    Fib → MockFibAgent and a `HostSpfBackend` Decision → Fib, the oracle.
+    (1) Cold: `transit` peers `seed`, then the router peers `transit`
+    (each 3-way full sync pulls every key), then the reverse peerings;
+    every store's `dump_hashes` holds the same 101 024 hashes, both
+    agents' tables are equal, and the card Decision's fleet dump of the
+    checked routers launches K1's uint16 variant once and equals
+    `decision_main_path`'s cold dump of them.  (2) Flood: `seed`'s
+    `KvStoreClientInternal` persists step (a)'s raised adjacency database
+    at a higher version; it floods through `transit`; the agents are equal
+    again and a fleet dump (K1 once, or none on a delta update that
+    re-relaxed no column) equals `decision_main_path`'s dump after (a).
+    (3) TTL: `seed` sets one node's adjacency key again at a higher
+    version with a `ttl_ms` of `ttl_ms` and never refreshes it; every
+    store's countdown expires it, and the agents are equal after both
+    Decisions processed the expiry.  Neither Decision counts a rebuild
+    failure.  `handoff.values` is emptied once `seed` holds its keys, and
+    the heap is frozen (`gc.freeze`) once the cold state is built, so the
+    later steps' full collections walk only what they allocate."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.decision.spf_solver import HostSpfBackend
+    from openr_tpu_torch.fib import Fib, MockFibAgent
+    from openr_tpu_torch.kvstore import InProcessTransport, KvStore, KvStoreClientInternal
+    from openr_tpu_torch.runtime.eventbase import OpenrEventBase
+    from openr_tpu_torch.runtime.queue import ReplicateQueue
+    from openr_tpu_torch.serializer import dumps
+    from openr_tpu_torch.types import KvStorePeerState, PeerSpec, Value, adj_key
+
+    t_phase = time.perf_counter()
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    gc_clock = GcClock()
+    router, checked = handoff.router, handoff.checked
+    n_keys = len(handoff.values)
+    n_bytes = sum(len(v.value) for v in handoff.values.values())
+    fabric = InProcessTransport()
+    names = ("seed", "transit", router)
+    stores, updates_of, queues = {}, {}, []
+    sides = {}
+    clock = MethodClock()
+    evb = client = None
+    rec = {"phase": "kvstore_decision_wan100k", "router": router, "keys": n_keys,
+           "value_bytes": n_bytes, "stores": list(names)}
+    try:
+        for name in names:
+            # openr_tpu/main.py:157-184, no peer-updates queue
+            updates, syncs = ReplicateQueue(), ReplicateQueue()
+            queues += [updates, syncs]
+            stores[name] = KvStore(name, updates, syncs, None, transport=fabric.bind(name))
+            updates_of[name] = updates
+            fabric.register(name, stores[name])
+            stores[name].run()
+        for side, kwargs in (
+            ("card", {"device": device, "fleet_delta": True}),
+            ("oracle", {"spf_backend": HostSpfBackend(), "device": device}),
+        ):
+            kv_reader = updates_of[router].get_reader()
+            routeq, fibq = ReplicateQueue(), ReplicateQueue()
+            queues += [routeq, fibq]
+            decision = Decision(router, kv_reader, None, routeq, **kwargs)
+            agent = MockFibAgent()
+            fib = Fib(router, routeq.get_reader(), agent, fib_updates_queue=fibq)
+            sides[side] = dict(
+                decision=decision, agent=agent, fib=fib, programmed=fibq.get_reader()
+            )
+            clock.wrap(decision, "process_publication", f"{side}_parse_ms")
+            clock.wrap(decision, "rebuild_routes", f"{side}_rebuild_ms")
+            clock.wrap(fib, "process_route_updates", f"{side}_fib_ms")
+            fib.run()
+            decision.run()
+        card, oracle = sides["card"], sides["oracle"]
+        engine = card["decision"].spf_solver.engine
+        # the fleet dumps are decision_main_path's: the fused rung
+        engine.blocked.node_shard_threshold = sum(
+            k.startswith("adj:") for k in handoff.values
+        )
+
+        def updates_pushed() -> int:
+            return stores[router].get_counters().get("kvstore.num_updates", 0)
+
+        settled = [0]  # publications the router's store pushed by the last settle
+
+        def quiet() -> bool:
+            """Every publication the router's store pushed since the last
+            settle is parsed by both Decisions, no rebuild is pending and
+            Fib took each rebuild's update (the clock records a call when
+            it returns)."""
+            pushed = updates_pushed() - settled[0]
+            calls = clock.calls
+            return all(
+                len(calls[f"{side}_parse_ms"]) == pushed
+                and s["decision"].pending_event_hint() == 0
+                and len(calls[f"{side}_fib_ms"]) == len(calls[f"{side}_rebuild_ms"])
+                for side, s in sides.items()
+            )
+
+        def settle(what, timeout=900.0):
+            """Wait for both sides to program and go quiet (three polls in a
+            row); hold the agents equal and the rebuild failures at 0.
+            Returns the step's publications and per-call parse, rebuild and
+            Fib ms by side."""
+            t0 = time.perf_counter()
+            stable = 0
+            while stable < 3:
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"{what}: the Decisions did not settle")
+                stable = stable + 1 if quiet() else 0
+                time.sleep(0.05)
+            if agent_tables(card["agent"]) != agent_tables(oracle["agent"]):
+                raise AssertionError(f"{what}: the card's agent tables differ from the oracle's")
+            for side, s in sides.items():
+                n_fail = s["decision"].get_counters()["decision.route_rebuild_failures"]
+                if n_fail:
+                    raise AssertionError(f"{what}: {side} counted {n_fail} rebuild failures")
+            publications = updates_pushed() - settled[0]
+            settled[0] += publications
+            return {
+                "publications": publications,
+                **clock.take(),
+                "unicast_routes": len(agent_tables(card["agent"])[0]),
+            }
+
+        def equal_hashes(what, n_want):
+            t0 = time.perf_counter()
+            hashes = [
+                {k: v.hash for k, v in stores[n].dump_hashes("0").key_vals.items()}
+                for n in names
+            ]
+            if len(hashes[0]) != n_want or any(h != hashes[0] for h in hashes[1:]):
+                raise AssertionError(
+                    f"{what}: stores hold {[len(h) for h in hashes]} keys, want "
+                    f"{n_want} with equal hashes"
+                )
+            return (time.perf_counter() - t0) * 1e3
+
+        def k1_dump(what, want_dbs):
+            """The card Decision's fleet dump of the checked routers, K1's
+            counts set to 0 just before it and read just after, its route
+            DBs against `decision_main_path`'s; K1's inputs kept."""
+            solver = card["decision"].spf_solver
+            slabs = []
+            epilogue = engine.epilogue
+
+            def capturing(d, *rest):
+                out = epilogue(d, *rest)
+                slabs.append((d, rest[:4], rest[4]))
+                return out
+
+            zero_launch_counts()
+            engine.epilogue = capturing
+            gc_clock.take()
+            t0 = time.perf_counter()
+            try:
+                out = card["decision"].get_fleet_route_dbs(nodes=checked)
+                if timer.cuda:
+                    torch.cuda.synchronize()
+            finally:
+                engine.epilogue = epilogue
+            dump_s = time.perf_counter() - t0
+            launches = launch_counts()
+            view = solver.fleet._views[card["decision"].area_link_states["0"]]
+            updater = solver.fleet._delta
+            delta = view.warm_mode == "delta"
+            want = 0 if delta and not updater.last_cols else 1
+            if launches[KERNEL_U16["name"]] != want or sum(launches.values()) != want:
+                raise AssertionError(f"{what}: fleet dump launched {launches}")
+            for r in checked:
+                same_route_db(out[r], want_dbs[r], f"{what} {r}")
+            record = {
+                "dump_s": dump_s, "gc_ms": gc_clock.take(), "launches": launches,
+                "rung": view.warm_mode,
+                "affected_cols": updater.last_cols if delta else None,
+                "checked_routers": checked,
+                "k1_shape": list(slabs[-1][0].shape) if slabs else None,
+            }
+            return record, (slabs[-1], view) if slabs and delta else None
+
+        # seed holds every key before any peering, set in batches
+        items = list(handoff.values.items())
+        gc_clock.take()
+        t0 = time.perf_counter()
+        for i in range(0, len(items), batch):
+            stores["seed"].set_key_vals("0", dict(items[i:i + batch]))
+        rec["seed_set_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["seed_set_gc_ms"] = gc_clock.take()
+        # the stores hold copies; the handed-on Values leave the heap
+        del items
+        handoff.values.clear()
+
+        # (1) cold: two full syncs down the chain, then the reverse peerings
+        def peer(a, b):
+            t0 = time.perf_counter()
+            stores[a].add_peers("0", {b: PeerSpec(peer_addr=b)})
+            wait_until(
+                lambda: stores[a].get_peer_state("0", b) == KvStorePeerState.INITIALIZED,
+                600, f"{a} syncing from {b}",
+            )
+            return (time.perf_counter() - t0) * 1e3
+
+        t_cold = time.perf_counter()
+        sync_ms = {}
+        for a, b in (("transit", "seed"), ("seed", "transit"),
+                     (router, "transit"), ("transit", router)):
+            sync_ms[f"{a}<-{b}"] = peer(a, b)
+        step = settle("cold")
+        step["wall_s"] = time.perf_counter() - t_cold
+        step["full_sync_ms"] = sync_ms
+        step["hash_check_ms"] = equal_hashes("cold", n_keys)
+        step["gc_ms"] = gc_clock.take()
+        rec["cold"] = step
+        gc.freeze()
+        rec["gc_frozen_objects"] = gc.get_freeze_count()
+        k1_total = 0
+        rec["cold_dump"], _ = k1_dump("fleet dump after the cold sync", handoff.cold_dbs)
+        k1_total += rec["cold_dump"]["launches"][KERNEL_U16["name"]]
+
+        # (2) flood: seed's client persists step (a)'s database
+        evb = OpenrEventBase(name="seed-client")
+        evb.run()
+        x = handoff.raised.this_node_name
+        client = KvStoreClientInternal(evb, x, stores["seed"], updates_of["seed"].get_reader())
+        raised = dataclasses.replace(handoff.raised, perf_events=None)
+        before = {s: sides[s]["programmed"].size() for s in sides}
+        t0 = time.perf_counter()
+        client.persist_key("0", adj_key(x), dumps(raised))
+        programmed_ms = {}
+        for side, s in sides.items():
+            wait_until(lambda s=s, side=side: s["programmed"].size() > before[side],
+                       600, f"flood programmed ({side})", interval=0.005)
+            programmed_ms[side] = (time.perf_counter() - t0) * 1e3
+        step = settle("flood")
+        step["persist_to_programmed_ms"] = programmed_ms
+        version = stores[router].get_key_vals("0", [adj_key(x)]).key_vals[adj_key(x)].version
+        step["version"] = version
+        step["hash_check_ms"] = equal_hashes("flood", n_keys)
+        step["gc_ms"] = gc_clock.take()
+        rec["flood"] = {"node": x, **step}
+        rec["flood_dump"], slab = k1_dump("fleet dump after the flood", handoff.a_dbs)
+        k1_total += rec["flood_dump"]["launches"][KERNEL_U16["name"]]
+        if slab is not None:
+            (d, groups, n_words), view = slab
+            rec["flood_dump"]["k1_slab"] = slab_pair_records(
+                d, groups, n_words, view._runner, view._out, timer, "flood dump slab"
+            )
+
+        # (3) TTL: one node's adjacency key at a higher version with a TTL
+        y = handoff.expiring
+        cur = stores["seed"].get_key_vals("0", [adj_key(y)]).key_vals[adj_key(y)]
+        mortal = Value(version=cur.version + 1, originator_id=cur.originator_id,
+                       value=cur.value, ttl_ms=ttl_ms)
+        t0 = time.perf_counter()
+        stores["seed"].set_key_vals("0", {adj_key(y): mortal})
+        wait_until(
+            lambda: all(
+                (v := stores[n].get_key_vals("0", [adj_key(y)]).key_vals.get(adj_key(y)))
+                is not None and v.version == mortal.version for n in names
+            ),
+            60, "the mortal key's flood",
+        )
+        flooded_ms = (time.perf_counter() - t0) * 1e3
+        expired_s = wait_until(
+            lambda: all(not stores[n].get_key_vals("0", [adj_key(y)]).key_vals for n in names),
+            60 + ttl_ms / 1e3, "the mortal key's expiry",
+        ) + flooded_ms / 1e3
+        step = settle("ttl expiry")
+        step["set_to_flooded_ms"] = flooded_ms
+        step["set_to_expired_s"] = expired_s
+        step["hash_check_ms"] = equal_hashes("ttl expiry", n_keys - 1)
+        step["gc_ms"] = gc_clock.take()
+        rec["ttl_expiry"] = {"node": y, "ttl_ms": ttl_ms, **step}
+
+        rec["kvstore_counters"] = {n: stores[n].get_counters() for n in names}
+        for n in names:
+            if not rec["kvstore_counters"][n].get("kvstore.expired_key_vals"):
+                raise AssertionError(f"ttl expiry: {n}'s countdown expired nothing")
+        rec["decision_counters"] = card["decision"].get_counters()
+        rec["k1_launches"] = k1_total
+    finally:
+        if client is not None:
+            client.stop()
+        for q in queues:
+            q.close()
+        for s in sides.values():
+            s["decision"].stop()
+            s["fib"].stop()
+        clock.close()
+        if evb is not None:
+            evb.stop()
+        for store in stores.values():
+            store.stop()
+        gc_clock.close()
+        gc.unfreeze()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    if timer.cuda:
+        rec["card"] = card_line()
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return rec
+
+
+# tests/test_system.py's FAST_SPARK
+FAST_SPARK = dict(hello_time_s=0.3, fastinit_hello_time_s=0.02, keepalive_time_s=0.05,
+                  hold_time_s=0.5, graceful_restart_time_s=1.0)
+
+
+class RingNode:
+    """One node's control plane as openr_tpu/main.py:114-356 wires it:
+    KvStore, Spark on `spark_fabric`, LinkMonitor fed netlink events, a
+    `KvStoreClientInternal` on LinkMonitor's event base, PrefixManager,
+    and two readers of `kvstore_updates`: a card Decision → Fib →
+    MockFibAgent and a host-Dijkstra Decision → Fib."""
+
+    def __init__(self, name, spark_fabric, kv_fabric, device, flood_optimization):
+        from openr_tpu_torch.decision.decision import Decision
+        from openr_tpu_torch.decision.spf_solver import HostSpfBackend
+        from openr_tpu_torch.fib import Fib, MockFibAgent
+        from openr_tpu_torch.kvstore import KvStore
+        from openr_tpu_torch.link_monitor import LinkMonitor
+        from openr_tpu_torch.runtime.queue import ReplicateQueue
+        from openr_tpu_torch.spark import AreaConfig, Spark, SparkConfig
+
+        self.name = name
+        (self.kvstore_updates, self.kvstore_sync_events, self.interface_updates,
+         self.neighbor_updates, self.peer_updates, self.prefix_updates,
+         self.netlink_events) = self.queues = [ReplicateQueue() for _ in range(7)]
+        addr = f"fe80::{name}"
+        self.kvstore = KvStore(
+            name, self.kvstore_updates, self.kvstore_sync_events,
+            self.peer_updates.get_reader(), transport=kv_fabric.bind(addr),
+            enable_flood_optimization=flood_optimization, is_flood_root=True,
+        )
+        kv_fabric.register(addr, self.kvstore)
+        self.spark = Spark(
+            name, self.interface_updates.get_reader(), self.neighbor_updates,
+            spark_fabric.endpoint(name), config=SparkConfig(**FAST_SPARK),
+            areas=[AreaConfig()], ctrl_port=0, v6_addr=addr,
+        )
+        self.link_monitor = LinkMonitor(
+            name,
+            interface_updates_queue=self.interface_updates,
+            peer_updates_queue=self.peer_updates,
+            prefix_updates_queue=self.prefix_updates,
+            neighbor_updates=self.neighbor_updates.get_reader(),
+            kvstore_sync_events=self.kvstore_sync_events.get_reader(),
+            netlink_events=self.netlink_events.get_reader(),
+        )
+        self.sides = {}
+        for side, kwargs in (
+            ("card", {"device": device, "fleet_delta": True}),
+            ("host", {"spf_backend": HostSpfBackend(), "device": device}),
+        ):
+            routeq = ReplicateQueue()
+            self.queues.append(routeq)
+            agent = MockFibAgent()
+            self.sides[side] = dict(
+                routeq=routeq, agent=agent,
+                decision=Decision(
+                    name, self.kvstore_updates.get_reader(), None, routeq,
+                    debounce_min_s=0.005, debounce_max_s=0.02, **kwargs,
+                ),
+                fib=Fib(name, routeq.get_reader(), agent),
+            )
+        self.client = self.prefix_manager = None
+
+    def start(self) -> None:
+        from openr_tpu_torch.kvstore import KvStoreClientInternal
+        from openr_tpu_torch.prefix_manager import PrefixManager
+
+        for module in (self.kvstore, self.spark, self.link_monitor):
+            module.run()
+        # the client lives on the link monitor's event base (main.py:271)
+        self.client = KvStoreClientInternal(
+            self.link_monitor, self.name, self.kvstore, self.kvstore_updates.get_reader()
+        )
+        self.link_monitor.kvstore_client = self.client
+        self.prefix_manager = PrefixManager(
+            self.name, self.client, prefix_updates=self.prefix_updates.get_reader(),
+            route_updates=self.sides["card"]["routeq"].get_reader(), areas=("0",),
+        )
+        self.prefix_manager.run()
+        for s in self.sides.values():
+            s["decision"].run()
+            s["fib"].run()
+
+    def table(self, side: str) -> dict:
+        """prefix -> sorted next-hop neighbors programmed by `side`."""
+        return {
+            dest: sorted(nh.neighbor_node_name for nh in r.next_hops)
+            for dest, r in agent_tables(self.sides[side]["agent"])[0].items()
+        }
+
+    def stop(self) -> None:
+        for q in self.queues:
+            q.close()
+        if self.client is not None:
+            self.client.stop()
+        modules = [m for s in self.sides.values() for m in (s["fib"], s["decision"])]
+        modules += [self.prefix_manager, self.link_monitor, self.spark, self.kvstore]
+        for module in modules:
+            if module is not None:
+                module.stop()
+
+
+class NodeRing:
+    """The reference's RingFixture (tests/test_system.py:71-108) without
+    the daemon: `n` RingNodes on one MockIoProvider and one
+    InProcessTransport, ring links on the fabric and a LinkEvent per ring
+    interface."""
+
+    def __init__(self, device, n: int, flood_optimization: bool) -> None:
+        from openr_tpu_torch.kvstore import InProcessTransport
+        from openr_tpu_torch.spark import MockIoProvider
+        from openr_tpu_torch.types import LinkEvent
+
+        self.n = n
+        self.spark_fabric = MockIoProvider()
+        kv_fabric = InProcessTransport()
+        self.nodes = [
+            RingNode(f"openr-{i}", self.spark_fabric, kv_fabric, device, flood_optimization)
+            for i in range(n)
+        ]
+        self.links = {frozenset((i, (i + 1) % n)) for i in range(n)}
+        self.drained: set[int] = set()
+        self.t_start = time.perf_counter()
+        for node in self.nodes:
+            node.start()
+        for i in range(n):
+            self.set_link(i, (i + 1) % n, True)
+        for i in range(n):
+            j, k = (i + 1) % n, (i - 1) % n
+            self.nodes[i].netlink_events.push(LinkEvent(f"if-{i}-{j}", 1, True))
+            self.nodes[i].netlink_events.push(LinkEvent(f"if-{i}-{k}", 2, True))
+
+    def set_link(self, i: int, j: int, up: bool) -> None:
+        args = (f"openr-{i}", f"if-{i}-{j}", f"openr-{j}", f"if-{j}-{i}")
+        if up:
+            self.spark_fabric.connect(*args)
+            self.links.add(frozenset((i, j)))
+        else:
+            self.spark_fabric.disconnect(*args)
+            self.links.discard(frozenset((i, j)))
+
+    def spark_converged(self) -> bool:
+        from openr_tpu_torch.spark import SparkNeighState
+
+        return all(
+            self.nodes[i].spark.get_neigh_state(f"if-{i}-{j}", f"openr-{j}")
+            == SparkNeighState.ESTABLISHED
+            for link in self.links for i, j in (sorted(link), sorted(link)[::-1])
+        )
+
+    def expected(self, i: int) -> dict:
+        """Node i's table: every other loopback through the first hops of
+        its shortest paths over the live links (unit metrics), with no
+        transit through a drained node."""
+        from openr_tpu_torch.types import normalize_prefix
+
+        dist, first, frontier = {i: 0}, {i: set()}, [i]
+        while frontier:
+            nxt = []
+            for u in frontier:
+                if u != i and u in self.drained:
+                    continue
+                for link in self.links:
+                    if u not in link:
+                        continue
+                    (v,) = link - {u}
+                    hops = {v} if u == i else first[u]
+                    if v not in dist:
+                        dist[v], first[v] = dist[u] + 1, set(hops)
+                        nxt.append(v)
+                    elif dist[v] == dist[u] + 1:
+                        first[v] |= hops
+            frontier = nxt
+        return {
+            normalize_prefix(f"fc00:{j}::/64"): sorted(f"openr-{h}" for h in first[j])
+            for j in dist if j != i
+        }
+
+    def programmed(self) -> bool:
+        """Every node's card table is the expected one and its host
+        Decision's agent holds the same tables, element for element."""
+        return all(
+            node.table("card") == self.expected(i)
+            and agent_tables(node.sides["card"]["agent"])
+            == agent_tables(node.sides["host"]["agent"])
+            for i, node in enumerate(self.nodes)
+        )
+
+    def step(self, what: str, act) -> dict:
+        t0 = time.perf_counter()
+        act()
+        s = wait_until(self.programmed, 120, what, interval=0.02)
+        for node in self.nodes:
+            for side, d in node.sides.items():
+                if d["decision"].get_counters()["decision.route_rebuild_failures"]:
+                    raise AssertionError(f"{what}: {node.name} {side} counted a rebuild failure")
+        return {"s_to_programmed": s, "act_s": time.perf_counter() - t0 - s}
+
+    def stop(self) -> None:
+        for node in self.nodes:
+            node.stop()
+
+
+def node_ring(device, n: int = 3) -> dict:
+    """The node stack as the daemon composes it, on the card: the
+    reference's 3-node ring (`RingFixture`) of RingNodes, each with a card
+    Decision and a host-Dijkstra Decision on the same KvStore updates.
+    The reference's three checks (tests/test_system.py:125-181): every
+    node's loopback programmed everywhere, the 0-1 link cut (a reroute
+    over node 2), then restored, and node 0 drained; after each step every
+    node's card table is the expected one and equals its host Decision's.
+    Then a ring with flood optimization on converges, and its SPT is the
+    one tests/test_system.py:207-231 asserts (root openr-0, 4 directed
+    flood slots).  Per step the seconds to programmed; Spark convergence;
+    adjacencies and keys per node.  No kernel is launched (per-source
+    route builds on a 3-node graph)."""
+    from openr_tpu_torch.types import PrefixEntry, PrefixType
+
+    t_phase = time.perf_counter()
+    zero_launch_counts()
+    rec = {"phase": "node_ring", "nodes": n}
+    for mode, flood_opt in (("full_mesh", False), ("spt", True)):
+        ring = NodeRing(device, n, flood_opt)
+        try:
+            wait_until(ring.spark_converged, 60, "spark")
+            steps = {"spark_converged_s": time.perf_counter() - ring.t_start}
+            steps["converged"] = ring.step("convergence", lambda: [
+                node.prefix_manager.advertise_prefixes(
+                    PrefixType.LOOPBACK, [PrefixEntry(prefix=f"fc00:{i}::/64")])
+                for i, node in enumerate(ring.nodes)
+            ])
+            steps["per_node"] = {
+                node.name: {
+                    "adjacencies": len(node.link_monitor.get_adjacencies("0").adjacencies),
+                    "keys": len(node.kvstore.dump_all("0").key_vals),
+                }
+                for node in ring.nodes
+            }
+            if flood_opt:
+                def spt_done():
+                    topo = [node.kvstore.get_flood_topo("0") for node in ring.nodes]
+                    return all(
+                        t.flood_root_id == "openr-0"
+                        and (i == 0 or t.infos["openr-0"].parent is not None)
+                        for i, t in enumerate(topo)
+                    ) and sum(len(t.flood_peers) for t in topo) == 2 * (n - 1)
+
+                steps["spt_s"] = wait_until(spt_done, 60, "spt")
+                steps["flood_peers"] = {
+                    node.name: node.kvstore.get_flood_topo("0").flood_peers
+                    for node in ring.nodes
+                }
+            else:
+                steps["link_failed"] = ring.step("link failure", lambda: ring.set_link(0, 1, False))
+                steps["link_restored"] = ring.step("link restored", lambda: ring.set_link(0, 1, True))
+
+                def drain():
+                    from openr_tpu_torch.serializer import loads
+
+                    ring.nodes[0].link_monitor.set_node_overload(True)
+                    ring.drained.add(0)
+
+                    def flooded():
+                        vals = [node.kvstore.get_key_vals("0", ["adj:openr-0"]).key_vals
+                                for node in ring.nodes]
+                        return all(loads(v["adj:openr-0"].value).is_overloaded for v in vals)
+
+                    # every store holds the drained database before the
+                    # tables are read
+                    wait_until(flooded, 60, "the drain's flood")
+
+                steps["drained"] = ring.step("drain", drain)
+            rec[mode] = steps
+        finally:
+            ring.stop()
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"node_ring launched {launches}")
+    rec["kernel_launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
 
 
 def spf_reconverge_fabric96(device, pods, timer, n_prefixes=128,
@@ -4579,7 +5243,7 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
             {"path": path, **recs[variant]} for path, recs in te_exact
         ]
     del inp
-    record, (wan_csr, wan_engine, wan_graph) = decision_main_path(
+    record, (wan_csr, wan_engine, wan_graph), handoff = decision_main_path(
         device, timer, n_nodes, n_advertisers, n_routers, n_checked
     )
     emit(record)
@@ -4588,6 +5252,15 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     record["kernel_launches"] = launch_counts()
     emit(record)
     del wan_csr, wan_engine, wan_graph
+    # this slice's main path: the KvStore chain feeding the card Decision
+    # the cold publication decision_main_path built
+    record = kvstore_decision_wan100k(device, timer, handoff)
+    del handoff
+    emit(record)
+    paths["kvstore_decision_wan100k"] = record["k1_launches"]
+    for variant, rec in record["flood_dump"].get("k1_slab", {}).items():
+        k1_records[variant]["kvstore_flood_slab"] = rec
+    emit(node_ring(device))
     zero_launch_counts()
     record = srlg_whatif_grid1024(device, timer)
     record["kernel_launches"] = launch_counts()

@@ -1,11 +1,11 @@
-"""Wire types of the Decision → Fib path.
+"""Wire types of the node.
 
-Port of the part of `openr_tpu.types` that KvStore publications,
-Decision, the route build and Fib carry (reference: openr/if/Types.thrift,
+Port of `openr_tpu.types` (reference: openr/if/Types.thrift,
 openr/if/Network.thrift), as slotted dataclasses with the reference's
 field names, order and defaults, so `serializer.dumps` gives the same
-bytes in both packages.  The Spark, KvStore-peer and DUAL messages are
-not here yet.
+bytes in both packages: all 43 of the reference's wire classes, from
+the route types to the KvStore-peer, Spark, interface and DUAL
+messages.
 """
 
 from __future__ import annotations
@@ -206,6 +206,161 @@ class Publication:
     flood_root_id: Optional[str] = None
 
 
+class KvStorePeerState(enum.IntEnum):
+    """Reference: openr/kvstore/KvStore.h:278 peer FSM."""
+
+    IDLE = 0
+    SYNCING = 1
+    INITIALIZED = 2
+
+
+@dataclass(slots=True)
+class PeerSpec:
+    peer_addr: str = ""
+    ctrl_port: int = 0
+    state: KvStorePeerState = KvStorePeerState.IDLE
+
+
+@dataclass(slots=True)
+class PeerEvent:
+    area: str = "0"
+    peers_to_add: dict[str, PeerSpec] = field(default_factory=dict)
+    peers_to_del: list[str] = field(default_factory=list)
+
+
+@dataclass(slots=True)
+class KvStoreSyncEvent:
+    node_name: str
+    area: str
+
+
+# -- Spark (reference: openr/if/Types.thrift:1276-1384) ---------------------
+
+
+@dataclass(slots=True)
+class SparkHelloMsg:
+    domain_name: str
+    node_name: str
+    if_name: str
+    seq_num: int
+    # NOTE: no quotes around the value type — `from __future__ import
+    # annotations` already defers evaluation, and an INNER string literal
+    # would survive typing.get_type_hints as a plain str, which the wire
+    # deserializer cannot resolve to the dataclass
+    neighbor_infos: dict[str, ReflectedNeighborInfo] = field(default_factory=dict)
+    version: int = 1
+    solicit_response: bool = False
+    restarting: bool = False
+    sent_ts_us: int = 0
+
+
+@dataclass(slots=True)
+class ReflectedNeighborInfo:
+    last_nbr_msg_sent_ts_us: int = 0
+    last_my_msg_rcvd_ts_us: int = 0
+
+
+@dataclass(slots=True)
+class SparkHandshakeMsg:
+    node_name: str
+    is_adjacency_established: bool
+    hold_time_ms: int
+    gr_hold_time_ms: int
+    transport_addr_v6: str
+    transport_addr_v4: str
+    openr_ctrl_port: int
+    kvstore_cmd_port: int = 0
+    area: str = "0"
+    neighbor_node_name: Optional[str] = None
+
+
+@dataclass(slots=True)
+class SparkHeartbeatMsg:
+    node_name: str
+    seq_num: int
+    hold_time_ms: int = 0
+
+
+@dataclass(slots=True)
+class SparkPacket:
+    """One-of wrapper for the three Spark messages (reference:
+    thrift::SparkPacket — exactly one member populated at a time)."""
+
+    hello: Optional[SparkHelloMsg] = None
+    handshake: Optional[SparkHandshakeMsg] = None
+    heartbeat: Optional[SparkHeartbeatMsg] = None
+    version: int = 1
+
+
+class NeighborEventType(enum.IntEnum):
+    NEIGHBOR_UP = 1
+    NEIGHBOR_DOWN = 2
+    NEIGHBOR_RESTARTED = 3
+    NEIGHBOR_RTT_CHANGE = 4
+    NEIGHBOR_RESTARTING = 5
+    NEIGHBOR_ADJ_SYNCED = 6
+
+
+@dataclass(slots=True)
+class NeighborEvent:
+    event_type: NeighborEventType
+    node_name: str
+    if_name: str
+    remote_if_name: str = ""
+    area: str = "0"
+    neighbor_addr_v6: str = ""
+    neighbor_addr_v4: str = ""
+    ctrl_port: int = 0
+    rtt_us: int = 0
+    kvstore_port: int = 0
+    adj_only_used_by_other_node: bool = False
+
+
+# -- interfaces (reference: openr/if/Types.thrift:1100-1150) ----------------
+
+
+@dataclass(slots=True)
+class InterfaceInfo:
+    if_name: str
+    is_up: bool
+    if_index: int
+    networks: list[str] = field(default_factory=list)
+
+
+@dataclass(slots=True)
+class InterfaceDatabase:
+    this_node_name: str
+    interfaces: dict[str, InterfaceInfo] = field(default_factory=dict)
+
+
+# -- netlink events, LinkMonitor's input (reference: openr/nl/NetlinkTypes.h)
+
+
+@dataclass(slots=True)
+class LinkEvent:
+    if_name: str
+    if_index: int
+    is_up: bool
+
+
+@dataclass(slots=True)
+class AddrEvent:
+    if_name: str
+    prefix: str  # CIDR
+    is_valid: bool  # False == address removed
+
+
+@dataclass(slots=True)
+class PrefixUpdateRequest:
+    """Advertise/withdraw origination requests into PrefixManager
+    (reference: PrefixUpdateRequest via prefixUpdatesQueue)."""
+
+    prefixes_to_add: list[PrefixEntry] = field(default_factory=list)
+    prefixes_to_del: list[str] = field(default_factory=list)
+    type: Optional[PrefixType] = None  # origination source
+    dst_areas: tuple[str, ...] = ()
+
+
 # -- routes (reference: openr/if/Network.thrift:66-160) ---------------------
 
 
@@ -304,3 +459,64 @@ def adj_key(node: str) -> str:
 ADJ_MARKER = "adj:"
 PREFIX_MARKER = "prefix:"
 TTL_INFINITY = -1
+
+
+# -- DUAL flood-topology wire types (reference: openr/if/Types.thrift:461-846)
+
+
+class DualMessageType(enum.IntEnum):
+    """Reference: thrift::DualMessageType (Types.thrift:461-468)."""
+
+    UPDATE = 1
+    QUERY = 2
+    REPLY = 3
+
+
+@dataclass(slots=True)
+class DualMessage:
+    """One DUAL protocol message for a given root
+    (reference: thrift::DualMessage, Types.thrift:470-485)."""
+
+    dst_id: str = ""  # root id this message is about
+    distance: int = 0  # sender's report distance (INT64_MAX = infinity)
+    type: DualMessageType = DualMessageType.UPDATE
+
+
+@dataclass(slots=True)
+class DualMessages:
+    """Batch of DUAL messages from one neighbor
+    (reference: thrift::DualMessages, Types.thrift:490-500)."""
+
+    src_id: str = ""
+    messages: list[DualMessage] = field(default_factory=list)
+
+
+@dataclass(slots=True)
+class FloodTopoSetParams:
+    """Set/unset myself as a child of a peer's SPT
+    (reference: thrift::FloodTopoSetParams, Types.thrift:787-805)."""
+
+    root_id: str = ""
+    src_id: str = ""
+    set_child: bool = False
+    all_roots: Optional[bool] = None
+
+
+@dataclass(slots=True)
+class SptInfo:
+    """Per-root SPT view (reference: thrift::SptInfo, Types.thrift:819-835)."""
+
+    passive: bool = False
+    cost: int = 0
+    parent: Optional[str] = None
+    children: list[str] = field(default_factory=list)
+
+
+@dataclass(slots=True)
+class SptInfos:
+    """FLOOD_TOPO_GET response
+    (reference: thrift::SptInfos, Types.thrift:838-860)."""
+
+    infos: dict[str, SptInfo] = field(default_factory=dict)
+    flood_root_id: Optional[str] = None
+    flood_peers: list[str] = field(default_factory=list)

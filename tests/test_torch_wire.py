@@ -5,12 +5,14 @@ among them a PrefixEntry with a metric vector (`mv`) and an
 AdjacencyDatabase with perf events: the port's `dumps` gives the
 reference's bytes for the counterpart object, and each package's
 `loads` reads the other's bytes into equal fields.  Also the KvStore key
-helpers, PerfEvents, and the RPC encoding (`to_wire` / `from_wire`).
+helpers, PerfEvents, the RPC encoding (`to_wire` / `from_wire`), and
+`torch_parity.to_ref` on the dataclasses of the node's modules.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 import pytest
@@ -200,7 +202,193 @@ def _policy(rng):
     )
 
 
+def _peer_spec(rng):
+    return pt.PeerSpec(
+        peer_addr=f"fe80::{int(rng.integers(1, 1 << 16)):x}",
+        ctrl_port=int(rng.integers(0, 1 << 16)),
+        state=pt.KvStorePeerState(int(rng.integers(0, 3))),
+    )
+
+
+def _peer_event(rng):
+    return pt.PeerEvent(
+        area=str(int(rng.integers(0, 3))),
+        peers_to_add={_name(rng): _peer_spec(rng) for _ in range(2)},
+        peers_to_del=[_name(rng)],
+    )
+
+
+def _sync_event(rng):
+    return pt.KvStoreSyncEvent(_name(rng), str(int(rng.integers(0, 3))))
+
+
+def _reflected(rng):
+    return pt.ReflectedNeighborInfo(
+        last_nbr_msg_sent_ts_us=int(rng.integers(0, 1 << 50)),
+        last_my_msg_rcvd_ts_us=int(rng.integers(0, 1 << 50)),
+    )
+
+
+def _hello(rng):
+    return pt.SparkHelloMsg(
+        domain_name="openr",
+        node_name=_name(rng),
+        if_name=_name(rng, "if"),
+        seq_num=int(rng.integers(0, 1 << 31)),
+        neighbor_infos={_name(rng): _reflected(rng) for _ in range(2)},
+        version=int(rng.integers(1, 3)),
+        solicit_response=bool(rng.integers(0, 2)),
+        restarting=bool(rng.integers(0, 2)),
+        sent_ts_us=int(rng.integers(0, 1 << 50)),
+    )
+
+
+def _handshake(rng):
+    return pt.SparkHandshakeMsg(
+        node_name=_name(rng),
+        is_adjacency_established=bool(rng.integers(0, 2)),
+        hold_time_ms=int(rng.integers(0, 10_000)),
+        gr_hold_time_ms=int(rng.integers(0, 30_000)),
+        transport_addr_v6=f"fe80::{int(rng.integers(1, 1 << 16)):x}",
+        transport_addr_v4=f"10.0.0.{int(rng.integers(1, 255))}",
+        openr_ctrl_port=int(rng.integers(0, 1 << 16)),
+        kvstore_cmd_port=int(rng.integers(0, 1 << 16)),
+        area=str(int(rng.integers(0, 3))),
+        neighbor_node_name=_name(rng) if rng.integers(0, 2) else None,
+    )
+
+
+def _heartbeat(rng):
+    return pt.SparkHeartbeatMsg(
+        _name(rng), int(rng.integers(0, 1 << 31)), int(rng.integers(0, 10_000))
+    )
+
+
+def _spark_packet(rng):
+    kind = int(rng.integers(0, 3))
+    return pt.SparkPacket(
+        hello=_hello(rng) if kind == 0 else None,
+        handshake=_handshake(rng) if kind == 1 else None,
+        heartbeat=_heartbeat(rng) if kind == 2 else None,
+    )
+
+
+def _neighbor_event(rng):
+    return pt.NeighborEvent(
+        event_type=pt.NeighborEventType(int(rng.integers(1, 7))),
+        node_name=_name(rng),
+        if_name=_name(rng, "if"),
+        remote_if_name=_name(rng, "if"),
+        area=str(int(rng.integers(0, 3))),
+        neighbor_addr_v6=f"fe80::{int(rng.integers(1, 1 << 16)):x}",
+        neighbor_addr_v4=f"10.0.0.{int(rng.integers(1, 255))}",
+        ctrl_port=int(rng.integers(0, 1 << 16)),
+        rtt_us=int(rng.integers(0, 100_000)),
+        kvstore_port=int(rng.integers(0, 1 << 16)),
+        adj_only_used_by_other_node=bool(rng.integers(0, 2)),
+    )
+
+
+def _interface_info(rng):
+    return pt.InterfaceInfo(
+        if_name=_name(rng, "if"),
+        is_up=bool(rng.integers(0, 2)),
+        if_index=int(rng.integers(1, 100)),
+        networks=[f"fc00:{int(rng.integers(0, 1 << 16)):x}::1/128"],
+    )
+
+
+def _interface_db(rng):
+    infos = [_interface_info(rng) for _ in range(3)]
+    return pt.InterfaceDatabase(_name(rng), {i.if_name: i for i in infos})
+
+
+def _link_event(rng):
+    return pt.LinkEvent(
+        _name(rng, "if"), int(rng.integers(1, 100)), bool(rng.integers(0, 2))
+    )
+
+
+def _addr_event(rng):
+    return pt.AddrEvent(
+        _name(rng, "if"),
+        f"fc00:{int(rng.integers(0, 1 << 16)):x}::1/128",
+        bool(rng.integers(0, 2)),
+    )
+
+
+def _prefix_update_request(rng):
+    return pt.PrefixUpdateRequest(
+        prefixes_to_add=[_prefix_entry(rng)],
+        prefixes_to_del=[f"fd00:{int(rng.integers(0, 1 << 16)):x}::/64"],
+        type=pt.PrefixType(int(rng.integers(1, 9))),
+        dst_areas=(str(int(rng.integers(0, 3))),),
+    )
+
+
+def _dual_message(rng):
+    return pt.DualMessage(
+        dst_id=_name(rng),
+        distance=int(rng.choice([int(rng.integers(0, 100)), (1 << 63) - 1])),
+        type=pt.DualMessageType(int(rng.integers(1, 4))),
+    )
+
+
+def _dual_messages(rng):
+    return pt.DualMessages(_name(rng), [_dual_message(rng) for _ in range(3)])
+
+
+def _topo_set(rng):
+    return pt.FloodTopoSetParams(
+        root_id=_name(rng),
+        src_id=_name(rng),
+        set_child=bool(rng.integers(0, 2)),
+        all_roots=[None, False, True][int(rng.integers(0, 3))],
+    )
+
+
+def _spt_info(rng):
+    return pt.SptInfo(
+        passive=bool(rng.integers(0, 2)),
+        cost=int(rng.integers(0, 100)),
+        parent=_name(rng) if rng.integers(0, 2) else None,
+        children=[_name(rng) for _ in range(2)],
+    )
+
+
+def _spt_infos(rng):
+    return pt.SptInfos(
+        infos={_name(rng): _spt_info(rng) for _ in range(2)},
+        flood_root_id=_name(rng),
+        flood_peers=[_name(rng)],
+    )
+
+
 MAKERS = {
+    # the KvStore-peer, Spark, interface, netlink, PrefixManager and DUAL
+    # messages; an enum goes through the message that carries it
+    "DualMessage": _dual_message,
+    "DualMessageType": _dual_message,
+    "DualMessages": _dual_messages,
+    "FloodTopoSetParams": _topo_set,
+    "KvStorePeerState": _peer_spec,
+    "KvStoreSyncEvent": _sync_event,
+    "PeerSpec": _peer_spec,
+    "SptInfo": _spt_info,
+    "SptInfos": _spt_infos,
+    "SparkHelloMsg": _hello,
+    "SparkHeartbeatMsg": _heartbeat,
+    "SparkHandshakeMsg": _handshake,
+    "SparkPacket": _spark_packet,
+    "ReflectedNeighborInfo": _reflected,
+    "NeighborEvent": _neighbor_event,
+    "NeighborEventType": _neighbor_event,
+    "InterfaceDatabase": _interface_db,
+    "InterfaceInfo": _interface_info,
+    "LinkEvent": _link_event,
+    "AddrEvent": _addr_event,
+    "PeerEvent": _peer_event,
+    "PrefixUpdateRequest": _prefix_update_request,
     "PerfEvents": _perf_events,
     "Adjacency": _adjacency,
     "AdjacencyDatabase": _adj_db,
@@ -241,7 +429,9 @@ def test_field_order_and_defaults_match_reference():
     ported = [
         name for name in dir(pt) if dataclasses.is_dataclass(getattr(pt, name))
     ]
-    assert len(ported) == 16
+    assert len(ported) == len(
+        [name for name in dir(jt) if dataclasses.is_dataclass(getattr(jt, name))]
+    )
     for name in ported:
         mine = dataclasses.fields(getattr(pt, name))
         ref = dataclasses.fields(getattr(jt, name))
@@ -307,3 +497,55 @@ def test_rpc_wire_encoding_equals_reference():
     ref_payload = {k: to_ref(v) for k, v in payload.items()}
     assert pser.to_wire(payload) == jser.to_wire(ref_payload)
     assert pser.from_wire(jser.to_wire(ref_payload)) == payload
+
+
+def _plain(obj):
+    """Fields as plain values (enums by value), for comparing a port
+    object with its openr_tpu counterpart."""
+    import enum
+
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if dataclasses.is_dataclass(obj):
+        return (type(obj).__name__, {f.name: _plain(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return type(obj)(_plain(v) for v in obj)
+    return obj
+
+
+def _node_dataclasses():
+    from openr_tpu_torch.kvstore import dual, kvstore
+    from openr_tpu_torch.link_monitor import link_monitor as lm
+    from openr_tpu_torch.prefix_manager import prefix_manager as pm
+    from openr_tpu_torch.spark import spark
+
+    rng = np.random.default_rng(3)
+    value = _value(rng)
+    return {
+        "KeyDumpParams": kvstore.KeyDumpParams(["adj:"], ["n1"], {"adj:n1": value}),
+        "KeySetParams": kvstore.KeySetParams({"adj:n1": value}, ["n1", "n2"], "n0", 17),
+        "TtlCountdownEntry": kvstore.TtlCountdownEntry(1.5, "adj:n1", 3, 2, "n1"),
+        "NeighborInfo": dual.NeighborInfo(7, True, False),
+        "DualPerRootCounters": dual.DualPerRootCounters(*range(8)),
+        "AreaConfig": spark.AreaConfig("7", ["if.*"], ["n1"]),
+        "SparkConfig": spark.SparkConfig(hello_time_s=0.3, step_detector_abs_threshold=9),
+        "LinkMonitorState": lm.LinkMonitorState(True, {"if1"}, {"if2": 5}, 9, {("if1", "n2"): 3}, 4),
+        "OriginatedPrefixConfig": pm.OriginatedPrefixConfig("fc00::/16", 2, True, 1, ("t",)),
+        "OriginatedRouteState": pm.OriginatedRouteState(
+            pm.OriginatedPrefixConfig("fc00::/16"), {"fc00:1::/32"}, True
+        ),
+    }
+
+
+@pytest.mark.parametrize("kind", sorted(_node_dataclasses()))
+def test_to_ref_takes_the_node_modules_dataclasses(kind):
+    """`torch_parity.to_ref` gives the openr_tpu class of the same name,
+    field for field, for the dataclasses of the port's KvStore, DUAL,
+    Spark, LinkMonitor and PrefixManager modules."""
+    obj = _node_dataclasses()[kind]
+    ref = to_ref(obj)
+    assert type(ref).__module__.startswith("openr_tpu.")
+    assert type(ref).__name__ == kind
+    assert _plain(ref) == _plain(obj)

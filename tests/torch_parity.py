@@ -23,18 +23,33 @@ from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.utils import topo
 
 
-def to_ref(obj):
-    """The openr_tpu counterpart of a port object (wire types, RIB
-    entries and updates, RibPolicy configs), field by field."""
+def _ref_modules():
+    """The openr_tpu modules whose classes have port counterparts of the
+    same name: wire types, RIB, RibPolicy, and the node's modules."""
     from openr_tpu.decision import rib as jrib
     from openr_tpu.decision import rib_policy as jpol
+    from openr_tpu.kvstore import dual as jdual
+    from openr_tpu.kvstore import kvstore as jkv
+    from openr_tpu.link_monitor import link_monitor as jlm
+    from openr_tpu.prefix_manager import prefix_manager as jpm
+    from openr_tpu.spark import spark as jspark
 
+    return (jt, jrib, jpol, jkv, jdual, jspark, jlm, jpm)
+
+
+def to_ref(obj):
+    """The openr_tpu counterpart of a port object (wire types, RIB
+    entries and updates, RibPolicy configs, and the dataclasses and enums
+    of KvStore, DUAL, Spark, LinkMonitor and PrefixManager), field by
+    field."""
     if isinstance(obj, enum.Enum):
-        return getattr(jt, type(obj).__name__)(int(obj))
+        name = type(obj).__name__
+        cls = next(getattr(m, name) for m in _ref_modules() if hasattr(m, name))
+        return cls(obj.value)
     if dataclasses.is_dataclass(obj):
         name = type(obj).__name__
         cls = next(
-            getattr(m, name) for m in (jt, jrib, jpol) if hasattr(m, name)
+            getattr(m, name) for m in _ref_modules() if hasattr(m, name)
         )
         return cls(
             **{f.name: to_ref(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
