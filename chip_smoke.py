@@ -79,7 +79,15 @@ and its phases timed:
   the fleet dump equal to the one after (a), K1 held against its plain
   version on a delta slab in both variants), and one node's adjacency
   key set again with a 3 s TTL and expired by every store's countdown
-  (agents equal after the expiry);
+  (agents equal after the expiry); w000000 there is an `OpenrDaemon`
+  whose ctrl server answers breeze's `decision fleet-routes` (that cold
+  dump), `kvstore keys`, `decision routes`, `decision path` and
+  `monitor counters` over TCP, each against an oracle;
+- the daemon as operators run it: three `OpenrDaemon`s peered over TCP
+  under `tests/test_system.py`'s breeze session, a reroute and a drain
+  through breeze (`daemon_ring_tcp`), and `python -m
+  openr_tpu_torch.main` with a config file and flags, answering breeze
+  and exiting 0 after SIGTERM (`daemon_process`);
 - the node stack as the daemon composes it (`node_ring`): the
   reference's 3-node ring (`tests/test_system.py` `RingFixture`) on one
   `MockIoProvider` and one `InProcessTransport`, each node with
@@ -129,6 +137,7 @@ check fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -1874,6 +1883,9 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
         c1 = engine.get_counters()
         query_ms = engine.last_query_us / 1e3
         decode_ms = decode.take()
+        host_gc = gc_clock.take()
+        # the builds' results live on: frozen (`run` unfreezes them)
+        gc.freeze()
         return got, {
             "build_s": t_dev,
             "spf_results_ms": query_ms,
@@ -1881,7 +1893,7 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
             "route_build_ms": t_dev * 1e3 - query_ms - decode_ms,
             "gc_ms": gc_dev,
             "host_build_s": t_host,
-            "host_gc_ms": gc_clock.take(),
+            "host_gc_ms": host_gc,
             "counters_delta": {
                 k.removeprefix("device.engine."): c1[k] - c0[k]
                 for k in c1 if c1[k] != c0[k] and not k.endswith("_us")
@@ -2239,6 +2251,8 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
     re-relaxed no column), and four of its route DBs (only the router's
     own in the dump that re-bases the view before (h)) equal the
     oracle's `get_route_db(router)`.
+    The heap is frozen (`gc.freeze`) after every step and every dump, so
+    each full collection walks only what the step at hand allocated.
 
     Returns the record, the card mirror, engine and scipy graph the KSP
     phase takes, and what `kvstore_decision_wan100k` takes
@@ -2381,6 +2395,9 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
             if n_fail:
                 raise AssertionError(f"{what}: {side} counted {n_fail} rebuild failures")
         c1 = counters()
+        # what the step built lives on: frozen, the later steps' full
+        # collections walk only what they allocate
+        gc.freeze()
         return {
             "wall_s": wall_s,
             "unicast_routes": len(got[0]),
@@ -2440,6 +2457,7 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
             if k.startswith("decision.delta.")
             and card_solver.counters[k] != d0.get(k, 0)
         }
+        gc.freeze()
         return {
             "dump_s": dump_s,
             "gc_ms": dump_gc,
@@ -2595,6 +2613,7 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
         )
         decision_counters = card["decision"].get_counters()
         fib_counters = card["fib"].get_counters()
+        gc_frozen = gc.get_freeze_count()
     finally:
         for s in sides.values():
             for q in ("kvq", "staticq", "routeq", "fibq"):
@@ -2603,8 +2622,10 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
             s["fib"].stop()
         clock.close()
         gc_clock.close()
+        gc.unfreeze()
     record = {
         "phase": "decision_main_path",
+        "gc_frozen_objects": gc_frozen,
         "router": router,
         "nodes": n_nodes,
         "advertisers": n_advertisers,
@@ -2657,16 +2678,261 @@ def wait_until(cond, timeout: float, what: str, interval: float = 0.05) -> float
     return time.perf_counter() - t0
 
 
+# the listen and peer address of the smoke's daemons
+LOOPBACK = "127.0.0.1"
+# how long breeze waits for an answer: the reference's CtrlClient waits
+# 10 s, a dump of the wan100k daemon takes longer
+BREEZE_WAIT_S = 600.0
+
+
+def smoke_config(name: str, ctrl_port: int = 0, **kwargs):
+    """A daemon config as tests/test_system.py's `make_config` builds it
+    (fast Spark timers, fast Decision debounce unless `kwargs` say
+    otherwise, no watchdog), listening on 127.0.0.1."""
+    from openr_tpu_torch.config import AreaConf, OpenrConfig, SparkConf
+
+    fast = {k: v for k, v in FAST_SPARK.items() if k != "fastinit_hello_time_s"}
+    return OpenrConfig(
+        node_name=name, areas=[AreaConf()], listen_addr=LOOPBACK,
+        openr_ctrl_port=ctrl_port, enable_watchdog=False, node_label=0,
+        spark_config=SparkConf(
+            fastinit_hello_time_ms=FAST_SPARK["fastinit_hello_time_s"] * 1e3, **fast
+        ),
+        **kwargs,
+    ).validate()
+
+
+def free_port() -> int:
+    """A TCP port the kernel just handed out and released (a daemon's
+    Spark advertises its ctrl port before the server binds it, so TCP
+    peers need the port up front)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind((LOOPBACK, 0))
+        return sock.getsockname()[1]
+
+
+def breeze_run(port: int, *argv: str, wait_s: float = BREEZE_WAIT_S, ok=True,
+               calls: list | None = None):
+    """`breeze -H 127.0.0.1 -p port argv`: the port's breeze command run
+    as `breeze.main` runs it, on a `CtrlClient` that waits up to `wait_s`
+    for each answer.  With `calls`, each ctrl call appends its method,
+    answer, line `bytes`, `server_ms` (request sent to the answer's first
+    byte: the module call and the server's JSON encode), `wire_ms` (first
+    byte to the whole line) and `decode_ms` (`json.loads` and
+    `from_wire`).  Returns breeze's standard output, ms and exit code;
+    with `ok`, raises unless it exited 0."""
+    import io
+
+    from openr_tpu_torch.cli import breeze
+    from openr_tpu_torch.ctrl import CtrlClient
+    from openr_tpu_torch.serializer import from_wire, to_wire
+
+    class TimedClient(CtrlClient):
+        def call(self, method, **params):
+            if calls is None:
+                return super().call(method, **params)
+            self._connect()
+            self._next_id += 1
+            request = {"id": self._next_id, "method": method, "params": to_wire(params)}
+            t0 = time.perf_counter()
+            self._sock.sendall(json.dumps(request).encode() + b"\n")
+            self._rfile.peek(1)
+            t1 = time.perf_counter()
+            line = self._rfile.readline()
+            t2 = time.perf_counter()
+            msg = json.loads(line)
+            if "error" in msg:
+                raise RuntimeError(msg["error"])
+            if msg.get("id") != self._next_id:
+                raise AssertionError(f"breeze {method}: answer to request {msg.get('id')}")
+            answer = from_wire(msg.get("result"))
+            calls.append({
+                "method": method, "answer": answer, "bytes": len(line),
+                "server_ms": (t1 - t0) * 1e3, "wire_ms": (t2 - t1) * 1e3,
+                "decode_ms": (time.perf_counter() - t2) * 1e3,
+            })
+            return answer
+
+    args = breeze.build_parser().parse_args(["-H", LOOPBACK, "-p", str(port), *argv])
+    out = io.StringIO()
+    client = TimedClient(LOOPBACK, port, timeout_s=wait_s)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            args.fn(client, args)
+        rc = 0
+    except OSError as e:  # as breeze.main answers an unreachable server
+        out.write(f"cannot reach ctrl server at [{LOOPBACK}]:{port}: {e}\n")
+        rc = 1
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        client.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    if ok and rc != 0:
+        raise AssertionError(f"breeze {' '.join(argv)}: exit {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue(), ms, rc
+
+
+def breeze_render(argv: list, answer) -> str:
+    """What the port's breeze command `argv` prints when every ctrl call
+    answers `answer`."""
+    import io
+
+    from openr_tpu_torch.cli import breeze
+
+    class Answer:
+        def call(self, method, **params):
+            return answer
+
+    args = breeze.build_parser().parse_args(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        args.fn(Answer(), args)
+    return out.getvalue()
+
+
+def routes_text_tables(text: str) -> tuple[dict, set]:
+    """`breeze decision routes`'s output as {prefix: {(address, if)}} and
+    its MPLS labels."""
+    unicast, labels, section, hops = {}, set(), None, None
+    for line in text.splitlines():
+        if line.startswith("== "):
+            section = "mpls" if line.startswith("== MPLS") else "unicast"
+        elif line.startswith("> ") and section == "unicast":
+            hops = unicast.setdefault(line[2:], set())
+        elif line.startswith("> "):
+            labels.add(int(line[2:].split()[0]))
+        elif line.startswith("  via ") and section == "unicast":
+            address, _, if_name = line.split()[1].partition("%")
+            hops.add((address, if_name))
+    return unicast, labels
+
+
+def path_oracle(ls, src: str, dst: str) -> int:
+    """The scipy oracle's metric from `src` to `dst` over the host
+    oracle's LinkState (both directions of every up link, each with the
+    metric it originates; no drained node)."""
+    names = ls.node_names
+    if any(ls.is_node_overloaded(v) for v in names):
+        raise AssertionError("the scipy oracle takes no drained node")
+    node_id = {v: i for i, v in enumerate(names)}
+    rows = [
+        (node_id[frm], node_id[link.other_node_name(frm)], link.metric_from_node(frm))
+        for link in ls.all_links if link.is_up() for frm in (link.n1, link.n2)
+    ]
+    a = np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+    g = OracleGraph(a[:, 0], a[:, 1], a[:, 2], np.arange(len(a)), len(names))
+    return int(scipy_dist(g, node_id[src])[node_id[dst]])
+
+
+def wire_split(calls: list) -> dict:
+    """`breeze_run`'s per-call records less their answers, summed: line
+    bytes, server (module call and JSON encode), wire and client decode
+    ms."""
+    keys = ("bytes", "server_ms", "wire_ms", "decode_ms")
+    return {k: sum(c[k] for c in calls) for k in keys}
+
+
+def daemon_queries(daemon, oracle, router, checked, n_keys, cold_dbs, fleet_out) -> dict:
+    """The wan100k daemon's answers over TCP through the port's breeze,
+    each with its ms: `kvstore keys` (one row per key), `decision routes`
+    (as breeze prints the oracle Decision's route DB, and the daemon's
+    MockFibAgent's tables), `decision fleet-routes` (as breeze prints
+    `decision_main_path`'s cold dump; run by the caller, `fleet_out`),
+    `decision path` to the last checked router (its hops are links, its
+    metric theirs and the scipy oracle's), `monitor counters`
+    (`decision.route_rebuild_failures` 0).  `decision path` is split
+    into the server's module call and JSON encode, the wire, the
+    client's decode, and the client's LinkState build and Dijkstra (the
+    rest).  The queries after the fleet dump run with the cyclic
+    collector paused: an operator's breeze is a process of its own, and
+    here it shares the interpreter with the daemon, the oracle and every
+    object of the run."""
+    port = daemon.ctrl_port
+    rec = {}
+    want = breeze_render(["decision", "fleet-routes", "--nodes", *checked],
+                         {r: cold_dbs[r] for r in checked})
+    if fleet_out["text"] != want:
+        raise AssertionError("breeze fleet-routes differs from the cold dump")
+    rec["fleet_routes_ms"] = fleet_out["ms"]
+    rec["fleet_routes_wire"] = fleet_out["wire"]
+    rec["fleet_routes_lines"] = len(fleet_out["text"].splitlines())
+    gc.disable()
+    try:
+        daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec)
+    finally:
+        gc.enable()
+    return rec
+
+
+def daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec) -> None:
+    """`daemon_queries` after the fleet dump, into `rec`."""
+    out, rec["kvstore_keys_ms"], _ = breeze_run(port, "kvstore", "keys")
+    rec["kvstore_keys_rows"] = len(out.splitlines()) - 2
+    if rec["kvstore_keys_rows"] != n_keys:
+        raise AssertionError(f"breeze kvstore keys: {rec['kvstore_keys_rows']} rows, want {n_keys}")
+
+    out, rec["decision_routes_ms"], _ = breeze_run(port, "decision", "routes")
+    if out != breeze_render(["decision", "routes"], oracle.get_route_db("")):
+        raise AssertionError("breeze decision routes differs from the oracle's route DB")
+    unicast, labels = agent_tables(daemon.fib_agent)
+    got_unicast, got_labels = routes_text_tables(out)
+    if got_unicast != {
+        p: {(nh.address, nh.if_name) for nh in r.next_hops} for p, r in unicast.items()
+    } or got_labels != set(labels):
+        raise AssertionError("breeze decision routes differs from the daemon's agent")
+    rec["decision_routes"] = {"unicast": len(got_unicast), "mpls": len(got_labels)}
+
+    dst = checked[-1]
+    calls = []
+    out, rec["decision_path_ms"], _ = breeze_run(port, "decision", "path", dst, calls=calls)
+    split = wire_split(calls)
+    split["linkstate_dijkstra_ms"] = rec["decision_path_ms"] - sum(
+        split[k] for k in ("server_ms", "wire_ms", "decode_ms"))
+    split["adjacency_dbs"] = len(calls[0]["answer"])
+    rec["decision_path_split"] = split
+    del calls
+    head, _, hops = out.strip().partition(": ")
+    metric = int(head.rsplit("(metric ", 1)[1].rstrip(")"))
+    hops = hops.split(" -> ")
+    ls = oracle.area_link_states["0"]
+    cost = 0
+    for a, b in zip(hops, hops[1:]):
+        costs = [l.metric_from_node(a) for l in ls.links_from_node(a)
+                 if l.is_up() and l.other_node_name(a) == b]
+        if not costs:
+            raise AssertionError(f"breeze decision path: no link {a} -> {b}")
+        cost += min(costs)
+    want = path_oracle(ls, router, dst)
+    if hops[0] != router or hops[-1] != dst or cost != metric or metric != want:
+        raise AssertionError(
+            f"breeze decision path: {out.strip()!r}, hops cost {cost}, scipy {want}"
+        )
+    rec["decision_path"] = {"dst": dst, "metric": metric, "hops": len(hops) - 1}
+
+    out, rec["monitor_counters_ms"], _ = breeze_run(port, "monitor", "counters")
+    counters = dict(line.split(" : ", 1) for line in out.splitlines())
+    if counters.get("decision.route_rebuild_failures") != "0":
+        raise AssertionError("breeze monitor counters: a rebuild failed")
+    rec["monitor_counters"] = len(counters)
+
+
 def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
                              batch: int = 8192, ttl_ms: int = 3000) -> dict:
-    """This slice's main path at full width: the node's KvStore feeding
-    the card Decision, as the daemon wires it (openr_tpu/main.py:157-262).
-    Three port KvStores on one `InProcessTransport` in a chain, `seed` –
-    `transit` – the router (w000000), flood optimization off; `seed`
-    holds `decision_main_path`'s cold publication (101 024 keys) set in
-    batches before any peering.  The router's `kvstore_updates` queue has
-    two readers: a card `Decision(router, device, fleet_delta=True)` →
-    Fib → MockFibAgent and a `HostSpfBackend` Decision → Fib, the oracle.
+    """The node's KvStore feeding the card Decision at full width, in the
+    port's daemon.  Three port KvStores on one `InProcessTransport` in a
+    chain, `seed` – `transit` – the router (w000000), flood optimization
+    off; `seed` holds `decision_main_path`'s cold publication (101 024
+    keys) set in batches before any peering.  The router is an
+    `OpenrDaemon` on the card (`smoke_config`): its KvStore on the
+    fabric, its Spark on a `MockIoProvider` endpoint with no neighbor,
+    its card Decision (`fleet_delta` on, as the daemon builds it) → Fib →
+    MockFibAgent, and its ctrl server on 127.0.0.1.  A `HostSpfBackend`
+    Decision → Fib, the oracle, is a second reader of the daemon's
+    `kvstore_updates_queue`.
     (1) Cold: `transit` peers `seed`, then the router peers `transit`
     (each 3-way full sync pulls every key), then the reverse peerings;
     every store's `dump_hashes` holds the same 101 024 hashes, both
@@ -2681,9 +2947,17 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
     version with a `ttl_ms` of `ttl_ms` and never refreshes it; every
     store's countdown expires it, and the agents are equal after both
     Decisions processed the expiry.  Neither Decision counts a rebuild
-    failure.  `handoff.values` is emptied once `seed` holds its keys, and
-    the heap is frozen (`gc.freeze`) once the cold state is built, so the
-    later steps' full collections walk only what they allocate."""
+    failure.  After every step the router's own keys (originated by
+    w000000 in the seed's Values) hold the seed's versions and
+    originators in every store: the daemon, which has no Spark neighbor,
+    originates nothing.  After the cold step, over TCP through the port's
+    breeze commands (`daemon_queries`): `kvstore keys`, `decision routes`,
+    `decision fleet-routes` of the checked routers (the cold dump above:
+    K1 uint16 once, held against its plain version on the dump's own
+    input), `decision path` and `monitor counters`.  `handoff.values` is
+    emptied once `seed` holds its keys, and the heap is frozen
+    (`gc.freeze`) then and after every step and dump, so each full
+    collection walks only what the step at hand allocated."""
     import dataclasses
 
     import torch
@@ -2692,9 +2966,12 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
     from openr_tpu_torch.decision.spf_solver import HostSpfBackend
     from openr_tpu_torch.fib import Fib, MockFibAgent
     from openr_tpu_torch.kvstore import InProcessTransport, KvStore, KvStoreClientInternal
+    from openr_tpu_torch.main import OpenrDaemon
+    from openr_tpu_torch.ops import epilogue as ep
     from openr_tpu_torch.runtime.eventbase import OpenrEventBase
     from openr_tpu_torch.runtime.queue import ReplicateQueue
     from openr_tpu_torch.serializer import dumps
+    from openr_tpu_torch.spark import MockIoProvider
     from openr_tpu_torch.types import KvStorePeerState, PeerSpec, Value, adj_key
 
     t_phase = time.perf_counter()
@@ -2710,42 +2987,59 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
     stores, updates_of, queues = {}, {}, []
     sides = {}
     clock = MethodClock()
-    evb = client = None
+    evb = client = daemon = None
+    # the keys the router originated in the seed's Values
+    own = {k: (v.version, v.originator_id) for k, v in handoff.values.items()
+           if v.originator_id == router}
     rec = {"phase": "kvstore_decision_wan100k", "router": router, "keys": n_keys,
-           "value_bytes": n_bytes, "stores": list(names)}
+           "value_bytes": n_bytes, "stores": list(names), "own_keys": len(own)}
     try:
-        for name in names:
-            # openr_tpu/main.py:157-184, no peer-updates queue
+        for name in names[:2]:
+            # openr_tpu_torch/main.py's KvStore, no peer-updates queue
             updates, syncs = ReplicateQueue(), ReplicateQueue()
             queues += [updates, syncs]
             stores[name] = KvStore(name, updates, syncs, None, transport=fabric.bind(name))
             updates_of[name] = updates
             fabric.register(name, stores[name])
             stores[name].run()
-        for side, kwargs in (
-            ("card", {"device": device, "fleet_delta": True}),
-            ("oracle", {"spf_backend": HostSpfBackend(), "device": device}),
-        ):
-            kv_reader = updates_of[router].get_reader()
-            routeq, fibq = ReplicateQueue(), ReplicateQueue()
-            queues += [routeq, fibq]
-            decision = Decision(router, kv_reader, None, routeq, **kwargs)
-            agent = MockFibAgent()
-            fib = Fib(router, routeq.get_reader(), agent, fib_updates_queue=fibq)
-            sides[side] = dict(
-                decision=decision, agent=agent, fib=fib, programmed=fibq.get_reader()
-            )
-            clock.wrap(decision, "process_publication", f"{side}_parse_ms")
-            clock.wrap(decision, "rebuild_routes", f"{side}_rebuild_ms")
-            clock.wrap(fib, "process_route_updates", f"{side}_fib_ms")
-            fib.run()
-            decision.run()
+        t0 = time.perf_counter()
+        daemon = OpenrDaemon(
+            smoke_config(router), io_provider=MockIoProvider().endpoint(router),
+            kvstore_transport=fabric.bind(router), spark_v6_addr=router, device=device,
+        )
+        stores[router] = daemon.kvstore
+        updates_of[router] = daemon.kvstore_updates_queue
+        fabric.register(router, daemon.kvstore)
+        sides["card"] = dict(
+            decision=daemon.decision, agent=daemon.fib_agent, fib=daemon.fib,
+            programmed=daemon.fib_updates_queue.get_reader(),
+        )
+        routeq, fibq = ReplicateQueue(), ReplicateQueue()
+        queues += [routeq, fibq]
+        decision = Decision(
+            router, daemon.kvstore_updates_queue.get_reader(), None, routeq,
+            spf_backend=HostSpfBackend(), device=device,
+        )
+        agent = MockFibAgent()
+        fib = Fib(router, routeq.get_reader(), agent, fib_updates_queue=fibq)
+        sides["oracle"] = dict(
+            decision=decision, agent=agent, fib=fib, programmed=fibq.get_reader()
+        )
+        for side, s in sides.items():
+            clock.wrap(s["decision"], "process_publication", f"{side}_parse_ms")
+            clock.wrap(s["decision"], "rebuild_routes", f"{side}_rebuild_ms")
+            clock.wrap(s["fib"], "process_route_updates", f"{side}_fib_ms")
+        fib.run()
+        decision.run()
         card, oracle = sides["card"], sides["oracle"]
         engine = card["decision"].spf_solver.engine
         # the fleet dumps are decision_main_path's: the fused rung
         engine.blocked.node_shard_threshold = sum(
             k.startswith("adj:") for k in handoff.values
         )
+        daemon.start()
+        rec["daemon_start_s"] = time.perf_counter() - t0
+        rec["ctrl_port"] = daemon.ctrl_port
 
         def updates_pushed() -> int:
             return stores[router].get_counters().get("kvstore.num_updates", 0)
@@ -2786,6 +3080,7 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
                     raise AssertionError(f"{what}: {side} counted {n_fail} rebuild failures")
             publications = updates_pushed() - settled[0]
             settled[0] += publications
+            gc.freeze()
             return {
                 "publications": publications,
                 **clock.take(),
@@ -2805,10 +3100,19 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
                 )
             return (time.perf_counter() - t0) * 1e3
 
-        def k1_dump(what, want_dbs):
-            """The card Decision's fleet dump of the checked routers, K1's
-            counts set to 0 just before it and read just after, its route
-            DBs against `decision_main_path`'s; K1's inputs kept."""
+        def own_keys(what):
+            """The router's own keys keep the seed's versions and
+            originators in every store."""
+            for n in names:
+                got = stores[n].get_key_vals("0", list(own)).key_vals
+                if {k: (v.version, v.originator_id) for k, v in got.items()} != own:
+                    raise AssertionError(f"{what}: {n} holds other versions of {router}'s keys")
+
+        def k1_dump(what, want_dbs, fetch=None):
+            """The card Decision's fleet dump of the checked routers (by
+            `fetch` when given), K1's counts set to 0 just before it and
+            read just after, its route DBs against `decision_main_path`'s;
+            K1's inputs kept."""
             solver = card["decision"].spf_solver
             slabs = []
             epilogue = engine.epilogue
@@ -2823,7 +3127,10 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
             gc_clock.take()
             t0 = time.perf_counter()
             try:
-                out = card["decision"].get_fleet_route_dbs(nodes=checked)
+                if fetch is None:
+                    out = card["decision"].get_fleet_route_dbs(nodes=checked)
+                else:
+                    out = fetch()
                 if timer.cuda:
                     torch.cuda.synchronize()
             finally:
@@ -2845,6 +3152,13 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
                 "checked_routers": checked,
                 "k1_shape": list(slabs[-1][0].shape) if slabs else None,
             }
+            if fetch is not None:
+                # K1 on this dump's own input against its plain version
+                d, groups, n_words = slabs[-1]
+                record["k1_vs_plain"] = compare(
+                    ep.fused_epilogue, ep.fused_epilogue_reference, d, groups, n_words
+                )
+            gc.freeze()
             return record, (slabs[-1], view) if slabs and delta else None
 
         # seed holds every key before any peering, set in batches
@@ -2858,6 +3172,7 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
         # the stores hold copies; the handed-on Values leave the heap
         del items
         handoff.values.clear()
+        gc.freeze()
 
         # (1) cold: two full syncs down the chain, then the reverse peerings
         def peer(a, b):
@@ -2878,13 +3193,32 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
         step["wall_s"] = time.perf_counter() - t_cold
         step["full_sync_ms"] = sync_ms
         step["hash_check_ms"] = equal_hashes("cold", n_keys)
+        own_keys("cold")
         step["gc_ms"] = gc_clock.take()
         rec["cold"] = step
-        gc.freeze()
-        rec["gc_frozen_objects"] = gc.get_freeze_count()
         k1_total = 0
-        rec["cold_dump"], _ = k1_dump("fleet dump after the cold sync", handoff.cold_dbs)
+        # the cold dump is the daemon's answer to breeze's fleet-routes
+        t_queries = time.perf_counter()
+        fleet_out = {}
+
+        def breeze_fleet_routes():
+            """`breeze decision fleet-routes --nodes <checked>`: its text
+            and ms into `fleet_out`, its one answer's route DBs back."""
+            calls = []
+            fleet_out["text"], fleet_out["ms"], _ = breeze_run(
+                daemon.ctrl_port, "decision", "fleet-routes", "--nodes", *checked, calls=calls)
+            fleet_out["wire"] = wire_split(calls)
+            return calls[0]["answer"]
+
+        rec["cold_dump"], _ = k1_dump(
+            "fleet dump after the cold sync", handoff.cold_dbs, fetch=breeze_fleet_routes,
+        )
         k1_total += rec["cold_dump"]["launches"][KERNEL_U16["name"]]
+        rec["breeze"] = daemon_queries(
+            daemon, oracle["decision"], router, checked, n_keys, handoff.cold_dbs,
+            fleet_out,
+        )
+        rec["breeze"]["queries_s"] = time.perf_counter() - t_queries
 
         # (2) flood: seed's client persists step (a)'s database
         evb = OpenrEventBase(name="seed-client")
@@ -2905,6 +3239,7 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
         version = stores[router].get_key_vals("0", [adj_key(x)]).key_vals[adj_key(x)].version
         step["version"] = version
         step["hash_check_ms"] = equal_hashes("flood", n_keys)
+        own_keys("flood")
         step["gc_ms"] = gc_clock.take()
         rec["flood"] = {"node": x, **step}
         rec["flood_dump"], slab = k1_dump("fleet dump after the flood", handoff.a_dbs)
@@ -2938,6 +3273,7 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
         step["set_to_flooded_ms"] = flooded_ms
         step["set_to_expired_s"] = expired_s
         step["hash_check_ms"] = equal_hashes("ttl expiry", n_keys - 1)
+        own_keys("ttl expiry")
         step["gc_ms"] = gc_clock.take()
         rec["ttl_expiry"] = {"node": y, "ttl_ms": ttl_ms, **step}
 
@@ -2947,19 +3283,23 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
                 raise AssertionError(f"ttl expiry: {n}'s countdown expired nothing")
         rec["decision_counters"] = card["decision"].get_counters()
         rec["k1_launches"] = k1_total
+        rec["gc_frozen_objects"] = gc.get_freeze_count()
     finally:
         if client is not None:
             client.stop()
         for q in queues:
             q.close()
-        for s in sides.values():
-            s["decision"].stop()
-            s["fib"].stop()
+        if "oracle" in sides:
+            sides["oracle"]["decision"].stop()
+            sides["oracle"]["fib"].stop()
+        if daemon is not None:
+            daemon.stop()
         clock.close()
         if evb is not None:
             evb.stop()
-        for store in stores.values():
-            store.stop()
+        for name in names[:2]:
+            if name in stores:
+                stores[name].stop()
         gc_clock.close()
         gc.unfreeze()
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -3249,6 +3589,235 @@ def node_ring(device, n: int = 3) -> dict:
     if any(launches.values()):
         raise AssertionError(f"node_ring launched {launches}")
     rec["kernel_launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def daemon_ring_tcp(device, n: int = 3) -> dict:
+    """Three port `OpenrDaemon`s on the card over real TCP (each ctrl
+    server is its KvStore peers' transport), Spark on one
+    `MockIoProvider`, in a ring.  tests/test_system.py:268-320's breeze
+    session against daemon 0 (peers, keys, routes, fleet routes,
+    adjacencies, Fib, neighbors, path, counters, version, prefixes,
+    what-if, TI-LFA), then a reroute (the 0-1 link cut: node 0 reaches
+    node 1's loopback through node 2, then the link restored), and a
+    drain through breeze (node 2's link to node 1 raised to metric 10 so
+    it reaches node 1 through node 0; `lm set-node-overload` on node 0
+    then diverts it to the direct link).  Per step the seconds to the
+    expected next hops; the daemons' threads all end with `stop()`."""
+    import threading
+
+    from openr_tpu_torch.config import DecisionConf
+    from openr_tpu_torch.main import OpenrDaemon
+    from openr_tpu_torch.spark import MockIoProvider
+    from openr_tpu_torch.types import LinkEvent, PrefixEntry, PrefixType
+
+    t_phase = time.perf_counter()
+    threads0 = set(threading.enumerate())
+    fabric = MockIoProvider()
+    ports = [free_port() for _ in range(n)]
+    daemons = []
+    rec = {"phase": "daemon_ring_tcp", "nodes": n}
+
+    def hops(i: int, prefix: str):
+        from openr_tpu_torch.types import normalize_prefix
+
+        route = agent_tables(daemons[i].fib_agent)[0].get(normalize_prefix(prefix))
+        return None if route is None else sorted(nh.neighbor_node_name for nh in route.next_hops)
+
+    def breeze(i: int, *argv: str) -> str:
+        out, ms, _ = breeze_run(ports[i], *argv)
+        rec.setdefault("breeze_ms", {})[f"{i}: {' '.join(argv)}"] = ms
+        return out
+
+    def expect(what: str, cond: str, text: str) -> None:
+        if cond not in text:
+            raise AssertionError(f"breeze {what}: {cond!r} missing from {text[-1500:]!r}")
+
+    try:
+        for i, port in enumerate(ports):
+            daemon = OpenrDaemon(
+                smoke_config(f"tcp-{i}", port, decision_config=DecisionConf(
+                    debounce_min_ms=5, debounce_max_ms=20)),
+                io_provider=fabric.endpoint(f"tcp-{i}"), spark_v6_addr=LOOPBACK,
+                device=device,
+            )
+            daemons.append(daemon)
+            daemon.start()
+        for i in range(n):
+            j = (i + 1) % n
+            fabric.connect(f"tcp-{i}", f"if-{i}-{j}", f"tcp-{j}", f"if-{j}-{i}")
+        for i, daemon in enumerate(daemons):
+            for j in ((i + 1) % n, (i - 1) % n):
+                daemon.netlink_events_queue.push(LinkEvent(f"if-{i}-{j}", j + 1, True))
+            daemon.prefix_manager.advertise_prefixes(
+                PrefixType.LOOPBACK, [PrefixEntry(prefix=f"fc0{i}::/64")]
+            )
+        rec["converged_s"] = wait_until(
+            lambda: all(hops(i, f"fc0{j}::/64") == [f"tcp-{j}"]
+                        for i in range(n) for j in range(n) if i != j),
+            120, "the TCP ring's convergence",
+        )
+
+        # tests/test_system.py:268-320 against daemon 0
+        out = breeze(0, "kvstore", "peers")
+        expect("kvstore peers", "tcp-1", out)
+        expect("kvstore peers", "INITIALIZED", out)
+        out = breeze(0, "kvstore", "keys")
+        expect("kvstore keys", "adj:tcp-0", out)
+        expect("kvstore keys", "prefix:[tcp-1]", out)
+        expect("decision routes", "fc01::/64", breeze(0, "decision", "routes"))
+        expect("decision routes --node", "Unicast Routes",
+               breeze(0, "decision", "routes", "--node", "tcp-1"))
+        zero_launch_counts()
+        out = breeze(0, "decision", "fleet-routes")
+        rec["fleet_routes_launches"] = launch_counts()
+        for want in ("tcp-0", "tcp-1", "tcp-2", "fc01::/64"):
+            expect("decision fleet-routes", want, out)
+        out = breeze(0, "decision", "adj")
+        expect("decision adj", "tcp-1", out)
+        expect("fib routes", "fc01::/64", breeze(0, "fib", "routes"))
+        out = breeze(0, "spark", "neighbors")
+        expect("spark neighbors", "ESTABLISHED", out)
+        expect("decision path", "tcp-0 -> tcp-1", breeze(0, "decision", "path", "tcp-1"))
+        expect("monitor counters", "decision.adj_db_update", breeze(0, "monitor", "counters"))
+        expect("version", "20", breeze(0, "version"))
+        expect("prefixmgr view", "fc01::/64", breeze(1, "prefixmgr", "view"))
+        out = breeze(0, "decision", "what-if", "tcp-0/tcp-1")
+        expect("decision what-if", "tcp-0/tcp-1", out)
+        expect("decision tilfa", "node: tcp-0", breeze(0, "decision", "tilfa", "tcp-0", "-v"))
+
+        # a reroute: the 0-1 link cut, then restored
+        t0 = time.perf_counter()
+        fabric.disconnect("tcp-0", "if-0-1", "tcp-1", "if-1-0")
+        rec["rerouted_s"] = wait_until(
+            lambda: hops(0, "fc01::/64") == ["tcp-2"], 60, "the reroute over tcp-2"
+        )
+        out = breeze(0, "fib", "routes")
+        rerouted = [line for line in out.splitlines() if line.startswith("fc01::/64")]
+        if len(rerouted) != 1 or "%if-0-2" not in rerouted[0] or "%if-0-1" in rerouted[0]:
+            raise AssertionError(f"breeze fib routes after the cut: {rerouted}")
+        fabric.connect("tcp-0", "if-0-1", "tcp-1", "if-1-0")
+        rec["restored_s"] = wait_until(
+            lambda: hops(0, "fc01::/64") == ["tcp-1"], 60, "the restored link"
+        )
+        rec["reroute_s"] = time.perf_counter() - t0
+
+        # a drain through breeze: node 2 first reaches node 1 over node 0
+        t0 = time.perf_counter()
+        breeze(2, "lm", "set-link-metric", "if-2-1", "10")
+        rec["metric_raised_s"] = wait_until(
+            lambda: hops(2, "fc01::/64") == ["tcp-0"], 60, "node 2 over node 0"
+        )
+        breeze(0, "lm", "set-node-overload")
+        rec["drained_s"] = wait_until(
+            lambda: hops(2, "fc01::/64") == ["tcp-1"], 60, "node 2 around the drained node 0"
+        )
+        expect("lm links", "node overloaded: True", breeze(0, "lm", "links"))
+        rec["drain_s"] = time.perf_counter() - t0
+        for i, daemon in enumerate(daemons):
+            if daemon.decision.get_counters()["decision.route_rebuild_failures"]:
+                raise AssertionError(f"tcp-{i} counted a rebuild failure")
+    finally:
+        for daemon in daemons:
+            daemon.stop()
+    left = [t.name for t in set(threading.enumerate()) - threads0 if t.is_alive()]
+    if left:
+        raise AssertionError(f"threads outlived the daemons' stop(): {left}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+class DaemonProcess:
+    """`python -m openr_tpu_torch.main` as a user starts it, with a config
+    file and flags, on the card.  Entered before the phases that precede
+    `daemon_process`, so its torch import and CUDA start overlap them;
+    killed on exit if it still runs."""
+
+    def __enter__(self) -> "DaemonProcess":
+        import os
+        import tempfile
+
+        self.port = free_port()
+        self._tmp = tempfile.TemporaryDirectory()
+        tmp = self._tmp.name
+        path = os.path.join(tmp, "openr.json")
+        with open(path, "w") as f:
+            json.dump({"node_name": "from-file",
+                       "watchdog_config": {"interval_s": 1, "max_memory_mb": 1 << 20}}, f)
+        argv = [sys.executable, "-m", "openr_tpu_torch.main", "--config", path,
+                "--node-name", "smoke-main", "--listen-addr", LOOPBACK,
+                "--openr-ctrl-port", str(self.port), "--config-store-path",
+                os.path.join(tmp, "store.bin")]
+        self.log_path = os.path.join(tmp, "daemon.log")
+        self.spawned_at = time.time()
+        with open(self.log_path, "w") as log_file:
+            self.proc = subprocess.Popen(
+                argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=log_file, stderr=subprocess.STDOUT,
+            )
+        return self
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def up_s(self):
+        """Seconds from the spawn to the daemon's "up" log line, or None
+        before it."""
+        import datetime
+
+        for line in self.log().splitlines():
+            if " up on " in line:
+                stamp = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+                return stamp.timestamp() - self.spawned_at
+        return None
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._tmp.cleanup()
+
+
+def daemon_process(daemon: DaemonProcess, stop_within_s: float = 10.0) -> dict:
+    """The daemon process (`DaemonProcess`): up (s from its spawn to its
+    "up" log line), it answers `breeze version` and `monitor counters`
+    (its watchdog checking every second, none fired), then exits 0 within
+    `stop_within_s` of SIGTERM."""
+    import signal
+
+    t_phase = time.perf_counter()
+    port, proc = daemon.port, daemon.proc
+    rec = {"phase": "daemon_process", "port": port}
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"the daemon exited {proc.returncode}: {daemon.log()[-2000:]}")
+        out, _, rc = breeze_run(port, "version", wait_s=5, ok=False)
+        if rc == 0 and daemon.up_s() is not None:
+            break
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("the daemon did not answer within 120 s")
+        time.sleep(0.2)
+    rec["up_s"] = daemon.up_s()
+    rec["waited_s"] = time.perf_counter() - t0
+    if json.loads(out)["version"] != 20:
+        raise AssertionError(f"breeze version: {out}")
+    time.sleep(1.2)  # a watchdog check
+    out, rec["monitor_counters_ms"], _ = breeze_run(port, "monitor", "counters")
+    counters = dict(line.split(" : ", 1) for line in out.splitlines())
+    if counters.get("watchdog.fired") != "0" or "monitor.uptime_s" not in counters:
+        raise AssertionError(f"breeze monitor counters: {sorted(counters)[:20]}")
+    rec["counters"] = len(counters)
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=stop_within_s)
+    rec["stop_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the daemon exited {rc} after SIGTERM")
+    rec["exit_code"] = rc
+    rec["log_tail"] = daemon.log()[-400:]
     rec["phase_s"] = time.perf_counter() - t_phase
     return rec
 
@@ -5205,6 +5774,11 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         device, n_nodes, n_advertisers, n_routers, n_checked, timer
     )
     emit(main)
+    # the wan100k state main_path built lives through serving_wan100k:
+    # frozen, the full collections of the host-heavy phases in between
+    # walk only what they allocate
+    gc.collect()
+    gc.freeze()
     # K1's int32 variant runs on the saturation retry's path
     k1_records["int32"]["launches"] = int32_launches
     emit(warm_rebuild(inp, solver, checked, timer))
@@ -5243,6 +5817,7 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
             {"path": path, **recs[variant]} for path, recs in te_exact
         ]
     del inp
+    gc.unfreeze()
     record, (wan_csr, wan_engine, wan_graph), handoff = decision_main_path(
         device, timer, n_nodes, n_advertisers, n_routers, n_checked
     )
@@ -5252,15 +5827,21 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     record["kernel_launches"] = launch_counts()
     emit(record)
     del wan_csr, wan_engine, wan_graph
-    # this slice's main path: the KvStore chain feeding the card Decision
-    # the cold publication decision_main_path built
-    record = kvstore_decision_wan100k(device, timer, handoff)
-    del handoff
-    emit(record)
-    paths["kvstore_decision_wan100k"] = record["k1_launches"]
-    for variant, rec in record["flood_dump"].get("k1_slab", {}).items():
-        k1_records[variant]["kvstore_flood_slab"] = rec
-    emit(node_ring(device))
+    # the daemon process computes on the card and refuses the CPU; it
+    # starts here and is checked after daemon_ring_tcp
+    with DaemonProcess() if timer.cuda else contextlib.nullcontext() as process:
+        # this slice's main path: the KvStore chain feeding the card
+        # Decision the cold publication decision_main_path built
+        record = kvstore_decision_wan100k(device, timer, handoff)
+        del handoff
+        emit(record)
+        paths["kvstore_decision_wan100k"] = record["k1_launches"]
+        for variant, rec in record["flood_dump"].get("k1_slab", {}).items():
+            k1_records[variant]["kvstore_flood_slab"] = rec
+        emit(node_ring(device))
+        emit(daemon_ring_tcp(device))
+        if process is not None:
+            emit(daemon_process(process))
     zero_launch_counts()
     record = srlg_whatif_grid1024(device, timer)
     record["kernel_launches"] = launch_counts()

@@ -16,8 +16,8 @@ Port of `openr_tpu.fib.fib` (reference: openr/fib/Fib.{h,cpp}):
 The agent seam (`FibAgent`) is the thrift FibService surface
 (openr/if/Platform.thrift:71); `MockFibAgent` mirrors
 openr/tests/mocks/MockNetlinkFibHandler.  The reference's trace spans
-(its `obs` tooling), the log-sample sink and the mock agent's chaos
-schedule (its monitor and chaos layers) are not ported.
+(its `obs` tooling) and the mock agent's chaos schedule (its chaos
+layer) are not ported.
 """
 
 from __future__ import annotations
@@ -183,6 +183,7 @@ class Fib(OpenrEventBase):
         agent: FibAgent,
         *,
         fib_updates_queue: Optional[ReplicateQueue[DecisionRouteUpdate]] = None,
+        log_sample_queue: Optional[ReplicateQueue] = None,
         client_id: int = FIB_CLIENT_OPENR,
         dryrun: bool = False,
         enable_segment_routing: bool = True,
@@ -195,6 +196,7 @@ class Fib(OpenrEventBase):
         self._route_updates = route_updates
         self.agent = agent
         self._fib_updates_queue = fib_updates_queue
+        self._log_sample_queue = log_sample_queue
         self.client_id = client_id
         self.dryrun = dryrun
         self.enable_segment_routing = enable_segment_routing
@@ -335,6 +337,17 @@ class Fib(OpenrEventBase):
         duration = perf_events.total_duration_ms()
         self._bump("fib.route_convergence_count")
         self.counters["fib.route_convergence_last_ms"] = duration
+        if self._log_sample_queue is not None:
+            self._log_sample_queue.push(
+                {
+                    "event": "ROUTE_CONVERGENCE",
+                    "node": self.node_name,
+                    "duration_ms": duration,
+                    "events": [
+                        (e.event_name, e.unix_ts_ms) for e in perf_events.events
+                    ],
+                }
+            )
 
     # -- full sync (reference: syncRouteDb/syncRouteDbDebounced) -------------
 

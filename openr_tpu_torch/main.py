@@ -1,0 +1,567 @@
+"""Composition root: build and run the full daemon.
+
+Port of `openr_tpu.main` (reference: main(), openr/Main.cpp:165-688):
+create the replicate queues, start every module in dependency order, wire
+the ctrl server over all of them, and tear down in reverse order.
+
+`OpenrDaemon` is both the daemon entry (`python -m openr_tpu_torch.main
+--config cfg.json`) and the in-process multi-node harness (the
+OpenrWrapper pattern, openr/tests/OpenrWrapper.h:38): pass a
+MockIoProvider endpoint and an in-process KvStore fabric to run N daemons
+in one process with no network or kernel.  Its Decision computes on the
+CUDA card unless the caller passes `device` ("cpu" in the tests), and
+`main()` refuses to start without a card.
+
+Three parts of the reference's daemon are not ported yet (ROADMAP queue 1
+item 3), and a config that asks for one makes `OpenrDaemon` raise
+ValueError rather than start without it: the rtnetlink socket
+(`enable_netlink`), the TCP FIB agent (`fib_agent_port`) and the Thrift
+shim (`thrift_shim_port`).  The replica fleet (`ServingFleet`) and the
+reference's tracing, fuzzing, schedule-exploration, race-detector and
+snapshot hooks come with the modules that bring them (ROADMAP queue 1
+items 5, 6, 8 and 9).
+
+Queue wiring (reference: Main.cpp:275-287; SURVEY §1 dataflow):
+
+    netlink -> netlinkEventsQueue ----------------> LinkMonitor
+    LinkMonitor -> interfaceUpdatesQueue ---------> Spark
+    Spark -> neighborUpdatesQueue ----------------> LinkMonitor
+    LinkMonitor -> peerUpdatesQueue --------------> KvStore
+    LinkMonitor/allocator -> prefixUpdatesQueue --> PrefixManager
+    PrefixManager/LinkMonitor -> (client) --------> KvStore
+    KvStore -> kvStoreUpdatesQueue ---------------> Decision, clients
+    KvStore -> kvStoreSyncEventsQueue ------------> LinkMonitor
+    Decision -> routeUpdatesQueue ----------------> Fib, PrefixManager
+    Fib -> fibUpdatesQueue -----------------------> ctrl streaming
+    everyone -> logSampleQueue -------------------> Monitor
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import tempfile
+import threading
+from typing import Optional
+
+from .allocators import PrefixAllocator
+from .config import OpenrConfig, load_config
+from .config_store import PersistentStore
+from .ctrl import CtrlServer, OpenrCtrlHandler, TcpKvStoreTransport
+from .decision.decision import Decision
+from .decision.spf_solver import DeviceSpfBackend
+from .device.engine import resolve_device
+from .fib import Fib, FibAgent, MockFibAgent
+from .kvstore import KvStore, KvStoreClientInternal, KvStoreFilters
+from .link_monitor import LinkMonitor
+from .monitor import Monitor, Watchdog
+from .prefix_manager import PrefixManager
+from .runtime.queue import ReplicateQueue
+from .spark import IoProvider, Spark, UdpIoProvider
+
+log = logging.getLogger(__name__)
+
+
+class OpenrDaemon:
+    def __init__(
+        self,
+        config: OpenrConfig,
+        *,
+        io_provider: Optional[IoProvider] = None,
+        kvstore_transport=None,
+        fib_agent: Optional[FibAgent] = None,
+        spark_v6_addr: str = "",
+        device=None,
+    ) -> None:
+        # refuse before any thread or socket exists: the daemon never
+        # starts without a part its config asked for
+        for wanted, part in (
+            (config.enable_netlink, "enable_netlink: the rtnetlink socket"),
+            (
+                fib_agent is None and config.fib_agent_port,
+                "fib_agent_port: the TCP FIB agent",
+            ),
+            (config.thrift_shim_port, "thrift_shim_port: the Thrift shim"),
+            (
+                config.prefix_allocation_config is not None
+                and config.prefix_allocation_config.assign_to_interface,
+                "prefix_allocation_config.assign_to_interface: the "
+                "rtnetlink socket",
+            ),
+        ):
+            if wanted:
+                raise ValueError(
+                    f"config asks for {part}, not ported yet (ROADMAP queue 1 item 3)"
+                )
+        self.config = config
+        name = config.node_name
+        areas = config.area_ids
+
+        # -- queues (reference: Main.cpp:275-287) ----------------------------
+        self.kvstore_updates_queue: ReplicateQueue = ReplicateQueue()
+        self.kvstore_sync_events_queue: ReplicateQueue = ReplicateQueue()
+        self.interface_updates_queue: ReplicateQueue = ReplicateQueue()
+        self.neighbor_updates_queue: ReplicateQueue = ReplicateQueue()
+        self.peer_updates_queue: ReplicateQueue = ReplicateQueue()
+        self.prefix_updates_queue: ReplicateQueue = ReplicateQueue()
+        self.route_updates_queue: ReplicateQueue = ReplicateQueue()
+        self.static_routes_queue: ReplicateQueue = ReplicateQueue()
+        self.fib_updates_queue: ReplicateQueue = ReplicateQueue()
+        self.log_sample_queue: ReplicateQueue = ReplicateQueue()
+        self.netlink_events_queue: ReplicateQueue = ReplicateQueue()
+        self._queues = {
+            "kvstore_updates": self.kvstore_updates_queue,
+            "kvstore_sync_events": self.kvstore_sync_events_queue,
+            "interface_updates": self.interface_updates_queue,
+            "neighbor_updates": self.neighbor_updates_queue,
+            "peer_updates": self.peer_updates_queue,
+            "prefix_updates": self.prefix_updates_queue,
+            "route_updates": self.route_updates_queue,
+            "static_routes": self.static_routes_queue,
+            "fib_updates": self.fib_updates_queue,
+            "log_sample": self.log_sample_queue,
+            # found by thread-queue-registration: the netlink event stream
+            # was invisible to queue.* counters and the shutdown drain
+            "netlink_events": self.netlink_events_queue,
+        }
+
+        # -- watchdog (reference: Main.cpp:295-300) --------------------------
+        self.watchdog: Optional[Watchdog] = None
+        if config.enable_watchdog:
+            wc = config.watchdog_config
+            self.watchdog = Watchdog(
+                interval_s=wc.interval_s,
+                thread_timeout_s=wc.thread_timeout_s,
+                max_memory_bytes=wc.max_memory_mb * 1024 * 1024,
+            )
+
+        # -- config store (reference: Main.cpp:370-375) ----------------------
+        self.config_store = PersistentStore(
+            config.persistent_config_store_path
+            or os.path.join(tempfile.gettempdir(), f"openr_tpu_{name}.bin"),
+            dryrun=not config.persistent_config_store_path,
+        )
+
+        # -- monitor ---------------------------------------------------------
+        self.monitor = Monitor(name, self.log_sample_queue.get_reader())
+
+        # -- kvstore (reference: Main.cpp:389-408) ---------------------------
+        kvc = config.kvstore_config
+        self.kvstore = KvStore(
+            name,
+            self.kvstore_updates_queue,
+            self.kvstore_sync_events_queue,
+            self.peer_updates_queue.get_reader(),
+            transport=kvstore_transport
+            or TcpKvStoreTransport(
+                default_port=config.openr_ctrl_port, tls=self._tls_config()
+            ),
+            areas=areas,
+            filters=(
+                KvStoreFilters(kvc.key_prefix_filters)
+                if kvc.key_prefix_filters
+                else None
+            ),
+            flood_rate=(
+                (kvc.flood_msg_per_sec, kvc.flood_msg_burst_size)
+                if kvc.flood_msg_per_sec > 0
+                else None
+            ),
+            ttl_decr_ms=kvc.ttl_decrement_ms,
+            enable_flood_optimization=kvc.enable_flood_optimization,
+            is_flood_root=kvc.is_flood_root,
+        )
+
+        # -- spark (reference: Main.cpp:443-456) -----------------------------
+        self.io_provider = io_provider or UdpIoProvider()
+        self.spark = Spark(
+            name,
+            self.interface_updates_queue.get_reader(),
+            self.neighbor_updates_queue,
+            self.io_provider,
+            config=config.spark_timers(),
+            areas=config.spark_area_configs(),
+            domain=config.domain,
+            ctrl_port=config.openr_ctrl_port,
+            v6_addr=spark_v6_addr,
+        )
+
+        # -- link monitor (reference: Main.cpp:458-478) ----------------------
+        lmc = config.link_monitor_config
+        self.link_monitor = LinkMonitor(
+            name,
+            interface_updates_queue=self.interface_updates_queue,
+            peer_updates_queue=self.peer_updates_queue,
+            prefix_updates_queue=self.prefix_updates_queue,
+            neighbor_updates=self.neighbor_updates_queue.get_reader(),
+            kvstore_sync_events=self.kvstore_sync_events_queue.get_reader(),
+            netlink_events=self.netlink_events_queue.get_reader(),
+            config_store=self.config_store,
+            areas=areas,
+            node_label=config.node_label,
+            enable_rtt_metric=lmc.use_rtt_metric,
+            include_if_regexes=tuple(lmc.include_interface_regexes),
+            exclude_if_regexes=tuple(lmc.exclude_interface_regexes),
+            redistribute_if_regexes=tuple(lmc.redistribute_interface_regexes),
+            assume_drained=config.assume_drained,
+            override_drain_state=config.override_drain_state,
+        )
+
+        # -- decision (reference: Main.cpp:518-531) --------------------------
+        dc = config.decision_config
+        self.decision = Decision(
+            name,
+            self.kvstore_updates_queue.get_reader(),
+            self.static_routes_queue.get_reader(),
+            self.route_updates_queue,
+            debounce_min_s=dc.debounce_min_ms / 1000.0,
+            debounce_max_s=dc.debounce_max_ms / 1000.0,
+            eor_time_s=config.eor_time_s,
+            enable_v4=config.enable_v4,
+            enable_ordered_fib=config.enable_ordered_fib_programming,
+            enable_best_route_selection=config.enable_best_route_selection,
+            enable_rib_policy=config.enable_rib_policy,
+            spf_backend=DeviceSpfBackend(device),
+            device=device,
+            # the incremental delta rung dispatches through the device
+            # backend's engine; inert below delta_min_p dests
+            fleet_delta=True,
+        )
+
+        # -- fib (reference: Main.cpp:533-545) -------------------------------
+        self.fib_agent = fib_agent or MockFibAgent()
+        self.fib = Fib(
+            name,
+            self.route_updates_queue.get_reader(),
+            self.fib_agent,
+            fib_updates_queue=self.fib_updates_queue,
+            log_sample_queue=self.log_sample_queue,
+            dryrun=config.dryrun,
+            enable_segment_routing=config.enable_segment_routing,
+        )
+
+        # modules created after start(): client-dependent ones
+        self.kvstore_client: Optional[KvStoreClientInternal] = None
+        self.prefix_manager: Optional[PrefixManager] = None
+        self.prefix_allocator: Optional[PrefixAllocator] = None
+        self.serving = None  # serving.QueryScheduler (started in start())
+        self.ctrl_server: Optional[CtrlServer] = None
+        self._plugin = None
+        self._plugin_handle = None
+        self._started = False
+
+    # -- lifecycle (reference: Main.cpp startup order + reverse teardown) ----
+
+    def start(self) -> None:
+        assert not self._started
+        self._started = True
+        modules = [self.monitor, self.kvstore, self.spark, self.link_monitor]
+        for module in modules:
+            module.run()
+            if self.watchdog is not None:
+                self.watchdog.add_evb(module)
+
+        # kvstore client lives on the link-monitor evb (its main user)
+        self.kvstore_client = KvStoreClientInternal(
+            self.link_monitor,
+            self.config.node_name,
+            self.kvstore,
+            self.kvstore_updates_queue.get_reader(),
+        )
+        # composition-root wiring: single startup assignment, read only by
+        # work scheduled onto the link-monitor loop after this point
+        # openr: disable=thread-cross-module-write
+        self.link_monitor.kvstore_client = self.kvstore_client
+
+        self.prefix_manager = PrefixManager(
+            self.config.node_name,
+            self.kvstore_client,
+            prefix_updates=self.prefix_updates_queue.get_reader(),
+            route_updates=self.route_updates_queue.get_reader(),
+            areas=self.config.area_ids,
+        )
+        self.prefix_manager.run()
+
+        if self.config.prefix_allocation_config is not None:
+            pac = self.config.prefix_allocation_config
+            self.prefix_allocator = PrefixAllocator(
+                self.link_monitor,
+                self.config.node_name,
+                self.kvstore_client,
+                pac.seed_prefix,
+                pac.allocate_prefix_len,
+                area=self.config.area_ids[0],
+                prefix_updates_queue=self.prefix_updates_queue,
+                config_store=self.config_store,
+                assign_to_interface=pac.assign_to_interface,
+            )
+            self.prefix_allocator.start()
+
+        # plugin (BGP-speaker seam) BEFORE Decision so its origins are in
+        # place for the first SPF (reference: Main.cpp:501-510)
+        if self.config.plugin_module:
+            from .plugin import PluginArgs, load_plugin, plugin_start
+
+            module = load_plugin(self.config.plugin_module)
+            self._plugin_handle = plugin_start(
+                module,
+                PluginArgs(
+                    prefix_updates_queue=self.prefix_updates_queue,
+                    static_routes_update_queue=self.static_routes_queue,
+                    route_updates_queue=self.route_updates_queue.get_reader(),
+                    config=self.config,
+                    node_name=self.config.node_name,
+                ),
+            )
+            # recorded only after a successful start so a plugin_start
+            # failure doesn't make stop() call plugin_stop(module, None)
+            self._plugin = module
+
+        # decision AFTER kvstore/link-monitor so SPF sees self
+        # (reference: Main.cpp:518 comment)
+        self.decision.run()
+        self.fib.run()
+        for module in (self.prefix_manager, self.decision, self.fib):
+            if self.watchdog is not None:
+                self.watchdog.add_evb(module)
+
+        # serving layer BEFORE the wire surfaces that submit into it:
+        # queries marshal onto the Decision thread in coalesced batches
+        # (serving.DecisionBatchBackend), so Decision must already be up
+        from .serving import DecisionBatchBackend, QueryScheduler
+
+        self.serving = QueryScheduler(
+            DecisionBatchBackend(self.decision),
+            # hold freshly coalesced batches (bounded) while topology
+            # events are mid-fold, so they pin the post-storm epoch
+            defer_hint=self.decision.pending_event_hint,
+        )
+        self.serving.run()
+        if self.watchdog is not None:
+            self.watchdog.add_evb(self.serving)
+        # admission-queue stats ride the queue.* counter surface next to
+        # the inter-module fabric (queue.serving_admission.overflows is
+        # the first overload signal; see docs/OPERATIONS.md)
+        self._queues["serving_admission"] = self.serving.admission
+
+        handler = OpenrCtrlHandler(
+            self.config.node_name,
+            kvstore=self.kvstore,
+            decision=self.decision,
+            fib=self.fib,
+            link_monitor=self.link_monitor,
+            prefix_manager=self.prefix_manager,
+            spark=self.spark,
+            monitor=self.monitor,
+            config=self.config,
+            # device-residency engine counters (device.engine.*) ride the
+            # same getCounters surface as every module's
+            device=getattr(self.decision.spf_solver.spf, "engine", None),
+            serving=self.serving,
+            # TE optimizer counters (te.*, pre-seeded at construction)
+            # ride the same surface; the optimizer lives on the serving
+            # backend so optimizeMetrics runs and counter reads agree
+            te=getattr(self.serving.backend, "te", None),
+            kvstore_updates_queue=self.kvstore_updates_queue,
+            fib_updates_queue=self.fib_updates_queue,
+            config_store=self.config_store,
+            watchdog=self.watchdog,
+            queues=self._queues,
+        )
+        self.ctrl_server = CtrlServer(
+            handler,
+            host=self.config.listen_addr,
+            port=self.config.openr_ctrl_port,
+            tls=self._tls_config(),
+        )
+        self.ctrl_server.run()
+        if self.watchdog is not None:
+            self.watchdog.add_evb(self.ctrl_server)
+            self.watchdog.start()
+
+    def _tls_config(self):
+        """config.TlsConf -> ctrl.tls.TlsConfig (None when TLS is off)."""
+        tc = self.config.tls_config
+        if tc is None or not tc.cert_path:
+            return None
+        from .ctrl.tls import TlsConfig
+
+        return TlsConfig(
+            cert_path=tc.cert_path,
+            key_path=tc.key_path,
+            ca_path=tc.ca_path,
+            acl_regex=tc.acl_regex,
+        )
+
+    @property
+    def ctrl_port(self) -> int:
+        assert self.ctrl_server is not None
+        return self.ctrl_server.port
+
+    def stop(self) -> None:
+        """Reverse-order teardown (reference: Main.cpp:617-668)."""
+        if self._plugin is not None:
+            from .plugin import plugin_stop
+
+            plugin_stop(self._plugin, self._plugin_handle)
+            self._plugin = None
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        for queue in self._queues.values():
+            queue.close()
+        modules = [
+            self.ctrl_server,
+            # serving after its wire surfaces (no new submissions), before
+            # the Decision thread its batches marshal onto
+            self.serving,
+            self.fib,
+            self.decision,
+            self.prefix_manager,
+            self.link_monitor,
+            self.spark,
+            self.kvstore,
+            self.monitor,
+        ]
+        if self.prefix_allocator is not None:
+            self.prefix_allocator.stop()
+        if self.kvstore_client is not None:
+            self.kvstore_client.stop()
+        for module in modules:
+            if module is not None:
+                module.stop()
+        for module in modules:
+            if module is not None:
+                module.wait_until_stopped(5)
+        self.config_store.close()
+
+
+def build_flag_parser() -> argparse.ArgumentParser:
+    """Process-level flag surface (reference: openr/common/Flags.cpp — the
+    operationally-relevant subset; most knobs live in the JSON config, and
+    every flag here overrides its config field, mirroring GflagConfig's
+    flag->config bridge, openr/config/GflagConfig.h).  The reference's
+    --use-device-spf / --no-device-spf pair is left out: the port's
+    daemon computes on the CUDA card and has no switch to the host."""
+    parser = argparse.ArgumentParser(description="openr_tpu_torch daemon")
+    parser.add_argument("--config", required=True, help="JSON config file")
+    # identity / ports (reference: --node_name, --openr_ctrl_port,
+    # --fib_port)
+    parser.add_argument("--node-name", default=None)
+    parser.add_argument("--listen-addr", default=None)
+    parser.add_argument("--openr-ctrl-port", type=int, default=None)
+    parser.add_argument("--fib-agent-host", default=None)
+    parser.add_argument("--fib-agent-port", type=int, default=None)
+    # drain / operation (reference: --assume_drained,
+    # --override_drain_state, --dryrun, --enable_watchdog)
+    parser.add_argument("--assume-drained", action="store_true", default=None)
+    parser.add_argument(
+        "--override-drain-state", action="store_true", default=None
+    )
+    parser.add_argument("--dryrun", action="store_true", default=None)
+    parser.add_argument(
+        "--disable-watchdog",
+        dest="enable_watchdog",
+        action="store_false",
+        default=None,
+    )
+    # features (reference: --enable_flood_optimization, --is_flood_root,
+    # --enable_netlink analog, --bgp_use_igp_metric plugin seam)
+    parser.add_argument(
+        "--enable-flood-optimization", action="store_true", default=None
+    )
+    parser.add_argument("--enable-netlink", action="store_true", default=None)
+    parser.add_argument("--plugin-module", default=None)
+    # decision timers (reference: --decision_debounce_min/max_ms)
+    parser.add_argument("--decision-debounce-min-ms", type=int, default=None)
+    parser.add_argument("--decision-debounce-max-ms", type=int, default=None)
+    # persistent state (reference: --config_store_filepath)
+    parser.add_argument("--config-store-path", default=None)
+    # ctrl mTLS + peer ACL (reference: --x509_cert_path etc.)
+    parser.add_argument("--tls-cert-path", default=None)
+    parser.add_argument("--tls-key-path", default=None)
+    parser.add_argument("--tls-ca-path", default=None)
+    parser.add_argument("--tls-acl-regex", default=None)
+    parser.add_argument("-v", "--verbose", action="store_true")
+    return parser
+
+
+def apply_flag_overrides(config, args) -> None:
+    """Flag-over-config precedence (reference: GflagConfig bridge)."""
+    overrides = {
+        "node_name": args.node_name,
+        "listen_addr": args.listen_addr,
+        "openr_ctrl_port": args.openr_ctrl_port,
+        "fib_agent_host": args.fib_agent_host,
+        "fib_agent_port": args.fib_agent_port,
+        "assume_drained": args.assume_drained,
+        "override_drain_state": args.override_drain_state,
+        "dryrun": args.dryrun,
+        "enable_watchdog": args.enable_watchdog,
+        "enable_netlink": args.enable_netlink,
+        "plugin_module": args.plugin_module,
+        "persistent_config_store_path": args.config_store_path,
+    }
+    for name, value in overrides.items():
+        if value is not None:
+            setattr(config, name, value)
+    if (
+        args.tls_cert_path
+        or args.tls_key_path
+        or args.tls_ca_path
+        or args.tls_acl_regex
+    ):
+        from .config import TlsConf
+
+        tls = config.tls_config or TlsConf()
+        for cfg_field, flag in (
+            ("cert_path", args.tls_cert_path),
+            ("key_path", args.tls_key_path),
+            ("ca_path", args.tls_ca_path),
+            ("acl_regex", args.tls_acl_regex),
+        ):
+            if flag is not None:
+                setattr(tls, cfg_field, flag)
+        config.tls_config = tls
+    if args.enable_flood_optimization is not None:
+        config.kvstore_config.enable_flood_optimization = (
+            args.enable_flood_optimization
+        )
+    if args.decision_debounce_min_ms is not None:
+        config.decision_config.debounce_min_ms = args.decision_debounce_min_ms
+    if args.decision_debounce_max_ms is not None:
+        config.decision_config.debounce_max_ms = args.decision_debounce_max_ms
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    # the card first: without one the daemon does not start at all
+    device = resolve_device(None)
+    args = build_flag_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+    )
+    config = load_config(args.config)
+    apply_flag_overrides(config, args)
+    config.validate()
+    daemon = OpenrDaemon(config, device=device)
+    daemon.start()
+    log.info(
+        "openr_tpu_torch %s up on %s; ctrl on [%s]:%d",
+        config.node_name,
+        device,
+        config.listen_addr,
+        daemon.ctrl_port,
+    )
+    stop_event = threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGINT, lambda *a: stop_event.set())
+        signal.signal(signal.SIGTERM, lambda *a: stop_event.set())
+    stop_event.wait()
+    daemon.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

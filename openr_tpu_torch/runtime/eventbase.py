@@ -8,9 +8,9 @@ getTimestamp() (OpenrEventBase.h:74).  A module may define the async
 hooks `prepare()`, started as a task on its loop when the loop starts,
 and `stopping()`, awaited on its loop before the loop stops.  The
 reference's race-detector, schedule-explorer and trace hand-off
-wrappers (its `analysis` and `obs` tooling) and its cross-loop
-coroutine calls (`run_async`, `run_coroutine`) are not ported: no
-ported module uses them.
+wrappers (its `analysis` and `obs` tooling) are not ported.  The
+cross-loop coroutine calls `run_async` and `run_coroutine` are: the
+ctrl server starts its listener on its own loop through them.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import concurrent.futures
 import logging
 import threading
 import time
-from typing import Any, Callable, Coroutine, Optional
+from typing import Any, Awaitable, Callable, Coroutine, Optional
 
 log = logging.getLogger(__name__)
 
@@ -217,6 +217,15 @@ class OpenrEventBase:
 
         self._loop.call_soon_threadsafe(_call)
         return fut
+
+    async def run_async(self, coro: Awaitable[Any]) -> Any:
+        """Await a coroutine on this module's loop from another loop."""
+        return await asyncio.wrap_future(self.run_coroutine(coro))
+
+    def run_coroutine(self, coro: Awaitable[Any]) -> "concurrent.futures.Future[Any]":
+        """Run a coroutine on this module's loop, from any thread."""
+        assert self._loop is not None
+        return asyncio.run_coroutine_threadsafe(coro, self._loop)
 
     def schedule_timeout(self, delay_s: float, fn: Callable[[], Any]) -> Timeout:
         """Run `fn` after `delay_s` on this module's loop; returns a

@@ -27,9 +27,25 @@ bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "openr_tpu")
 )
-print(len(names))
+print(",".join(names))
 print(",".join(bad))
 """
+
+# the daemon layer's modules, which the walk must reach
+DAEMON_MODULES = {
+    "openr_tpu_torch.main",
+    "openr_tpu_torch.config",
+    "openr_tpu_torch.config_store.persistent_store",
+    "openr_tpu_torch.allocators.prefix_allocator",
+    "openr_tpu_torch.allocators.range_allocator",
+    "openr_tpu_torch.monitor.monitor",
+    "openr_tpu_torch.monitor.watchdog",
+    "openr_tpu_torch.plugin",
+    "openr_tpu_torch.ctrl.client",
+    "openr_tpu_torch.ctrl.server",
+    "openr_tpu_torch.ctrl.tls",
+    "openr_tpu_torch.cli.breeze",
+}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -41,8 +57,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad = proc.stdout.splitlines()
-    assert int(n_modules) >= 58
+    names, bad = proc.stdout.splitlines()
+    names = set(names.split(","))
+    assert len(names) >= 58
+    assert DAEMON_MODULES <= names, DAEMON_MODULES - names
     assert bad == "", bad
 
 
