@@ -80,9 +80,16 @@ and its phases timed:
   version on a delta slab in both variants), and one node's adjacency
   key set again with a 3 s TTL and expired by every store's countdown
   (agents equal after the expiry); w000000 there is an `OpenrDaemon`
-  whose ctrl server answers breeze's `decision fleet-routes` (that cold
-  dump), `kvstore keys`, `decision routes`, `decision path` and
-  `monitor counters` over TCP, each against an oracle;
+  whose Fib programs its routes over TCP into a FIB agent process
+  (`python -m openr_tpu_torch.platform.fib_agent`), read back through
+  `TcpFibAgent` after every step, whose ctrl server answers breeze's
+  `decision fleet-routes` (that cold dump), `kvstore keys`, `decision
+  routes`, `decision path`, `monitor counters` and `fib validate`
+  (against the agent process) over TCP, and whose Thrift-binary shim
+  answers `getRouteDb`, `getRouteDbComputed`,
+  `getKvStoreKeyValsFiltered`, `queryPathsBatched` and `getCounters`,
+  each against an oracle; then a read-only rtnetlink dump of the
+  machine's links and addresses (`netlink_read_only`);
 - the daemon as operators run it: three `OpenrDaemon`s peered over TCP
   under `tests/test_system.py`'s breeze session, a reroute and a drain
   through breeze (`daemon_ring_tcp`), and `python -m
@@ -2811,10 +2818,10 @@ def routes_text_tables(text: str) -> tuple[dict, set]:
     return unicast, labels
 
 
-def path_oracle(ls, src: str, dst: str) -> int:
-    """The scipy oracle's metric from `src` to `dst` over the host
-    oracle's LinkState (both directions of every up link, each with the
-    metric it originates; no drained node)."""
+def ls_oracle(ls):
+    """The scipy oracle's graph of the host oracle's LinkState (both
+    directions of every up link, each with the metric it originates; no
+    drained node) and its node ids."""
     names = ls.node_names
     if any(ls.is_node_overloaded(v) for v in names):
         raise AssertionError("the scipy oracle takes no drained node")
@@ -2824,8 +2831,7 @@ def path_oracle(ls, src: str, dst: str) -> int:
         for link in ls.all_links if link.is_up() for frm in (link.n1, link.n2)
     ]
     a = np.asarray(rows, dtype=np.int64).reshape(-1, 3)
-    g = OracleGraph(a[:, 0], a[:, 1], a[:, 2], np.arange(len(a)), len(names))
-    return int(scipy_dist(g, node_id[src])[node_id[dst]])
+    return OracleGraph(a[:, 0], a[:, 1], a[:, 2], np.arange(len(a)), len(names)), node_id
 
 
 def wire_split(calls: list) -> dict:
@@ -2836,15 +2842,212 @@ def wire_split(calls: list) -> dict:
     return {k: sum(c[k] for c in calls) for k in keys}
 
 
-def daemon_queries(daemon, oracle, router, checked, n_keys, cold_dbs, fleet_out) -> dict:
+def hop_key(nh) -> tuple:
+    """Every field of a programmed next hop."""
+    a = nh.mpls_action
+    action = None if a is None else (int(a.action), a.swap_label, tuple(a.push_labels or ()))
+    return (nh.address, nh.if_name, nh.metric, nh.weight, nh.area, nh.neighbor_node_name,
+            action)
+
+
+def route_keys(unicast, mpls) -> tuple[dict, dict]:
+    """UnicastRoutes and MplsRoutes as {prefix | label: {hop_key}}."""
+    return (
+        {r.dest: {hop_key(nh) for nh in r.next_hops} for r in unicast},
+        {r.top_label: {hop_key(nh) for nh in r.next_hops} for r in mpls},
+    )
+
+
+class AgentLines:
+    """Wraps a `TcpFibAgent`'s `_call` and records each request line's
+    bytes (the JSON line the call writes) and each call's ms by method."""
+
+    def __init__(self, agent) -> None:
+        from openr_tpu_torch.serializer import to_wire
+
+        self.bytes: list[int] = []
+        self.ms: dict[str, list[float]] = {}
+        real = agent._call
+
+        def call(method, params):
+            line = json.dumps({"id": agent._next_id + 1, "method": method,
+                               "params": to_wire(params)})
+            self.bytes.append(len(line) + 1)
+            t0 = time.perf_counter()
+            try:
+                return real(method, params)
+            finally:
+                self.ms.setdefault(method, []).append((time.perf_counter() - t0) * 1e3)
+
+        agent._call = call
+
+    def take(self) -> dict:
+        """The step's calls: max and total line bytes, ms by method."""
+        out = {"agent_max_line_bytes": max(self.bytes, default=0),
+               "agent_line_bytes": sum(self.bytes), "agent_ms": self.ms}
+        self.bytes, self.ms = [], {}
+        return out
+
+
+def shim_call(port: int, name: str, args: bytes, success_spec, dec=None):
+    """One framed strict thrift-binary call to the daemon's shim through the
+    port's own codec (`interop.thrift_binary`): its success value, and
+    the call's ms, answer bytes and client decode ms.  An exception
+    answer raises."""
+    import socket
+    import struct
+
+    from openr_tpu_torch.interop import thrift_binary as tb
+
+    t0 = time.perf_counter()
+    with socket.create_connection((LOOPBACK, port), timeout=BREEZE_WAIT_S) as sock:
+        sock.sendall(tb.frame(tb.encode_message(name, tb.MSG_CALL, 1, args)))
+        f = sock.makefile("rb")
+        (length,) = struct.unpack("!i", f.read(4))
+        data = f.read(length)
+    t1 = time.perf_counter()
+    _, mtype, _, r = tb.decode_message(data)
+    if mtype != tb.MSG_REPLY:
+        raise AssertionError(f"shim {name}: answered {data[:300]!r}")
+    spec = tb.StructSpec("result", None, (tb.Field(0, "success", success_spec, dec=dec),))
+    value = tb.read_struct(r, spec)["success"]
+    t2 = time.perf_counter()
+    return value, {"ms": (t2 - t0) * 1e3, "call_ms": (t1 - t0) * 1e3,
+                   "decode_ms": (t2 - t1) * 1e3, "bytes": len(data)}
+
+
+def shim_queries(daemon, probe, router, checked, cold_dbs, agent_port, graph) -> dict:
+    """After the cold step: `breeze fib validate` against the agent
+    process, then the daemon's Thrift-binary shim through the port's own
+    codec, each with its ms: `getRouteDb` (equal to the agent process's
+    tables, read through `probe`), `getRouteDbComputed` of two checked
+    routers other than the router (equal to `decision_main_path`'s cold dump of them),
+    `getKvStoreKeyValsFiltered` on the router's own adjacency and prefix
+    keys (equal to `breeze kvstore keys --prefix`'s rows of them, but
+    for the TTL left), `queryPathsBatched` of the router and checked
+    routers (equal to scipy's Dijkstra on `graph`, `ls_oracle` of the
+    oracle Decision's LinkState), and `getCounters` (`decision.route_rebuild_failures` 0,
+    Fib's syncs to the agent counted, none failed).  K1's launches are
+    counted across the shim queries."""
+    from openr_tpu_torch.interop import thrift_binary as tb
+
+    rec = {}
+    out, rec["fib_validate_ms"], _ = breeze_run(
+        daemon.ctrl_port, "fib", "validate", "--agent-host", LOOPBACK,
+        "--agent-port", str(agent_port))
+    lines = out.splitlines()
+    agent_unicast, agent_mpls = route_keys(*(
+        probe.get_route_table_by_client(786), probe.get_mpls_route_table_by_client(786)))
+    want_lines = [f"unicast: daemon={len(agent_unicast)} agent={len(agent_unicast)}",
+                  f"mpls: daemon={len(agent_mpls)} agent={len(agent_mpls)}", "PASS"]
+    if lines != want_lines:
+        raise AssertionError(f"breeze fib validate: {out[-2000:]}")
+    rec["fib_validate"] = lines[:2]
+
+    port = daemon.thrift_shim.port
+    rec["port"] = port
+    zero_launch_counts()
+    db, rec["getRouteDb"] = shim_call(port, "getRouteDb", b"\x00", ("struct", tb.ROUTE_DATABASE))
+    if db.this_node_name != router or route_keys(db.unicast_routes, db.mpls_routes) != (
+            agent_unicast, agent_mpls):
+        raise AssertionError("shim getRouteDb differs from the agent process's tables")
+    rec["getRouteDb"]["routes"] = [len(db.unicast_routes), len(db.mpls_routes)]
+
+    node_args = tb.StructSpec("args", None, (tb.Field(1, "node_name", tb.T_STRING),))
+    rec["getRouteDbComputed"] = {}
+    for r in [r for r in checked if r != router][:2]:
+        db, call = shim_call(port, "getRouteDbComputed",
+                             tb.encode_struct(node_args, {"node_name": r}),
+                             ("struct", tb.ROUTE_DATABASE))
+        want = cold_dbs[r]
+        if db.this_node_name != r or route_keys(db.unicast_routes, db.mpls_routes) != route_keys(
+                [e.to_unicast_route() for e in want.unicast_routes.values()],
+                [e.to_mpls_route() for e in want.mpls_routes.values()]):
+            raise AssertionError(f"shim getRouteDbComputed({r}) differs from the cold dump")
+        call["routes"] = [len(db.unicast_routes), len(db.mpls_routes)]
+        rec["getRouteDbComputed"][r] = call
+
+    own = [f"adj:{router}", f"prefix:[{router}]"]
+    filt = tb.StructSpec("args", None, (tb.Field(1, "filter", ("struct", tb.KEY_DUMP_PARAMS)),))
+    pub, rec["getKvStoreKeyValsFiltered"] = shim_call(
+        port, "getKvStoreKeyValsFiltered", tb.encode_struct(filt, {"filter": {"keys": own}}),
+        ("struct", tb.PUBLICATION))
+    rows = []
+    for prefix in own:
+        text, _, _ = breeze_run(daemon.ctrl_port, "kvstore", "keys", "--prefix", prefix)
+        rows += [tuple(line.split()[:4]) for line in text.splitlines()[2:]]
+    got = sorted((k, v.originator_id, str(v.version), str(v.ttl_version))
+                 for k, v in pub.key_vals.items())
+    if not got or got != sorted(rows):
+        raise AssertionError(f"shim getKvStoreKeyValsFiltered: {got[:4]} against {rows[:4]}")
+    rec["getKvStoreKeyValsFiltered"]["keys"] = len(got)
+
+    sources = list(dict.fromkeys([router, *checked]))[:4]
+    paths_args = tb.StructSpec("args", None, (
+        tb.Field(1, "sources", ("list", tb.T_STRING)), tb.Field(2, "area", tb.T_STRING)))
+    dist, rec["queryPathsBatched"] = shim_call(
+        port, "queryPathsBatched", tb.encode_struct(paths_args, {"sources": sources, "area": "0"}),
+        ("map", tb.T_STRING, ("map", tb.T_STRING, tb.T_I64)))
+    t0 = time.perf_counter()
+    g, node_id = graph
+    names = list(node_id)
+    for src in sources:
+        d = scipy_dist(g, node_id[src])
+        want = {names[i]: int(d[i]) for i in np.flatnonzero(np.isfinite(d))}
+        got = {k.decode(): v for k, v in dist[src.encode()].items()}
+        if got != want:
+            raise AssertionError(f"shim queryPathsBatched({src}) differs from scipy")
+    rec["queryPathsBatched"].update(sources=sources, dests=len(want),
+                                    oracle_ms=(time.perf_counter() - t0) * 1e3)
+
+    counters, rec["getCounters"] = shim_call(
+        port, "getCounters", b"\x00", ("map", tb.T_STRING, tb.T_I64),
+        dec=lambda m: {k.decode(): v for k, v in m.items()})
+    fib = {k: v for k, v in counters.items() if k.startswith("fib.")}
+    if (counters.get("decision.route_rebuild_failures") != 0
+            or fib.get("fib.sync_fib_calls", 0) < 1
+            or any(v for k, v in fib.items() if k.startswith("fib.thrift.failure"))):
+        raise AssertionError(f"shim getCounters: {fib}")
+    rec["getCounters"].update(counters=len(counters), fib=fib,
+                              agent_process=probe.get_counters())
+    rec["launches"] = launch_counts()
+    return rec
+
+
+def netlink_read_only() -> dict:
+    """The port's rtnetlink socket on this machine, read only: a link and
+    an address dump (`NetlinkProtocolSocket.get_all_links` /
+    `get_all_addresses`); the links include the loopback and their names
+    are `socket.if_nameindex()`'s.  It adds, deletes and changes
+    nothing."""
+    import socket
+
+    from openr_tpu_torch.nl import NetlinkProtocolSocket
+
+    t0 = time.perf_counter()
+    sock = NetlinkProtocolSocket()
+    links = sock.get_all_links()
+    addrs = sock.get_all_addresses()
+    ms = (time.perf_counter() - t0) * 1e3
+    names = sorted(link.if_name for link in links)
+    kernel = sorted(name for _, name in socket.if_nameindex())
+    if "lo" not in names or names != kernel:
+        raise AssertionError(f"netlink links {names} against if_nameindex {kernel}")
+    return {"phase": "netlink_read_only", "links": names, "addresses": len(addrs),
+            "up": sorted(link.if_name for link in links if link.is_up), "dump_ms": ms}
+
+
+def daemon_queries(daemon, oracle, router, checked, n_keys, cold_dbs, fleet_out,
+                   probe) -> dict:
     """The wan100k daemon's answers over TCP through the port's breeze,
     each with its ms: `kvstore keys` (one row per key), `decision routes`
-    (as breeze prints the oracle Decision's route DB, and the daemon's
-    MockFibAgent's tables), `decision fleet-routes` (as breeze prints
+    (as breeze prints the oracle Decision's route DB, and the agent
+    process's tables, read through `probe`), `decision fleet-routes` (as breeze prints
     `decision_main_path`'s cold dump; run by the caller, `fleet_out`),
     `decision path` to the last checked router (its hops are links, its
-    metric theirs and the scipy oracle's), `monitor counters`
-    (`decision.route_rebuild_failures` 0).  `decision path` is split
+    metric theirs and the scipy oracle's on `ls_oracle`'s graph, built once
+    for it and the shim's paths), `monitor counters`
+    (`decision.route_rebuild_failures` 0), then `shim_queries`.  `decision path` is split
     into the server's module call and JSON encode, the wire, the
     client's decode, and the client's LinkState build and Dijkstra (the
     rest).  The queries after the fleet dump run with the cyclic
@@ -2862,13 +3065,18 @@ def daemon_queries(daemon, oracle, router, checked, n_keys, cold_dbs, fleet_out)
     rec["fleet_routes_lines"] = len(fleet_out["text"].splitlines())
     gc.disable()
     try:
-        daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec)
+        t0 = time.perf_counter()
+        graph = ls_oracle(oracle.area_link_states["0"])
+        rec["oracle_graph_ms"] = (time.perf_counter() - t0) * 1e3
+        daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec, probe, graph)
+        rec["shim"] = shim_queries(daemon, probe, router, checked, cold_dbs, probe.port, graph)
     finally:
         gc.enable()
     return rec
 
 
-def daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec) -> None:
+def daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec, probe,
+                          graph) -> None:
     """`daemon_queries` after the fleet dump, into `rec`."""
     out, rec["kvstore_keys_ms"], _ = breeze_run(port, "kvstore", "keys")
     rec["kvstore_keys_rows"] = len(out.splitlines()) - 2
@@ -2878,7 +3086,7 @@ def daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec) ->
     out, rec["decision_routes_ms"], _ = breeze_run(port, "decision", "routes")
     if out != breeze_render(["decision", "routes"], oracle.get_route_db("")):
         raise AssertionError("breeze decision routes differs from the oracle's route DB")
-    unicast, labels = agent_tables(daemon.fib_agent)
+    unicast, labels = agent_tables(probe)
     got_unicast, got_labels = routes_text_tables(out)
     if got_unicast != {
         p: {(nh.address, nh.if_name) for nh in r.next_hops} for p, r in unicast.items()
@@ -2906,7 +3114,8 @@ def daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec) ->
         if not costs:
             raise AssertionError(f"breeze decision path: no link {a} -> {b}")
         cost += min(costs)
-    want = path_oracle(ls, router, dst)
+    g, node_id = graph
+    want = int(scipy_dist(g, node_id[router])[node_id[dst]])
     if hops[0] != router or hops[-1] != dst or cost != metric or metric != want:
         raise AssertionError(
             f"breeze decision path: {out.strip()!r}, hops cost {cost}, scipy {want}"
@@ -2920,7 +3129,7 @@ def daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec) ->
     rec["monitor_counters"] = len(counters)
 
 
-def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
+def kvstore_decision_wan100k(device, timer, handoff: KvHandoff, agent: "AgentProcess",
                              batch: int = 8192, ttl_ms: int = 3000) -> dict:
     """The node's KvStore feeding the card Decision at full width, in the
     port's daemon.  Three port KvStores on one `InProcessTransport` in a
@@ -2930,7 +3139,12 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
     `OpenrDaemon` on the card (`smoke_config`): its KvStore on the
     fabric, its Spark on a `MockIoProvider` endpoint with no neighbor,
     its card Decision (`fleet_delta` on, as the daemon builds it) → Fib →
-    MockFibAgent, and its ctrl server on 127.0.0.1.  A `HostSpfBackend`
+    `TcpFibAgent` → the FIB agent process `agent` (its config's
+    `fib_agent_port`), its ctrl server and its Thrift-binary shim
+    (`thrift_shim_port`) on 127.0.0.1.  The card side's tables are read
+    from the agent process through a second `TcpFibAgent` (`probe`); each
+    step records the Fib's agent calls (ms by method, the largest and
+    total request line bytes).  A `HostSpfBackend`
     Decision → Fib, the oracle, is a second reader of the daemon's
     `kvstore_updates_queue`.
     (1) Cold: `transit` peers `seed`, then the router peers `transit`
@@ -2954,7 +3168,9 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
     breeze commands (`daemon_queries`): `kvstore keys`, `decision routes`,
     `decision fleet-routes` of the checked routers (the cold dump above:
     K1 uint16 once, held against its plain version on the dump's own
-    input), `decision path` and `monitor counters`.  `handoff.values` is
+    input), `decision path` and `monitor counters`, then `breeze fib
+    validate` against the agent process and the shim's queries
+    (`shim_queries`).  `handoff.values` is
     emptied once `seed` holds its keys, and the heap is frozen
     (`gc.freeze`) then and after every step and dump, so each full
     collection walks only what the step at hand allocated."""
@@ -2968,6 +3184,7 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
     from openr_tpu_torch.kvstore import InProcessTransport, KvStore, KvStoreClientInternal
     from openr_tpu_torch.main import OpenrDaemon
     from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.platform import TcpFibAgent
     from openr_tpu_torch.runtime.eventbase import OpenrEventBase
     from openr_tpu_torch.runtime.queue import ReplicateQueue
     from openr_tpu_torch.serializer import dumps
@@ -2987,7 +3204,7 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
     stores, updates_of, queues = {}, {}, []
     sides = {}
     clock = MethodClock()
-    evb = client = daemon = None
+    evb = client = daemon = probe = None
     # the keys the router originated in the seed's Values
     own = {k: (v.version, v.originator_id) for k, v in handoff.values.items()
            if v.originator_id == router}
@@ -3002,16 +3219,24 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
             updates_of[name] = updates
             fabric.register(name, stores[name])
             stores[name].run()
+        rec["agent"] = {"port": agent.port, "answered_after_spawn_s": agent.wait_up()}
         t0 = time.perf_counter()
         daemon = OpenrDaemon(
-            smoke_config(router), io_provider=MockIoProvider().endpoint(router),
+            smoke_config(router, fib_agent_host=LOOPBACK, fib_agent_port=agent.port,
+                         thrift_shim_port=free_port()),
+            io_provider=MockIoProvider().endpoint(router),
             kvstore_transport=fabric.bind(router), spark_v6_addr=router, device=device,
         )
+        if not isinstance(daemon.fib_agent, TcpFibAgent):
+            raise AssertionError(f"the daemon's Fib programs {type(daemon.fib_agent)}")
+        agent_lines = AgentLines(daemon.fib_agent)
         stores[router] = daemon.kvstore
         updates_of[router] = daemon.kvstore_updates_queue
         fabric.register(router, daemon.kvstore)
+        # the daemon's own agent client belongs to its Fib thread
+        probe = TcpFibAgent(host=LOOPBACK, port=agent.port, timeout_s=60.0)
         sides["card"] = dict(
-            decision=daemon.decision, agent=daemon.fib_agent, fib=daemon.fib,
+            decision=daemon.decision, agent=probe, fib=daemon.fib,
             programmed=daemon.fib_updates_queue.get_reader(),
         )
         routeq, fibq = ReplicateQueue(), ReplicateQueue()
@@ -3084,6 +3309,7 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
             return {
                 "publications": publications,
                 **clock.take(),
+                **agent_lines.take(),
                 "unicast_routes": len(agent_tables(card["agent"])[0]),
             }
 
@@ -3216,9 +3442,11 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
         k1_total += rec["cold_dump"]["launches"][KERNEL_U16["name"]]
         rec["breeze"] = daemon_queries(
             daemon, oracle["decision"], router, checked, n_keys, handoff.cold_dbs,
-            fleet_out,
+            fleet_out, probe,
         )
         rec["breeze"]["queries_s"] = time.perf_counter() - t_queries
+        rec["breeze"]["shim"]["agent_calls"] = agent_lines.take()
+        k1_total += rec["breeze"]["shim"]["launches"][KERNEL_U16["name"]]
 
         # (2) flood: seed's client persists step (a)'s database
         evb = OpenrEventBase(name="seed-client")
@@ -3282,6 +3510,10 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
             if not rec["kvstore_counters"][n].get("kvstore.expired_key_vals"):
                 raise AssertionError(f"ttl expiry: {n}'s countdown expired nothing")
         rec["decision_counters"] = card["decision"].get_counters()
+        rec["fib_counters"] = card["fib"].get_counters()
+        rec["agent"]["counters"] = probe.get_counters()
+        if any(v for k, v in rec["fib_counters"].items() if k.startswith("fib.thrift.failure")):
+            raise AssertionError(f"the Fib's agent calls failed: {rec['fib_counters']}")
         rec["k1_launches"] = k1_total
         rec["gc_frozen_objects"] = gc.get_freeze_count()
     finally:
@@ -3294,6 +3526,8 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff,
             sides["oracle"]["fib"].stop()
         if daemon is not None:
             daemon.stop()
+        if probe is not None:
+            probe.close()
         clock.close()
         if evb is not None:
             evb.stop()
@@ -3777,6 +4011,63 @@ class DaemonProcess:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        self._tmp.cleanup()
+
+
+class AgentProcess:
+    """`python -m openr_tpu_torch.platform.fib_agent` as a user starts it,
+    on 127.0.0.1 and a port the kernel handed out; it computes nothing and
+    takes no device.  Entered before `kvstore_decision_wan100k`, whose
+    daemon's Fib programs it; stopped with SIGTERM on exit (killed if it
+    does not end within 10 s), its exit code kept."""
+
+    def __enter__(self) -> "AgentProcess":
+        import os
+        import tempfile
+
+        self.port = free_port()
+        self._tmp = tempfile.TemporaryDirectory()
+        self.log_path = os.path.join(self._tmp.name, "agent.log")
+        self.spawned_at = time.perf_counter()
+        self.exit_code = None
+        with open(self.log_path, "w") as log_file:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "openr_tpu_torch.platform.fib_agent",
+                 "--host", LOOPBACK, "--port", str(self.port)],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=log_file, stderr=subprocess.STDOUT,
+            )
+        return self
+
+    def wait_up(self, timeout: float = 60.0) -> float:
+        """Seconds from the spawn until the agent answers `aliveSince`."""
+        from openr_tpu_torch.platform import TcpFibAgent
+
+        probe = TcpFibAgent(host=LOOPBACK, port=self.port, timeout_s=1.0)
+        try:
+            while True:
+                try:
+                    probe.alive_since()
+                    return time.perf_counter() - self.spawned_at
+                except OSError:
+                    if self.proc.poll() is not None:
+                        with open(self.log_path) as f:
+                            raise AssertionError(f"the agent exited: {f.read()[-2000:]}")
+                    if time.perf_counter() - self.spawned_at > timeout:
+                        raise AssertionError(f"the agent did not answer within {timeout} s")
+                    time.sleep(0.05)
+        finally:
+            probe.close()
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.exit_code = self.proc.returncode
         self._tmp.cleanup()
 
 
@@ -5831,10 +6122,16 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     # starts here and is checked after daemon_ring_tcp
     with DaemonProcess() if timer.cuda else contextlib.nullcontext() as process:
         # this slice's main path: the KvStore chain feeding the card
-        # Decision the cold publication decision_main_path built
-        record = kvstore_decision_wan100k(device, timer, handoff)
+        # Decision the cold publication decision_main_path built, its
+        # daemon's Fib programming the FIB agent process
+        with AgentProcess() as agent:
+            record = kvstore_decision_wan100k(device, timer, handoff, agent)
+        record["agent"]["exit_code"] = agent.exit_code
+        if agent.exit_code not in (0, -15):  # SIGTERM ends it
+            raise AssertionError(f"the agent process exited {agent.exit_code}")
         del handoff
         emit(record)
+        emit(netlink_read_only())
         paths["kvstore_decision_wan100k"] = record["k1_launches"]
         for variant, rec in record["flood_dump"].get("k1_slab", {}).items():
             k1_records[variant]["kvstore_flood_slab"] = rec

@@ -6,8 +6,8 @@ ctrl API.  argparse-based (no third-party CLI dependency).
 
     python -m openr_tpu_torch.cli.breeze [-H host] [-p port] <group> <command> [args]
 
-`fib validate` needs the platform FIB agent client, which the port does
-not have yet (ROADMAP queue 1 item 3): it raises ValueError.
+`fib validate` audits the daemon's programmed routes against a FIB agent
+(`python -m openr_tpu_torch.platform.fib_agent`) over its TCP wire.
 
 Groups: kvstore, decision, fib, lm, prefixmgr, spark, monitor, config.
 """
@@ -265,13 +265,59 @@ def cmd_fib_routes(client: CtrlClient, args) -> None:
 
 def cmd_fib_validate(client: CtrlClient, args) -> None:
     """Audit daemon FIB state against the platform agent's programmed
-    table (reference: breeze fib validate against the FibService agent).
-    The port has no TCP FIB agent client yet, so this refuses rather
-    than report a check it did not make."""
-    raise ValueError(
-        "breeze fib validate needs the TCP FIB agent client, which the "
-        "port does not have yet (ROADMAP queue 1 item 3)"
-    )
+    table (reference: breeze fib validate against the FibService agent)."""
+    from ..platform import TcpFibAgent
+
+    # programmedOnly: do_not_install prefixes and (with segment routing
+    # off) label routes are tracked by Fib but never sent to the agent
+    db = client.call("getRouteDbFib", programmedOnly=True)
+    daemon_unicast = {r.dest: r for r in db["unicastRoutes"]}
+    daemon_mpls = {r.top_label: r for r in db["mplsRoutes"]}
+
+    agent = TcpFibAgent(host=args.agent_host, port=args.agent_port)
+    try:
+        agent_unicast = {
+            r.dest: r for r in agent.get_route_table_by_client(args.client_id)
+        }
+        agent_mpls = {
+            r.top_label: r
+            for r in agent.get_mpls_route_table_by_client(args.client_id)
+        }
+    except OSError as e:
+        print(
+            f"cannot reach fib agent at "
+            f"[{args.agent_host}]:{args.agent_port}: {e}"
+        )
+        raise SystemExit(1)
+    finally:
+        agent.close()
+
+    ok = True
+    for label, daemon_table, agent_table in (
+        ("unicast", daemon_unicast, agent_unicast),
+        ("mpls", daemon_mpls, agent_mpls),
+    ):
+        missing = sorted(set(daemon_table) - set(agent_table))
+        extra = sorted(set(agent_table) - set(daemon_table))
+        mismatched = sorted(
+            k
+            for k in set(daemon_table) & set(agent_table)
+            if set(daemon_table[k].next_hops) != set(agent_table[k].next_hops)
+        )
+        for kind, keys in (
+            ("missing from agent", missing),
+            ("extra in agent", extra),
+            ("nexthop mismatch", mismatched),
+        ):
+            for key in keys:
+                ok = False
+                print(f"FAIL [{label}] {kind}: {key}")
+        print(
+            f"{label}: daemon={len(daemon_table)} agent={len(agent_table)}"
+        )
+    print("PASS" if ok else "FAIL")
+    if not ok:
+        raise SystemExit(1)
 
 
 def cmd_fib_perf(client: CtrlClient, args) -> None:

@@ -133,9 +133,8 @@ class OpenrConfig:
     override_drain_state: bool = False
     eor_time_s: Optional[float] = None
     node_label: int = 0
-    # thrift Binary+framed interop listener (the reference's
-    # interop.shim; not ported yet, so the port's daemon refuses a
-    # nonzero value); 0 disables, -1 binds an ephemeral port (tests)
+    # thrift Binary+framed interop listener (interop.shim); 0 disables,
+    # -1 binds an ephemeral port (tests)
     thrift_shim_port: int = 0
     persistent_config_store_path: str = ""
     # standalone FibService platform agent endpoint (reference: fib_port

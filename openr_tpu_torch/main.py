@@ -12,14 +12,16 @@ in one process with no network or kernel.  Its Decision computes on the
 CUDA card unless the caller passes `device` ("cpu" in the tests), and
 `main()` refuses to start without a card.
 
-Three parts of the reference's daemon are not ported yet (ROADMAP queue 1
-item 3), and a config that asks for one makes `OpenrDaemon` raise
-ValueError rather than start without it: the rtnetlink socket
-(`enable_netlink`), the TCP FIB agent (`fib_agent_port`) and the Thrift
-shim (`thrift_shim_port`).  The replica fleet (`ServingFleet`) and the
-reference's tracing, fuzzing, schedule-exploration, race-detector and
-snapshot hooks come with the modules that bring them (ROADMAP queue 1
-items 5, 6, 8 and 9).
+A config that asks for the rtnetlink socket (`enable_netlink`), the TCP
+FIB agent (`fib_agent_port`, a `python -m
+openr_tpu_torch.platform.fib_agent` process; unless the caller passes
+`fib_agent`) or the Thrift shim (`thrift_shim_port`, -1 for a port the
+kernel picks) gets that part built and started with the daemon, or the
+daemon fails to start.  A failed agent call raises into Fib's retry and
+backoff; nothing stands in for the agent.  The
+replica fleet (`ServingFleet`) and the reference's tracing, fuzzing,
+schedule-exploration, race-detector and snapshot hooks come with the
+modules that bring them (ROADMAP queue 1 items 5, 6, 8 and 9).
 
 Queue wiring (reference: Main.cpp:275-287; SURVEY §1 dataflow):
 
@@ -75,26 +77,6 @@ class OpenrDaemon:
         spark_v6_addr: str = "",
         device=None,
     ) -> None:
-        # refuse before any thread or socket exists: the daemon never
-        # starts without a part its config asked for
-        for wanted, part in (
-            (config.enable_netlink, "enable_netlink: the rtnetlink socket"),
-            (
-                fib_agent is None and config.fib_agent_port,
-                "fib_agent_port: the TCP FIB agent",
-            ),
-            (config.thrift_shim_port, "thrift_shim_port: the Thrift shim"),
-            (
-                config.prefix_allocation_config is not None
-                and config.prefix_allocation_config.assign_to_interface,
-                "prefix_allocation_config.assign_to_interface: the "
-                "rtnetlink socket",
-            ),
-        ):
-            if wanted:
-                raise ValueError(
-                    f"config asks for {part}, not ported yet (ROADMAP queue 1 item 3)"
-                )
         self.config = config
         name = config.node_name
         areas = config.area_ids
@@ -231,6 +213,12 @@ class OpenrDaemon:
         )
 
         # -- fib (reference: Main.cpp:533-545) -------------------------------
+        if fib_agent is None and config.fib_agent_port:
+            from .platform import TcpFibAgent
+
+            fib_agent = TcpFibAgent(
+                host=config.fib_agent_host, port=config.fib_agent_port
+            )
         self.fib_agent = fib_agent or MockFibAgent()
         self.fib = Fib(
             name,
@@ -248,8 +236,10 @@ class OpenrDaemon:
         self.prefix_allocator: Optional[PrefixAllocator] = None
         self.serving = None  # serving.QueryScheduler (started in start())
         self.ctrl_server: Optional[CtrlServer] = None
+        self.thrift_shim = None  # interop.shim.ThriftBinaryShim when enabled
         self._plugin = None
         self._plugin_handle = None
+        self.netlink = None
         self._started = False
 
     # -- lifecycle (reference: Main.cpp startup order + reverse teardown) ----
@@ -257,6 +247,14 @@ class OpenrDaemon:
     def start(self) -> None:
         assert not self._started
         self._started = True
+        # netlink FIRST so the initial kernel state replay is queued before
+        # LinkMonitor starts consuming (reference: Main.cpp:330-343 brings
+        # the netlink evb up before every module)
+        if self.config.enable_netlink:
+            from .nl import NetlinkProtocolSocket
+
+            self.netlink = NetlinkProtocolSocket(self.netlink_events_queue)
+            self.netlink.run()
         modules = [self.monitor, self.kvstore, self.spark, self.link_monitor]
         for module in modules:
             module.run()
@@ -355,6 +353,7 @@ class OpenrDaemon:
             prefix_manager=self.prefix_manager,
             spark=self.spark,
             monitor=self.monitor,
+            netlink=self.netlink,
             config=self.config,
             # device-residency engine counters (device.engine.*) ride the
             # same getCounters surface as every module's
@@ -377,6 +376,23 @@ class OpenrDaemon:
             tls=self._tls_config(),
         )
         self.ctrl_server.run()
+        if self.config.thrift_shim_port:
+            # stock-openr-shaped thrift Binary+framed listener over the
+            # same modules (interop.shim)
+            from .interop.shim import ThriftBinaryShim
+
+            self.thrift_shim = ThriftBinaryShim(
+                self.kvstore,
+                host=self.config.listen_addr,
+                port=max(self.config.thrift_shim_port, 0),
+                node_name=self.config.node_name,
+                decision=self.decision,
+                fib=self.fib,
+                serving=self.serving,
+                counters_fn=self.ctrl_server.handler._all_counters,
+                kvstore_updates_queue=self.kvstore_updates_queue,
+            )
+            self.thrift_shim.run()
         if self.watchdog is not None:
             self.watchdog.add_evb(self.ctrl_server)
             self.watchdog.start()
@@ -412,6 +428,7 @@ class OpenrDaemon:
         for queue in self._queues.values():
             queue.close()
         modules = [
+            self.thrift_shim,
             self.ctrl_server,
             # serving after its wire surfaces (no new submissions), before
             # the Decision thread its batches marshal onto
@@ -434,6 +451,13 @@ class OpenrDaemon:
         for module in modules:
             if module is not None:
                 module.wait_until_stopped(5)
+        if self.netlink is not None:
+            self.netlink.stop()
+            self.netlink.wait_until_stopped(5)
+            self.netlink = None
+        close_agent = getattr(self.fib_agent, "close", None)
+        if callable(close_agent):
+            close_agent()  # TcpFibAgent holds a persistent socket
         self.config_store.close()
 
 

@@ -270,10 +270,24 @@ def test_prefix_allocator_advertises_and_persists(seed_prefix, alloc_len, nodes,
 
 
 def test_port_refuses_assign_to_interface(nodes):
-    """Assigning the prefix to an interface needs the rtnetlink socket,
-    which the port does not have yet: construction raises."""
-    p = P["port"]
-    node = nodes(p, "node1")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
-        p.pa.PrefixAllocator(node.evb, "node1", node.client, "fc00::/16", 32,
-                             assign_to_interface="lo")
+    """`assign_to_interface` is taken in both packages (the test keeps the
+    name it had while the port refused it): the same prefix is elected,
+    and each allocator's address sync reads the kernel's links through
+    its own rtnetlink socket.  The interface does not exist, so nothing
+    is programmed."""
+    got = {}
+    for name, p in P.items():
+        node = nodes(p, "node1")
+        alloc = p.pa.PrefixAllocator(node.evb, "node1", node.client, "fc00::/16", 32,
+                                     assign_to_interface="openr-no-such-if")
+        alloc.start()
+        try:
+            assert wait_for(lambda: alloc.get_my_prefix() is not None)
+            assert wait_for(lambda: alloc._nl is not None and not alloc._addr_worker_busy)
+            got[name] = (alloc.get_my_prefix(), type(alloc._nl).__module__)
+        finally:
+            alloc.stop()
+        assert alloc._nl is None
+    assert got["port"][0] == got["ref"][0]
+    assert got["port"][1] == "openr_tpu_torch.nl.netlink"
+    assert got["ref"][1] == "openr_tpu.nl.netlink"

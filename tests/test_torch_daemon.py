@@ -13,10 +13,11 @@ breeze CLI against `openr_tpu`'s.
 - The reference's examples (tests/test_examples.py) against port
   daemons: as they are where they speak the ctrl wire, and with their
   imports pointed at the port where they share queues with the daemon.
-- No fallback: a config that asks for the rtnetlink socket, a TCP FIB
-  agent, the Thrift shim or an interface for the allocated prefix makes
-  the port's daemon raise at construction; so does `breeze fib
-  validate`; `main()` raises without CUDA.
+- The parts a config asks for are built: the rtnetlink socket, a TCP
+  FIB agent, the Thrift shim and the allocator's interface address sync
+  start with the daemon and end with its `stop()`; no module docstring
+  calls any of them unported.  `breeze fib validate` against no agent
+  exits 1 as the reference's does; `main()` raises without CUDA.
 
 Ports come from the kernel (bind to port 0); every wait polls converged
 state against a deadline.
@@ -383,9 +384,19 @@ def test_breeze_against_the_other_packages_daemon(tcp_pairs):
 
 
 def test_breeze_fib_validate_refuses(tcp_pairs):
-    port = tcp_pairs["port"][1][0]
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
-        P["port"].breeze.main(["-p", str(port), "fib", "validate"])
+    """With no agent listening, `fib validate` refuses to pass: it exits 1
+    and prints what the reference's breeze prints against its daemon."""
+    agent_port = free_port()
+    outs = {}
+    for name, p in P.items():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as exit_:
+            p.breeze.main(["-p", str(tcp_pairs[name][1][0]), "fib", "validate",
+                           "--agent-port", str(agent_port)])
+        assert exit_.value.code == 1
+        outs[name] = out.getvalue()
+    assert outs["port"].startswith(f"cannot reach fib agent at [::1]:{agent_port}: ")
+    assert outs["port"] == outs["ref"]
 
 
 def test_breeze_unreachable(capsys):
@@ -501,7 +512,7 @@ def test_bad_plugin_module_fails_loudly(module):
     d.stop()
 
 
-# -- no fallback ------------------------------------------------------------------
+# -- the parts a config asks for --------------------------------------------------------
 
 
 @pytest.mark.parametrize("field,value,part", [
@@ -510,24 +521,91 @@ def test_bad_plugin_module_fails_loudly(module):
     ("thrift_shim_port", -1, "Thrift shim"),
 ])
 def test_unported_parts_refuse_at_construction(field, value, part):
+    """Each part a config asks for is built and started with the daemon,
+    serves, and ends with its `stop()` (the test keeps the name it had
+    while the port refused these parts)."""
+    from openr_tpu_torch.ctrl import CtrlClient
+    from openr_tpu_torch.platform import FibAgentServer, TcpFibAgent
+
     p = P["port"]
-    cfg = make_config(p, "refuse")
-    setattr(cfg, field, value)
     before = set(threading.enumerate())
-    with pytest.raises(ValueError, match=f"{part}.*ROADMAP queue 1 item 3"):
-        p.main.OpenrDaemon(cfg, io_provider=p.MockIoProvider().endpoint("refuse"),
-                           device="cpu")
-    assert set(threading.enumerate()) <= before
+    agent = None
+    cfg = make_config(p, "part")
+    if field == "fib_agent_port":
+        agent = FibAgentServer()
+        agent.start()
+        value = agent.port  # the kernel's port for the parametrized 60100
+    setattr(cfg, field, value)
+    d = p.main.OpenrDaemon(cfg, io_provider=p.MockIoProvider().endpoint("part"), device="cpu")
+    try:
+        d.start()
+        if field == "enable_netlink":
+            assert type(d.netlink).__name__ == "NetlinkProtocolSocket"
+            assert d.netlink.is_running
+            with CtrlClient("::1", d.ctrl_port) as client:
+                assert client.call("getCounters")["netlink.links"] >= 1
+        elif field == "fib_agent_port":
+            assert isinstance(d.fib_agent, TcpFibAgent) and d.fib_agent.port == value
+            assert wait_for(lambda: agent.table.get_counters().get("fibagent.sync_fib", 0) >= 1)
+            assert d.fib.get_counters().get("fib.sync_fib_calls", 0) >= 1
+        else:
+            from openr_tpu_torch.interop import thrift_binary as tb
+
+            port = d.thrift_shim.port
+            assert port > 0
+            with socket.create_connection(("::1", port), timeout=10) as sock:
+                sock.sendall(tb.frame(tb.encode_message("getMyNodeName", tb.MSG_CALL, 1,
+                                                        b"\x00")))
+                reply = sock.recv(4096)
+            assert reply[4:] == tb.encode_message("getMyNodeName", tb.MSG_REPLY, 1,
+                                                  b"\x0b\x00\x00\x00\x00\x00\x04part\x00")
+    finally:
+        d.stop()
+        if agent is not None:
+            agent.stop()
+    assert d.netlink is None
+    if d.thrift_shim is not None:
+        assert not d.thrift_shim.is_running
+    left = [t for t in set(threading.enumerate()) - before if t.is_alive()]
+    assert not left, [t.name for t in left]
 
 
 def test_allocated_prefix_on_an_interface_refuses():
+    """`assign_to_interface` is taken (the test keeps the name it had
+    while the port refused it): the daemon allocates, and the allocator's
+    address sync runs through the rtnetlink socket.  The interface does
+    not exist, so the sync only reads the kernel's links."""
     p = P["port"]
-    cfg = make_config(p, "refuse")
+    cfg = make_config(p, "assign")
     cfg.prefix_allocation_config = p.config.PrefixAllocationConf(
-        seed_prefix="2001:db8::/48", allocate_prefix_len=64, assign_to_interface="lo")
-    with pytest.raises(ValueError, match="rtnetlink socket.*ROADMAP queue 1 item 3"):
-        p.main.OpenrDaemon(cfg, io_provider=p.MockIoProvider().endpoint("refuse"),
+        seed_prefix="2001:db8::/48", allocate_prefix_len=64,
+        assign_to_interface="openr-no-such-if")
+    d = p.main.OpenrDaemon(cfg, io_provider=p.MockIoProvider().endpoint("assign"),
                            device="cpu")
+    d.start()
+    try:
+        alloc = d.prefix_allocator
+        assert alloc.assign_to_interface == "openr-no-such-if"
+        assert wait_for(lambda: alloc.get_my_prefix() is not None)
+        assert wait_for(lambda: alloc._nl is not None and not alloc._addr_worker_busy)
+        assert type(alloc._nl).__module__ == "openr_tpu_torch.nl.netlink"
+    finally:
+        d.stop()
+    assert alloc._nl is None  # stop() released the socket
+
+
+def test_no_part_of_the_daemon_is_left_unported():
+    """No module of the port says a part of the daemon is not ported."""
+    hits = []
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "openr_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                text = open(path).read()
+                for phrase in ("queue 1 item 3", "does not have yet"):
+                    if phrase in text:
+                        hits.append((os.path.relpath(path, ROOT), phrase))
+    assert not hits, hits
 
 
 def test_explicit_fib_agent_overrides_the_port_as_in_the_reference():
