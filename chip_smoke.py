@@ -114,10 +114,18 @@ and its phases timed:
   evaluations; K1 held against its plain version on the first
   evaluation's inputs; the first descent step held against the CPU's;
 - the query-serving layer on the WAN: `QueryScheduler(EngineBatchBackend
-  ({"0": ls}))` answering one burst of 256 paths, 4 what-if, 4 KSP and
+  ({"0": ls}))` answering one burst of 128 paths, 4 what-if, 4 KSP and
   2 coalesced optimize_metrics queries (K1 once per TE evaluation, and
   held against its plain version on the first), against the host
   Dijkstra and scipy, and one flap that invalidates a staged batch;
+- a second replica of that query service restored from an
+  `EngineSnapshot` of the first (serialized and read back: the install
+  rung, no restage, prewarm), both behind a `ReplicaRouter` in pinned
+  sessions (paths, what-if and optimize_metrics with K1 counted and held
+  against its plain version), a flap, the replay and cold rungs, the
+  joiner killed under the router and a damaged artifact refused; and
+  `ServingFleet(2)` of full daemons on the card, its front door, a
+  snapshot scale-out and a scale-in under load and a replica kill;
 - BASELINE config #3's dual-metric KSP2 on that mirror's forward
   runner (`ops.ksp.FusedKsp2Runner`, an IGP and a TE plane, 8
   destinations) against scipy's Dijkstra over the oracle Decision's
@@ -135,6 +143,11 @@ The masked batches (KSP2 re-runs, what-if, TI-LFA) are plain PyTorch,
 as the reference leaves them to XLA; their phases print the masked
 runs, the learned `hint_masked`, the per-sweep time against its byte
 bound, the oracle's time and peak device memory, and launch no kernel.
+
+The host Dijkstra results the route, prefetch, served-path, oracle
+Decision and TI-LFA checks compare against come from `ScipySpf`
+(scipy's Dijkstra, the SP-DAG and next hops in numpy), which
+tests/test_torch_smoke_oracle.py holds equal to `LinkState.run_spf`.
 
 Each phase prints one JSON line; the line before the last is the
 `kernels` record, and the last line is {"ok": true, "device": {...}}.
@@ -212,7 +225,14 @@ OUTER_KERNEL = {
 NO_LIBRARY = "no single PyTorch call computes this function"
 
 
+T_START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
+    """Print one phase record with the seconds since the script started
+    (`at_s`), so a run's timeline reads from its output."""
+    if "phase" in record:
+        record = {**record, "at_s": time.perf_counter() - T_START}
     print(json.dumps(record), flush=True)
 
 
@@ -828,6 +848,177 @@ def expected_routes(ls, router, advertisers, prefixes, labels):
     return unicast, mpls, dist
 
 
+@contextlib.contextmanager
+def gc_paused():
+    """The cyclic collector off for the block: the oracle and the checks
+    allocate an object per node, and full collections of a heap holding
+    a 100k-node LinkState would cost more than their work."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+class ScipySpf:
+    """The host Dijkstra's SpfResults from scipy's Dijkstra, equal to
+    `LinkState.run_spf`'s (tests/test_torch_smoke_oracle.py holds them
+    equal on seeded topologies, with and without drained nodes) and
+    independent of the code under test: it reads only the LinkState's
+    links.
+
+    The rules are `run_spf`'s: a link counts when it is up; a drained
+    node other than the source is reached but relaxes nothing; a node's
+    `path_links` are its shortest-path in-links in the Dijkstra's pop
+    order of their tail, (metric, name), and per tail in its sorted
+    links' order; its `next_hops` are the union of its tails' (a tail
+    that is the source gives the node itself).  Built once per
+    LinkState version (one pass over every node's sorted links);
+    `prime_spf` writes the results into the LinkState's own cache, so the
+    checks that read `ls.get_spf_result` compare against them."""
+
+    def __init__(self, ls) -> None:
+        import scipy.sparse
+
+        with gc_paused():
+            self.ls = ls
+            self.version = ls.version
+            self.names = names = list(ls.node_names)  # sorted: ids are name order
+            node_id = {n: i for i, n in enumerate(names)}
+            # every link once, in its sort order (`ordered_names`); each
+            # gives one directed edge from either end
+            links = sorted(ls.all_links, key=lambda link: link.ordered_names)
+            n_links = len(links)
+            a = np.fromiter((node_id[link.n1] for link in links), np.int64, n_links)
+            b = np.fromiter((node_id[link.n2] for link in links), np.int64, n_links)
+            m1 = np.fromiter((link.metric1 for link in links), np.int64, n_links)
+            m2 = np.fromiter((link.metric2 for link in links), np.int64, n_links)
+            up = np.fromiter((link.is_up() for link in links), bool, n_links)
+            rank = np.arange(n_links)
+            src, dst = np.concatenate([a, b]), np.concatenate([b, a])
+            # per tail, its links in sort order: run_spf's relax order
+            order = np.lexsort((np.concatenate([rank, rank]), src))
+            self.src, self.dst = src[order], dst[order]
+            self.metric = np.concatenate([m1, m2])[order]
+            self.up = np.concatenate([up, up])[order]
+            self.links = [links[i] for i in (order % max(n_links, 1)).tolist()]
+            self.node_id = node_id
+            self.drained = np.fromiter(
+                (ls.is_node_overloaded(n) for n in names), bool, len(names)
+            )
+        if (self.metric[self.up] < 1).any():
+            raise ValueError("ScipySpf takes link metrics of at least 1")
+        self._sparse = scipy.sparse
+        self._graphs: dict = {}
+
+    def _graph(self, usable, w):
+        """The usable edges as a CSR matrix, each (u, v) at its least
+        weight (a CSR matrix would sum parallel entries)."""
+        n = len(self.names)
+        s, d, w = self.src[usable], self.dst[usable], w[usable]
+        order = np.lexsort((w, d, s))
+        s, d, w = s[order], d[order], w[order]
+        first = np.ones(len(s), bool)
+        first[1:] = (s[1:] != s[:-1]) | (d[1:] != d[:-1])
+        return self._sparse.csr_matrix(
+            (w[first].astype(np.float64), (s[first], d[first])), shape=(n, n)
+        )
+
+    def run_spf(self, source: str, use_link_metric: bool = True, links_to_ignore=None) -> dict:
+        """`LinkState.run_spf(source, use_link_metric, links_to_ignore)`."""
+        with gc_paused():
+            return self._run_spf(source, use_link_metric, links_to_ignore)
+
+    def _run_spf(self, source: str, use_link_metric: bool, links_to_ignore) -> dict:
+        from scipy.sparse.csgraph import dijkstra
+
+        from openr_tpu_torch.decision.link_state import NodeSpfResult
+
+        if self.ls.version != self.version:
+            raise AssertionError("ScipySpf: the LinkState moved since it was built")
+        si = self.node_id[source]
+        w = self.metric if use_link_metric else np.ones_like(self.metric)
+        base = self.up & ~self.drained[self.src]
+        usable = base | (self.up & (self.src == si))
+        if links_to_ignore:
+            usable &= np.fromiter(
+                (link not in links_to_ignore for link in self.links), bool, len(self.links)
+            )
+            graph = self._graph(usable, w)
+        elif self.drained[si]:
+            graph = self._graph(usable, w)
+        else:
+            graph = self._graphs.get(use_link_metric)
+            if graph is None:
+                graph = self._graphs[use_link_metric] = self._graph(base, w)
+        dist = dijkstra(graph, directed=True, indices=si)
+        reached = np.isfinite(dist)
+        d = np.where(reached, dist, -1).astype(np.int64)
+        e_src, e_dst, e_w = self.src, self.dst, w
+        tight = usable & reached[e_src] & reached[e_dst] & (d[e_src] + e_w == d[e_dst])
+        dag = np.flatnonzero(tight)
+        # next hops: bit b per first hop (a neighbour the source reaches
+        # on a tight link), OR-ed along the DAG in order of distance
+        first = np.unique(e_dst[dag[e_src[dag] == si]])
+        bit_of = np.full(len(self.names), -1, np.int64)
+        bit_of[first] = np.arange(len(first))
+        n_words = max(1, -(-len(first) // 64))
+        nh = np.zeros((len(self.names), n_words), np.uint64)
+        by_level = dag[np.argsort(d[e_dst[dag]], kind="stable")]
+        levels = d[e_dst[by_level]]
+        cuts = np.flatnonzero(np.diff(levels)) + 1
+        for group in np.split(by_level, cuts):
+            u, v = e_src[group], e_dst[group]
+            contrib = nh[u].copy()
+            direct = u == si
+            if direct.any():
+                b = bit_of[v[direct]]
+                contrib[direct] = 0
+                contrib[direct, b // 64] = np.uint64(1) << (b % 64).astype(np.uint64)
+            np.bitwise_or.at(nh, v, contrib)
+        # path_links: per head, the tails in pop order (metric, name),
+        # each tail's links in its sorted order (the edge order here)
+        order = np.lexsort((e_src[dag], d[e_src[dag]], e_dst[dag]))
+        dag = dag[order]
+        heads = e_dst[dag]
+        n = len(self.names)
+        starts = np.searchsorted(heads, np.arange(n)).tolist()
+        ends = np.searchsorted(heads, np.arange(n), side="right").tolist()
+        names, links = self.names, self.links
+        pairs = [(links[e], names[u]) for e, u in zip(dag.tolist(), e_src[dag].tolist())]
+        first_names = [names[u] for u in first.tolist()]
+        keys = [row.tobytes() for row in nh] if n_words > 1 else nh[:, 0].tolist()
+        hop_names: dict = {}
+        result = {}
+        dist = d.tolist()
+        for v in np.lexsort((np.arange(n), d))[np.count_nonzero(~reached):].tolist():
+            key = keys[v]
+            hops = hop_names.get(key)
+            if hops is None:
+                row = nh[v]
+                hops = hop_names[key] = [
+                    first_names[b] for b in range(len(first))
+                    if int(row[b // 64]) >> (b % 64) & 1
+                ]
+            result[names[v]] = NodeSpfResult(dist[v], pairs[starts[v]:ends[v]], set(hops))
+        return result
+
+
+
+def prime_spf(ls, sources, use_link_metric: bool = True) -> list[str]:
+    """Write `ScipySpf`'s results of the `sources` that `ls` has not
+    cached into its cache (building the oracle only when one is
+    missing); returns those sources."""
+    missing = [s for s in sources if (s, use_link_metric) not in ls._spf_results]
+    if missing:
+        oracle = ScipySpf(ls)
+        for s in missing:
+            ls._spf_results[(s, use_link_metric)] = oracle.run_spf(s, use_link_metric)
+    return missing
+
+
 def route_sets(db):
     def nh_key(nh, with_action):
         action = None
@@ -946,7 +1137,9 @@ def checked_routers(inp, n_routers, n_checked) -> list[str]:
 
 
 def check_routes(inp, dbs_out, view, routers) -> list[str]:
-    """Routes and distances of `routers` against the host Dijkstra."""
+    """Routes and distances of `routers` against the host Dijkstra (its
+    results from `ScipySpf`)."""
+    prime_spf(inp.ls, routers)
     checked = []
     for router in routers:
         want_u, want_m, want_d = expected_routes(
@@ -1993,9 +2186,11 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
             raise AssertionError(f"prefetch: {len(missing)} missing, {engine.get_counters()}")
         checked = sources[:: n_prefetch // n_checked][:n_checked]
         t0 = time.perf_counter()
-        for src in checked:
-            if spf_view(backend.get_spf_result(ls, src)) != spf_view(ls.get_spf_result(src)):
-                raise AssertionError(f"prefetch: SPF of {src} differs from Dijkstra")
+        prime_spf(ls, checked)
+        with gc_paused():
+            for src in checked:
+                if spf_view(backend.get_spf_result(ls, src)) != spf_view(ls.get_spf_result(src)):
+                    raise AssertionError(f"prefetch: SPF of {src} differs from Dijkstra")
         prefetch = {
             "sources": len(sources),
             "queried": len(missing),
@@ -2390,8 +2585,10 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
         for side, s in sides.items():
             gc_clock.take()
             t0 = time.perf_counter()
-            fn(s)
-            programmed[side] = s["programmed"].get(timeout=900)
+            # the oracle's side, a check, runs with the collector paused
+            with gc_paused() if side == "oracle" else contextlib.nullcontext():
+                fn(s)
+                programmed[side] = s["programmed"].get(timeout=900)
             wall_s[side] = time.perf_counter() - t0
             gc_ms[side] = gc_clock.take()
         got, want = agent_tables(card["agent"]), agent_tables(oracle["agent"])
@@ -2454,8 +2651,14 @@ def decision_main_path(device, timer, n_nodes, n_advertisers, n_routers,
             raise AssertionError(f"{what}: fleet dump launched {launches}")
         dump_gc = gc_clock.take()
         t0 = time.perf_counter()
-        for r in oracle_routers:
-            same_route_db(out[r], oracle["decision"].get_route_db(r), f"{what} {r}")
+        # the oracle Decision's host Dijkstra results, from ScipySpf, on
+        # the thread that owns its LinkState
+        with gc_paused():
+            oracle["decision"].run_in_event_base_thread(
+                lambda: prime_spf(oracle["decision"].area_link_states["0"], oracle_routers)
+            ).result()
+            for r in oracle_routers:
+                same_route_db(out[r], oracle["decision"].get_route_db(r), f"{what} {r}")
         if keep is not None:
             kept_dbs[keep] = {r: out[r] for r in oracle_routers}
         delta = {
@@ -3962,6 +4165,155 @@ def daemon_ring_tcp(device, n: int = 3) -> dict:
     return rec
 
 
+def serving_fleet(device, timeout_s: float = 60.0) -> dict:
+    """`ServingFleet(2)` on the card at the reference's own size
+    (tests/test_replicafleet.py TestServingFleetWiring, tests/
+    test_snapshot.py TestFleetScaleUnderLoad): it converges; the front
+    door answers queryPaths in a pinned session (both replicas admitting
+    some), queryKsp and queryWhatIf; under a load thread `scale(3)`
+    warm-starts a joiner from daemon 0's engine snapshot and `scale(2)`
+    retires it, every load query answered and the router's dispatch
+    ledger closing; the rung is the reference's content rule on the
+    donor's mirror (install when it has not rewired since its build,
+    else cold, counted); the front door's getCounters carries the
+    `serving.router.*` and `snapshot.*` families, with one snapshot taken,
+    one scale-out and one scale-in; then one replica's scheduler is
+    stopped and the front door still answers."""
+    import asyncio
+    import threading
+
+    from openr_tpu_torch.main import ServingFleet
+    from openr_tpu_torch.serving import dispatch_ledger_closes
+    from openr_tpu_torch.snapshot import SNAPSHOT_COUNTER_KEYS, SNAPSHOT_COUNTERS, EngineSnapshot
+
+    def call(method, **params):
+        t0 = time.perf_counter()
+        reply = asyncio.run(fleet.handler.async_methods[method](params))
+        return reply, (time.perf_counter() - t0) * 1e3
+
+    t_phase = time.perf_counter()
+    fleet = ServingFleet(2, device=device)
+    taken: list = []
+    take = EngineSnapshot.take.__func__
+
+    def recording(cls, engine, csr):
+        snap = take(cls, engine, csr)
+        taken.append(snap)
+        return snap
+
+    EngineSnapshot.take = classmethod(recording)
+    rec: dict = {"phase": "serving_fleet"}
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        if not fleet.wait_converged(timeout_s):
+            raise AssertionError("serving fleet: never converged")
+        rec["converged_s"] = time.perf_counter() - t0
+        ms = []
+        for _ in range(4):
+            reply, t = call("queryPaths", sources=["fleet-0"], session="cli")
+            ms.append(t)
+            if reply["result"]["fleet-0"]["fleet-1"]["nextHops"] != ["fleet-1"]:
+                raise AssertionError(f"fleet paths: {reply['result']}")
+        if fleet.router.session_pin("cli") != reply["epoch"]:
+            raise AssertionError("fleet paths: the session did not pin the reply's epoch")
+        admitted = [d.serving.get_counters()["serving.admitted"] for d in fleet.daemons]
+        ksp, ksp_ms = call("queryKsp", sources=["fleet-0"], dests=["fleet-1"], k=1)
+        paths = ksp["result"]["fleet-1"]
+        what_if, wi_ms = call("queryWhatIf", sources=["fleet-0"],
+                              scenarios=[[["fleet-0", "fleet-1"]]])
+        if min(admitted) < 1 or len(paths) != 1 or set(paths[0][0]) != {"fleet-0", "fleet-1"}:
+            raise AssertionError(f"fleet front door: admitted {admitted}, ksp {paths}")
+        if what_if["result"][0]["newly_unreachable_pairs"] != 1:
+            raise AssertionError(f"fleet what-if: {what_if['result']}")
+        rec["front_door_ms"] = {"paths": ms, "ksp": ksp_ms, "what_if": wi_ms}
+        rec["admitted"] = admitted
+
+        # scale out and in under a load thread
+        c0 = SNAPSHOT_COUNTERS.get_counters()
+        stop = threading.Event()
+        acct = {"submitted": 0, "resolved": 0}
+        errors: list = []
+
+        def load() -> None:
+            while not stop.is_set():
+                fut = fleet.router.submit("paths", sources=("fleet-0",))
+                acct["submitted"] += 1
+                try:
+                    fut.result(timeout=60)
+                except Exception as exc:  # noqa: BLE001 — counted, fails the phase
+                    errors.append(repr(exc))
+                acct["resolved"] += 1
+                time.sleep(0.002)
+
+        thread = threading.Thread(target=load, name="fleet-load")
+        thread.start()
+        try:
+            time.sleep(0.3)
+            t0 = time.perf_counter()
+            modes = fleet.scale(3)
+            scale_out_s = time.perf_counter() - t0
+            joiner = fleet.daemons[-1].decision.spf_solver.spf.engine.get_counters()
+            time.sleep(0.3)
+            t0 = time.perf_counter()
+            fleet.scale(2)
+            scale_in_s = time.perf_counter() - t0
+            time.sleep(0.3)
+        finally:
+            stop.set()
+            thread.join(timeout=120)
+        if thread.is_alive() or errors or acct["resolved"] != acct["submitted"]:
+            raise AssertionError(f"fleet load: {acct}, errors {errors[:3]}")
+        want = "install" if taken[-1].rewire_seq == 0 else "cold"
+        if modes != [want] or len(taken) != 1:
+            raise AssertionError(f"fleet scale-out: rungs {modes}, expected [{want!r}]")
+        counters = fleet.handler._all_counters()
+        d = {k: counters[k] - c0[k] for k in SNAPSHOT_COUNTER_KEYS}
+        if not set(SNAPSHOT_COUNTER_KEYS) <= set(counters) or "serving.router.dispatches" not in counters:
+            raise AssertionError("fleet getCounters: a family is missing")
+        if (d["snapshot.scaleouts"], d["snapshot.scaleins"], d["snapshot.taken"]) != (1, 1, 1):
+            raise AssertionError(f"fleet snapshot counters: {d}")
+        if counters["serving.router.replica_deaths"]:
+            raise AssertionError(f"fleet: replica deaths {counters}")
+        rec["scale"] = {
+            "rungs": modes,
+            "donor_rewire_seq": taken[-1].rewire_seq,
+            "scale_out_s": scale_out_s,
+            "scale_in_s": scale_in_s,
+            "load_queries": acct["submitted"],
+            "joiner_engine": {k.removeprefix("device.engine."): joiner[k] for k in (
+                "device.engine.full_restages", "device.engine.prewarm_runs",
+                "device.engine.queries")},
+            "snapshot_counters": {k: v for k, v in d.items() if v and not k.endswith("_us")},
+        }
+
+        # a replica killed under the front door
+        fleet.daemons[1].serving.stop()
+        ms = []
+        for _ in range(3):
+            reply, t = call("queryPaths", sources=["fleet-0"])
+            ms.append(t)
+            if reply["result"]["fleet-0"]["fleet-1"]["metric"] != 1:
+                raise AssertionError(f"fleet kill: {reply['result']}")
+        rc = fleet.router.get_counters()
+        if rc["serving.router.retries"] + rc["serving.router.failovers"] < 1:
+            raise AssertionError(f"fleet kill: no retry or failover {rc}")
+        rec["kill_ms"] = ms
+    finally:
+        EngineSnapshot.take = classmethod(take)
+        fleet.stop()
+    rc = fleet.router.get_counters()
+    if not dispatch_ledger_closes(rc, acct["submitted"] + 4 + 2 + 3):
+        raise AssertionError(f"fleet ledger: {rc}")
+    if rc["serving.errors"] or rc["serving.host_fallbacks"]:
+        raise AssertionError(f"fleet: errors or host fallbacks {rc}")
+    rec["router_counters"] = {
+        k: v for k, v in rc.items() if k.startswith("serving.router.") and "hist_us" not in k
+    }
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 class DaemonProcess:
     """`python -m openr_tpu_torch.main` as a user starts it, with a config
     file and flags, on the card.  Entered before the phases that precede
@@ -4809,12 +5161,13 @@ def protection_queries(decision, csr, oracle_ls, router: str, timer) -> dict:
     adjs = report["adjacencies"]
     t0 = time.perf_counter()
     base = ls.get_spf_result(router)
+    oracle = ScipySpf(ls)
     for adj in adjs[:2]:
         link = next(
             l for l in ls.links_from_node(router)
             if l.other_node_name(router) == adj["neighbor"]
         )
-        res = ls.run_spf(router, links_to_ignore={link})
+        res = oracle.run_spf(router, links_to_ignore={link})
         kept = sum(1 for v in base if v != router and v in res)
         lost = sum(1 for v in base if v not in res)
         if (adj["protected_destinations"], adj["unprotected_count"]) != (kept, lost):
@@ -5676,14 +6029,14 @@ def path_links_key(paths) -> list:
 
 
 def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
-                    n_paths: int = 256, n_checked: int = 8) -> dict:
+                    n_paths: int = 128, n_checked: int = 8) -> dict:
     """The query-serving layer at wan100k (no drained node: the scipy
     oracle takes none): `EngineBatchBackend({"0": ls})` on `backend`
     (the card's DeviceSpfBackend) before
     `QueryScheduler(max_pending=1024, max_coalesce=64)`, one burst of
     `n_paths` single-source paths queries drawn from `n_routers` routers
     (RandomState(5)), 4 what-if queries of 2 single-link scenarios each
-    over the same 2 sources, 4 KSP queries (k = 2 from w000000, 8
+    over the same 2 sources, 4 KSP queries (k = 2 from w000000, 4
     destinations each) and 2 identical optimize_metrics queries (64
     demand triples from RandomState(6), bounds 1..16, 12 steps), K1's
     counts set to 0 just before the burst and read just after; then one
@@ -5698,15 +6051,16 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
     (`slab_pair_records`); every
     future resolves, replies + errors + shed equal the submitted, no
     error and no host fallback; the flap's replies carry the new
-    epoch."""
+    epoch.  Returns the record and what `replica_fleet_wan100k` takes
+    over (`ServingHandoff`): the running scheduler, the checked routers'
+    answers, the first what-if query and its reply, the TE demand, and
+    the flapped router's database from before the flap."""
     import dataclasses
 
     import torch
 
     from openr_tpu_torch.ops.sssp import INF32
     from openr_tpu_torch.serving import EngineBatchBackend, QueryScheduler
-    from openr_tpu_torch.serving.backend import _te_problem_from_csr
-    from openr_tpu_torch.te.exact import ExactEvaluator
 
     t_phase = time.perf_counter()
     csr = backend.csr_mirror(ls)
@@ -5723,7 +6077,7 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
         for q in range(4)
     ]
     ksp_src = names[0]
-    ksp_dests = [names[int(i)] for i in rng.choice(np.arange(1, n), size=32, replace=False)]
+    ksp_dests = [names[int(i)] for i in rng.choice(np.arange(1, n), size=16, replace=False)]
     drng = np.random.RandomState(6)
     te_dests = [names[int(i)] for i in np.linspace(0, n - 1, 4).astype(int)]
     demand = tuple(
@@ -5751,7 +6105,7 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
             for sc in wi_scen
         ]
         futs += [
-            ("ksp", sched.submit("ksp", sources=(ksp_src,), dests=ksp_dests[8 * q: 8 * q + 8], k=2))
+            ("ksp", sched.submit("ksp", sources=(ksp_src,), dests=ksp_dests[4 * q: 4 * q + 4], k=2))
             for q in range(4)
         ]
         futs += [
@@ -5784,14 +6138,15 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
         if errors or shed or sum(map(len, by_op.values())) != n_submitted:
             raise AssertionError(f"serving burst: {len(errors)} errors, {shed} shed: {errors[:3]}")
 
-        # paths: the checked routers against the host Dijkstra
+        # paths: the checked routers against the host Dijkstra (ScipySpf)
         t0 = time.perf_counter()
-        for s in checked:
-            want = ls.get_spf_result(s)
-            if spf_key(answers[s]) != spf_key(want):
-                raise AssertionError(f"serving paths {s}: differs from the host Dijkstra")
+        prime_spf(ls, checked)
+        with gc_paused():
+            for s in checked:
+                want = ls.get_spf_result(s)
+                if spf_key(answers[s]) != spf_key(want):
+                    raise AssertionError(f"serving paths {s}: differs from the host Dijkstra")
         paths_oracle_s = time.perf_counter() - t0
-        del answers
 
         # what-if and KSP against scipy's Dijkstra
         t0 = time.perf_counter()
@@ -5833,33 +6188,7 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
         if te_replies[0] != te_replies[1] or by_op["optimize_metrics"][0].batch_size != 2:
             raise AssertionError("serving optimize_metrics: the identical queries did not coalesce")
         te_reply = te_replies[0]
-        problem = _te_problem_from_csr(csr, demand, (1, 16))
-        metric = np.where(problem.edge_up, problem.edge_metric, 1).astype(np.int32)
-        e = problem.n_edges
-        # the proposals name (src, dst) pairs: every up edge of a pair
-        # takes its metric
-        cap = np.int64(csr.node_capacity)
-        key = problem.edge_src[:e].astype(np.int64) * cap + problem.edge_dst[:e]
-        order = np.argsort(key, kind="stable")
-        props = np.array(
-            [(node_id[u], node_id[v], m) for u, v, m in te_reply["proposedMetrics"]],
-            dtype=np.int64,
-        ).reshape(-1, 3)
-        pkey = props[:, 0] * cap + props[:, 1]
-        lo = np.searchsorted(key[order], pkey, side="left")
-        count = np.searchsorted(key[order], pkey, side="right") - lo
-        starts = np.repeat(lo - np.cumsum(count) + count, count)
-        hit = order[starts + np.arange(count.sum())]
-        value = np.repeat(props[:, 2], count)
-        live = problem.edge_up[hit]
-        metric[hit[live]] = value[live]
-        again = ExactEvaluator(
-            problem.edge_src, problem.edge_dst, problem.edge_up, problem.node_overloaded,
-            problem.n_edges, problem.n_nodes, problem.dest_ids, problem.demand,
-            problem.capacity, engine=backend.engine,
-        ).evaluate(metric)
-        if again != te_reply["objectiveAfter"]:
-            raise AssertionError(f"serving optimize_metrics: re-evaluation {again} != reply")
+        reevaluate_te(backend.engine, csr, demand, te_reply, "serving optimize_metrics")
         te_evals = te_reply["roundTrips"]
         if launches[KERNEL_U16["name"]] != te_evals or sum(launches.values()) != te_evals:
             raise AssertionError(f"serving burst: {te_evals} exact evaluations launched {launches}")
@@ -5869,10 +6198,11 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
         # one flap landing in a staged paths batch
         flapped = {}
         flap_router = routers[1]
+        unflapped = ls.get_adjacency_databases()[flap_router]
 
         def flap(event, batch):
             if event == "stage" and batch.op == "paths" and not flapped:
-                db = ls.get_adjacency_databases()[flap_router]
+                db = unflapped
                 first_adj = db.adjacencies[0]
                 raised = dataclasses.replace(
                     db, adjacencies=[dataclasses.replace(first_adj, metric=first_adj.metric + 7),
@@ -5901,8 +6231,10 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
             raise AssertionError(f"serving: {final} against {submitted} submitted")
         if final["serving.errors"] or final["serving.host_fallbacks"]:
             raise AssertionError(f"serving: errors or host fallbacks {final}")
-    finally:
+    except BaseException:
         sched.stop()
+        raise
+    finally:
         capture.close()
 
     def lat(op):
@@ -5932,7 +6264,391 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
     if timer.cuda:
         record["card"] = card_line()
         record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    return record
+    handoff = ServingHandoff(
+        sched=sched,
+        submitted=submitted,
+        checked=checked,
+        answers=answers,
+        what_if=(wi_sources, wi_scen[0], by_op["what_if"][0].value),
+        demand=demand,
+        unflapped=unflapped,
+    )
+    return record, handoff
+
+
+class ServingHandoff(NamedTuple):
+    """What `serving_wan100k` hands `replica_fleet_wan100k`: its running
+    scheduler and the queries it took, the checked routers' answers
+    (equal to the host Dijkstra's before the flap), the first what-if
+    query (sources, scenarios) and its checked reply, the TE demand, and
+    the flapped router's adjacency database from before the flap."""
+
+    sched: object
+    submitted: int
+    checked: list
+    answers: dict
+    what_if: tuple
+    demand: tuple
+    unflapped: object
+
+
+def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -> dict:
+    """A second replica of the wan100k query service restored from a
+    snapshot of the first, both behind a `ReplicaRouter` on the card.
+    The serving phase's flap is undone first, so its checked answers
+    hold again.  (a) The serving replica's mirror is rebuilt (its rewires
+    since the main path's build leave a slot layout no fresh mirror has,
+    and the install rung needs equal content), then an `EngineSnapshot`
+    of its engine is taken (its manifest holds the burst's ladder keys),
+    serialized and read back.  (b) A joiner, a fresh `DeviceSpfBackend`
+    behind its own `EngineBatchBackend` and scheduler, builds its mirror
+    and restores the read-back snapshot on the install rung with no
+    restage; the first query is timed after install and prewarm, after
+    install alone (a second engine) and on a cold engine, all three
+    equal.  (c) The router takes 16 paths queries of the checked routers
+    in two sessions (each answer equal to the serving phase's checked
+    one, both replicas admitting some), the first what-if query (equal
+    to its checked reply) and one optimize_metrics query (re-evaluated
+    exactly; K1's counts set to 0 just before and read just after, K1
+    held against its plain version on its first exact evaluation).  (d)
+    One flap, then 4 paths queries per session: epochs at or above the
+    pins, pins only forward, one answer against scipy.  (e) The snapshot
+    restored on the donor's own mirror: the replay rung, answers equal
+    to the donor's before.  (f) The read-back snapshot into a fresh
+    engine on the joiner's flapped mirror: the cold rung, counted,
+    answers equal.  (g) The joiner's scheduler stopped: three more
+    queries answered through retries or failovers; the dispatch ledger
+    closes, no serving error and no host fallback.  (h) One flipped
+    payload byte: `SnapshotFormatError`, counted."""
+    import dataclasses
+
+    import torch
+
+    from openr_tpu_torch.decision.spf_solver import DeviceSpfBackend
+    from openr_tpu_torch.device.engine import DeviceResidencyEngine
+    from openr_tpu_torch.ops.sssp import INF32
+    from openr_tpu_torch.serving import (
+        EngineBatchBackend,
+        QueryScheduler,
+        ReplicaRouter,
+        SchedulerReplica,
+        dispatch_ledger_closes,
+    )
+    from openr_tpu_torch.snapshot import SNAPSHOT_COUNTERS, EngineSnapshot, SnapshotFormatError
+
+    t_phase = time.perf_counter()
+    # the serving phase's checked answers: SpfResults compare field by
+    # field (metric, path links in order, next hops), as spf_key does
+    sched, checked, answers = handoff.sched, handoff.checked, handoff.answers
+    rec: dict = {"phase": "replica_fleet_wan100k", "checked_routers": checked}
+
+    def synced():
+        if timer.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def snap_delta(before) -> dict:
+        now = SNAPSHOT_COUNTERS.get_counters()
+        return {k: now[k] - before[k] for k in now if now[k] != before[k] and not k.endswith("_us")}
+
+    jsched = None
+    router = None
+    try:
+        # the serving phase's flap undone: the checked answers hold again
+        ls.update_adjacency_database(handoff.unflapped)
+        r0 = backend.engine
+
+        # (a) the donor's mirror rebuilt, then snapshot, bytes, read back
+        old = backend.csr_mirror(ls)
+        rec["donor_rewire_seq_before"] = int(old.rewire_seq)
+        del backend._mirrors[ls], old
+        t0 = time.perf_counter()
+        csr = backend.csr_mirror(ls)
+        rec["donor_mirror_build_s"] = time.perf_counter() - t0
+        t0 = synced()
+        r0.sync(csr)
+        rec["donor_restage_s"] = synced() - t0
+        c0 = SNAPSHOT_COUNTERS.get_counters()
+        t0 = synced()
+        snap = EngineSnapshot.take(r0, csr)
+        take_ms = (synced() - t0) * 1e3
+        t0 = time.perf_counter()
+        blob = snap.to_bytes()
+        to_bytes_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = EngineSnapshot.from_bytes(blob)
+        from_bytes_ms = (time.perf_counter() - t0) * 1e3
+        if not snap.manifest or back.manifest != snap.manifest or back.to_bytes() != blob:
+            raise AssertionError(f"snapshot: manifest {snap.manifest}, round trip unequal")
+        rec["snapshot"] = {
+            "bytes": snap.nbytes(),
+            "artifact_bytes": len(blob),
+            "bytes_per_directed_edge": snap.nbytes() / csr.n_edges,
+            "manifest": [list(k[1:]) for k in snap.manifest],
+            "epoch": snap.epoch,
+            "take_ms": take_ms,
+            "to_bytes_ms": to_bytes_ms,
+            "from_bytes_ms": from_bytes_ms,
+            "counters": snap_delta(c0),
+        }
+
+        # (b) the joiner: its mirror, the install, three first queries
+        joiner = DeviceSpfBackend(device)
+        t0 = time.perf_counter()
+        jcsr = joiner.csr_mirror(ls)
+        mirror_s = time.perf_counter() - t0
+        c0 = SNAPSHOT_COUNTERS.get_counters()
+        t0 = synced()
+        rung = back.restore(joiner.engine, jcsr)
+        restore_ms = (synced() - t0) * 1e3
+        jc = joiner.engine.get_counters()
+        if rung != "install" or jc["device.engine.full_restages"]:
+            raise AssertionError(f"joiner: rung {rung}, {jc['device.engine.full_restages']} restages")
+        first_src = checked[:1]
+
+        def first_query(engine):
+            t0 = synced()
+            got = engine.spf_results(jcsr, first_src)
+            return (synced() - t0) * 1e3, got[first_src[0]]
+
+        ms_prewarmed, key = first_query(joiner.engine)
+        bare = DeviceResidencyEngine(device)
+        t0 = synced()
+        if back.restore(bare, jcsr, prewarm=False) != "install":
+            raise AssertionError("second engine: not the install rung")
+        bare_restore_ms = (synced() - t0) * 1e3
+        ms_bare, key_bare = first_query(bare)
+        cold = DeviceResidencyEngine(device)
+        ms_cold, key_cold = first_query(cold)
+        if not key == key_bare == key_cold == answers[first_src[0]]:
+            raise AssertionError("joiner: the three first queries differ")
+        del bare, cold, key_bare, key_cold
+        rec["joiner"] = {
+            "mirror_build_s": mirror_s,
+            "rung": rung,
+            "restore_ms": restore_ms,
+            "restore_no_prewarm_ms": bare_restore_ms,
+            "prewarm_runs": jc["device.engine.prewarm_runs"],
+            "bytes_staged": jc["device.engine.bytes_staged"],
+            "full_restages": jc["device.engine.full_restages"],
+            "first_query_ms": {
+                "install_prewarm": ms_prewarmed,
+                "install_only": ms_bare,
+                "cold_engine": ms_cold,
+            },
+            "snapshot_counters": snap_delta(c0),
+        }
+
+        # (c) two replicas behind the router
+        jsched = QueryScheduler(EngineBatchBackend({"0": ls}, spf_backend=joiner),
+                                max_pending=1024, max_coalesce=64)
+        jsched.run()
+        # no hedge: a hedged paths query would decode twice on the host
+        router = ReplicaRouter(
+            [SchedulerReplica("r0", sched), SchedulerReplica("r1", jsched)], hedge_after_s=None
+        )
+        router.pin_trace = []
+        submitted = 0
+        admitted0 = sched.get_counters()["serving.admitted"]
+        captures = [ExactK1Capture(r0), ExactK1Capture(joiner.engine)]
+        try:
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            sessions = ("s0", "s1")
+            futs = [
+                (s, router.submit("paths", sources=(s,), session=sess))
+                for sess in sessions for s in checked
+            ]
+            wi_sources, wi_scen, wi_reply = handoff.what_if
+            wi = router.submit("what_if", sources=wi_sources, scenarios=wi_scen)
+            te = router.submit("optimize_metrics", demand=handoff.demand, bounds=(1, 16), steps=12)
+            submitted += len(futs) + 2
+            for s, f in futs:
+                r = f.result(900)
+                if r.value[s] != answers[s]:
+                    raise AssertionError(f"routed paths {s}: differs from the serving phase's")
+            del futs, r
+            if wi.result(900).value != wi_reply:
+                raise AssertionError("routed what-if: differs from the serving phase's")
+            te_reply = te.result(900).value
+            routed_s = time.perf_counter() - t0
+            launches = launch_counts()
+        finally:
+            for capture in reversed(captures):
+                capture.close()
+        te_evals = te_reply["roundTrips"]
+        if launches[KERNEL_U16["name"]] != te_evals or sum(launches.values()) != te_evals:
+            raise AssertionError(f"routed optimize_metrics: {te_evals} evaluations launched {launches}")
+        reevaluate_te(r0, csr, handoff.demand, te_reply, "routed optimize_metrics")
+        slab = captures[0].slab or captures[1].slab
+        k1_exact = slab_pair_records(*slab, timer, "routed exact evaluation")
+        del slab, captures
+        admitted = {
+            "r0": sched.get_counters()["serving.admitted"] - admitted0,
+            "r1": jsched.get_counters()["serving.admitted"],
+        }
+        if min(admitted.values()) < 1:
+            raise AssertionError(f"router: admissions {admitted}")
+        rc = router.get_counters()
+        if rc["serving.router.replica_deaths"]:
+            raise AssertionError(f"router: replica deaths {rc}")
+        rec["routed"] = {
+            "paths_queries": 2 * len(checked),
+            "wall_s": routed_s,
+            "admitted": admitted,
+            "te_reply": {k: v for k, v in te_reply.items() if k != "proposedMetrics"},
+            "k1_launches": launches,
+        }
+
+        # (d) one flap; pinned sessions see only forward epochs
+        flap_router = checked[-1]
+        db = ls.get_adjacency_databases()[flap_router]
+        adj0 = db.adjacencies[0]
+        ls.update_adjacency_database(dataclasses.replace(
+            db, adjacencies=[dataclasses.replace(adj0, metric=adj0.metric + 5), *db.adjacencies[1:]]
+        ))
+        t0 = time.perf_counter()
+        pins = {sess: router.session_pin(sess) for sess in sessions}
+        replies = [
+            (sess, router.submit("paths", sources=(s,), session=sess))
+            for sess in sessions for s in checked[:4]
+        ]
+        submitted += len(replies)
+        replies = [(sess, f.result(900)) for sess, f in replies]
+        flap_s = time.perf_counter() - t0
+        for sess, r in replies:
+            if r.epoch < pins[sess] or r.epoch != int(ls.version):
+                raise AssertionError(f"flap: epoch {r.epoch}, pin {pins[sess]}, ls {ls.version}")
+        for sess in sessions:
+            seen = [e for s, e in router.pin_trace if s == sess]
+            if seen != sorted(seen):
+                raise AssertionError(f"flap: session {sess} pins moved back: {seen}")
+        names = csr.node_names
+        node_id = csr.node_id
+        src0 = checked[0]
+        want = scipy_dist(oracle_graph(ls, backend.csr_mirror(ls)), node_id[src0])
+        got = replies[0][1].value[src0]
+        if any(got[names[j]].metric != want[j] for j in range(csr.n_nodes) if want[j] < INF32):
+            raise AssertionError("flap: the routed answer differs from scipy")
+        before_restore = got
+        del replies, got, want
+        rec["flap"] = {"router": flap_router, "epoch": int(ls.version), "pins": pins,
+                       "query_s": flap_s}
+
+        # (e) the replay rung on the donor's own mirror
+        c0 = SNAPSHOT_COUNTERS.get_counters()
+        csr = backend.csr_mirror(ls)
+        t0 = synced()
+        rung = snap.restore(r0, csr)
+        replay_ms = (synced() - t0) * 1e3
+        d = snap_delta(c0)
+        after = r0.spf_results(csr, [src0])[src0]
+        if rung != "replay" or d.get("snapshot.replayed_events", 0) < 1 or after != before_restore:
+            raise AssertionError(f"replay: rung {rung}, {d}, answers equal {after == before_restore}")
+        rec["replay"] = {"rung": rung, "restore_ms": replay_ms, "counters": d}
+
+        # (f) the cold rung: the read-back snapshot, a fresh engine, the
+        # joiner's flapped mirror
+        c0 = SNAPSHOT_COUNTERS.get_counters()
+        fresh = DeviceResidencyEngine(device)
+        jcsr = joiner.csr_mirror(ls)
+        t0 = synced()
+        rung = back.restore(fresh, jcsr)
+        cold_ms = (synced() - t0) * 1e3
+        d = snap_delta(c0)
+        after = fresh.spf_results(jcsr, [src0])[src0]
+        if rung != "cold" or d.get("snapshot.replay_fallbacks") != 1 or after != before_restore:
+            raise AssertionError(f"cold: rung {rung}, {d}, answers equal {after == before_restore}")
+        del fresh, after, before_restore
+        rec["cold"] = {"rung": rung, "restore_ms": cold_ms, "counters": d}
+
+        # (g) the joiner killed under the router
+        deaths = router.get_counters()["serving.router.replica_deaths"]
+        jsched.stop()
+        t0 = time.perf_counter()
+        for s in checked[:3]:
+            submitted += 1
+            r = router.submit("paths", sources=(s,), session="s0").result(900)
+            if s not in r.value:
+                raise AssertionError(f"kill: no answer for {s}")
+        kill_s = time.perf_counter() - t0
+        router.stop()
+        rc = router.get_counters()
+        if rc["serving.router.retries"] + rc["serving.router.failovers"] < 1:
+            raise AssertionError(f"kill: no retry or failover {rc}")
+        if not dispatch_ledger_closes(rc, submitted):
+            raise AssertionError(f"router ledger: {rc} against {submitted}")
+        if rc["serving.errors"] or rc["serving.host_fallbacks"]:
+            raise AssertionError(f"router: errors or host fallbacks {rc}")
+        rec["kill"] = {"query_s": kill_s, "deaths_before": deaths}
+        rec["router_counters"] = {
+            k: v for k, v in rc.items() if k.startswith("serving.router.") and "hist_us" not in k
+        }
+        rec["submitted"] = submitted
+
+        # (h) a damaged artifact
+        c0 = SNAPSHOT_COUNTERS.get_counters()
+        bad = bytearray(blob)
+        bad[len(bad) // 2] ^= 0x40
+        try:
+            EngineSnapshot.from_bytes(bytes(bad))
+        except SnapshotFormatError as e:
+            rec["corruption"] = {"error": str(e), "counters": snap_delta(c0)}
+        else:
+            raise AssertionError("corruption: a flipped byte was read")
+        if rec["corruption"]["counters"].get("snapshot.digest_failures") != 1:
+            raise AssertionError(f"corruption: {rec['corruption']}")
+    finally:
+        if router is not None:
+            router.stop()
+        if jsched is not None:
+            jsched.stop()
+        sched.stop()
+    rec["k1_launches"] = launches[KERNEL_U16["name"]]
+    rec["k1_exact"] = k1_exact
+    rec["phase_s"] = time.perf_counter() - t_phase
+    if timer.cuda:
+        rec["card"] = card_line()
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return rec
+
+
+def reevaluate_te(engine, csr, demand, te_reply, what: str) -> float:
+    """An optimize_metrics reply's proposed metrics applied to the
+    demand's problem and evaluated exactly once more on `engine`; the
+    objective must equal the reply's `objectiveAfter`."""
+    from openr_tpu_torch.serving.backend import _te_problem_from_csr
+    from openr_tpu_torch.te.exact import ExactEvaluator
+
+    node_id = csr.node_id
+    problem = _te_problem_from_csr(csr, demand, (1, 16))
+    metric = np.where(problem.edge_up, problem.edge_metric, 1).astype(np.int32)
+    e = problem.n_edges
+    # the proposals name (src, dst) pairs: every up edge of a pair takes
+    # its metric
+    cap = np.int64(csr.node_capacity)
+    key = problem.edge_src[:e].astype(np.int64) * cap + problem.edge_dst[:e]
+    order = np.argsort(key, kind="stable")
+    props = np.array(
+        [(node_id[u], node_id[v], m) for u, v, m in te_reply["proposedMetrics"]],
+        dtype=np.int64,
+    ).reshape(-1, 3)
+    pkey = props[:, 0] * cap + props[:, 1]
+    lo = np.searchsorted(key[order], pkey, side="left")
+    count = np.searchsorted(key[order], pkey, side="right") - lo
+    starts = np.repeat(lo - np.cumsum(count) + count, count)
+    hit = order[starts + np.arange(count.sum())]
+    value = np.repeat(props[:, 2], count)
+    live = problem.edge_up[hit]
+    metric[hit[live]] = value[live]
+    again = ExactEvaluator(
+        problem.edge_src, problem.edge_dst, problem.edge_up, problem.node_overloaded,
+        problem.n_edges, problem.n_nodes, problem.dest_ids, problem.demand,
+        problem.capacity, engine=engine,
+    ).evaluate(metric)
+    if again != te_reply["objectiveAfter"]:
+        raise AssertionError(f"{what}: re-evaluation {again} != reply")
+    return again
 
 
 def path_cost(path, src: str) -> int:
@@ -6099,10 +6815,17 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     paths = k1_records["uint16"]["launches_paths"]
     paths["te_wan100k"] = record["k1_launches"]["te"][KERNEL_U16["name"]]
     te_exact = [("te_wan100k", record["k1_exact"])]
-    record = serving_wan100k(device, inp.solver.spf, inp.ls, timer)
+    record, handoff = serving_wan100k(device, inp.solver.spf, inp.ls, timer)
     emit(record)
     paths["serving_wan100k"] = record["k1_launches"][KERNEL_U16["name"]]
     te_exact.append(("serving_wan100k", record["k1_exact"]))
+    # a second replica restored from a snapshot of the serving one, both
+    # behind the router; the serving scheduler is handed over
+    record = replica_fleet_wan100k(device, inp.solver.spf, inp.ls, timer, handoff)
+    del handoff
+    emit(record)
+    paths["replica_fleet_wan100k"] = record["k1_launches"]
+    te_exact.append(("replica_fleet_wan100k", record["k1_exact"]))
     for variant in k1_records:
         k1_records[variant]["te_exact"] = [
             {"path": path, **recs[variant]} for path, recs in te_exact
@@ -6137,6 +6860,7 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
             k1_records[variant]["kvstore_flood_slab"] = rec
         emit(node_ring(device))
         emit(daemon_ring_tcp(device))
+        emit(serving_fleet(device))
         if process is not None:
             emit(daemon_process(process))
     zero_launch_counts()

@@ -1,9 +1,10 @@
 """Ctrl server: NDJSON-RPC over TCP with server streaming.
 
 Port of `openr_tpu.ctrl.server`: the same methods on the same wire.
-The handler's `obs`, `fuzz`, `sched`, `snapshot` and `mesh` surfaces
-stay None until the port has those modules; each method then answers
-as the reference's does without them (`dumpTraces` answers []).
+The daemon wires the handler's `snapshot` surface (the pre-seeded
+`snapshot.*` family); its `obs`, `fuzz`, `sched` and `mesh` surfaces
+stay None until the port has those modules, and each method then
+answers as the reference's does without them (`dumpTraces` answers []).
 
 Wire protocol (one JSON object per line):
     request:   {"id": N, "method": "...", "params": {...}}

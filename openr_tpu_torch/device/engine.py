@@ -33,7 +33,16 @@ fell behind the log's window) and lets every other error propagate.
 start and each residency key (RESIDENCY_COUNTER_KEYS), masked-batch
 key (MASKED_COUNTER_KEYS, `forward`) or delta-rung key
 (DELTA_COUNTER_KEYS) once bumped; `get_counters()` lists every family.
-Snapshots (`export_resident`, `install_resident`), the chaos
+
+The snapshot seams (`export_resident`, `install_resident`,
+`cached_program_keys`, `prewarm`) serve `snapshot.EngineSnapshot`.  With
+no program cache, the engine records instead the ladder key
+`(topo_key, s_bucket, n_words, n_sweeps, small, use_link_metric)` of
+every forward run `spf_results` has made (`small` is always False: the
+port has one program shape), and `prewarm` runs one discarded forward
+per key of a snapshot's manifest on an installed resident, which pays
+CUDA's cold costs (lazy module loading, the caching allocator's first
+blocks of the [N_cap, S] scratch) before the first query.  The chaos
 `fault_hook` and the trace annotations come in later slices.
 """
 
@@ -110,6 +119,21 @@ DELTA_COUNTER_KEYS = (
     "device.engine.delta_overflow_fallbacks",
 )
 
+# forward runs made by `prewarm` (a name of the port's choosing: the
+# reference counts the programs it compiles, the port compiles none)
+PREWARM_COUNTER_KEYS = ("device.engine.prewarm_runs",)
+
+# the serial order of a resident's edge and node arrays (the reference's
+# export_resident names)
+RESIDENT_ARRAYS = (
+    "edge_src",
+    "edge_dst",
+    "edge_metric",
+    "edge_up",
+    "node_overloaded",
+    "out_slot",
+)
+
 # source-batch padding ladder; above the last rung, next power of two
 S_BUCKETS = (1, 8, 64, 512)
 
@@ -159,6 +183,18 @@ def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
+def ell_leaves(ell) -> list:
+    """An EllGraph's arrays in the reference's pytree order: each bucket's
+    `nbr, w, edge_id, ok, transit_ok` in bucket order, then `new_of_old`,
+    `old_of_new` (the snapshot's serial order)."""
+    return [a for bk in ell.buckets for a in bk] + [ell.new_of_old, ell.old_of_new]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor that never aliases it."""
+    return t.to("cpu", copy=True).numpy()
+
+
 @dataclass
 class _Resident:
     """Device mirror of one CsrTopology plus host shadows of its three
@@ -166,6 +202,7 @@ class _Resident:
     object means csr.refresh() rebuilt the mirror and the resident must
     restage."""
 
+    topo_key: tuple  # (node_capacity, edge_capacity)
     ell_host: Any
     version: int
     ell: ops.EllGraph  # tensors
@@ -200,6 +237,9 @@ class DeviceResidencyEngine:
         self.blocked = BlockedApspEngine(parent=self)
         # delta bucket keys seen: a first sighting is a miss
         self._delta_buckets_seen: set = set()
+        # ladder keys of the forward runs made (spf_results and prewarm),
+        # in first-run order: the snapshot manifest's source
+        self._program_keys: dict[tuple, None] = {}
 
     # -- counters -----------------------------------------------------------
 
@@ -211,6 +251,7 @@ class DeviceResidencyEngine:
                 for k in RESIDENCY_COUNTER_KEYS
                 + MASKED_COUNTER_KEYS
                 + DELTA_COUNTER_KEYS
+                + PREWARM_COUNTER_KEYS
             },
             **self.counters,
         }
@@ -410,44 +451,36 @@ class DeviceResidencyEngine:
 
     def _restage(self, csr) -> _Resident:
         dev = self.device
-        host = (
-            csr.edge_src,
-            csr.edge_dst,
-            csr.edge_metric,
-            csr.edge_up,
-            csr.node_overloaded,
-            csr.out_slot,
-        )
+        host = {name: getattr(csr, name) for name in RESIDENT_ARRAYS}
         ell = csr.ell.to(dev)
-        leaves = [a for bk in csr.ell.buckets for a in bk]
-        leaves += [csr.ell.new_of_old, csr.ell.old_of_new]
-        src, dst, metric, up, overloaded, out_slot = (_put(a, dev) for a in host)
+        leaves = ell_leaves(csr.ell)
         res = _Resident(
+            topo_key=(csr.node_capacity, csr.edge_capacity),
             ell_host=csr.ell,
             version=csr.version,
             ell=ell,
-            edge_src=src,
-            edge_dst=dst,
-            edge_metric=metric,
-            edge_up=up,
-            node_overloaded=overloaded,
-            out_slot=out_slot,
+            **{name: _put(a, dev) for name, a in host.items()},
             shadow_metric=csr.edge_metric.copy(),
             shadow_up=csr.edge_up.copy(),
             shadow_overloaded=csr.node_overloaded.copy(),
             sweep_hint=csr._sweep_hint,
             rewire_seq=csr.rewire_seq,
         )
-        if id(csr) not in self._residents:
-            # a retired mirror frees its resident with it
-            weakref.finalize(csr, self._residents.pop, id(csr), None)
-        self._residents[id(csr)] = res
+        self._adopt(csr, res)
         self._bump("device.engine.full_restages")
         self._bump(
             "device.engine.bytes_staged",
-            sum(a.nbytes for a in host) + sum(a.nbytes for a in leaves),
+            sum(a.nbytes for a in host.values()) + sum(a.nbytes for a in leaves),
         )
         return res
+
+    def _adopt(self, csr, res: _Resident) -> None:
+        """Make `res` the resident of `csr`; a retired mirror frees its
+        resident with it (residents key on id(csr), which a later mirror
+        may reuse)."""
+        if id(csr) not in self._residents:
+            weakref.finalize(csr, self._residents.pop, id(csr), None)
+        self._residents[id(csr)] = res
 
     def _write(self, target: torch.Tensor, idx: np.ndarray, vals: np.ndarray) -> int:
         """target[idx] = vals on the device (rows when `vals` is 2-D);
@@ -544,6 +577,127 @@ class DeviceResidencyEngine:
         """Forget `csr`'s residency (mirror retired)."""
         self._residents.pop(id(csr), None)
 
+    # -- snapshot seams (snapshot.EngineSnapshot) ---------------------------
+
+    def export_resident(self, csr) -> dict:
+        """Host image of `csr`'s residency for EngineSnapshot.take: synced
+        first (the checkpoint is at the mirror's current version), then
+        one host copy per surface (a copy on the CPU too, so the image
+        never aliases the resident), the ELL's in `ell_leaves` order."""
+        res = self.sync(csr)
+        return {
+            "topo_key": res.topo_key,
+            "version": res.version,
+            "rewire_seq": res.rewire_seq,
+            "sweep_hint": res.sweep_hint,
+            "arrays": {
+                name: _host(getattr(res, name)) for name in RESIDENT_ARRAYS
+            },
+            "ell_leaves": [_host(t) for t in ell_leaves(res.ell)],
+        }
+
+    def install_resident(
+        self,
+        csr,
+        state: dict,
+        *,
+        version: Optional[int] = None,
+        rewire_seq: Optional[int] = None,
+    ) -> _Resident:
+        """Install a host image (export_resident's shape) as `csr`'s
+        residency: host to device copies, the shadows taken from the
+        image, so a following sync() reconciles any drift between the
+        image and `csr` on the ordinary rungs.  `version` / `rewire_seq`
+        override the image's position when the caller proved `csr`'s
+        content equal to it (the snapshot's install rung)."""
+        dev = self.device
+        arrays = {name: np.asarray(state["arrays"][name]) for name in RESIDENT_ARRAYS}
+        leaves = [np.asarray(a) for a in state["ell_leaves"]]
+        n_buckets = len(csr.ell.buckets)
+        if len(leaves) != 5 * n_buckets + 2:
+            raise ValueError(
+                f"resident image has {len(leaves)} ELL leaves, the mirror's "
+                f"ELL takes {5 * n_buckets + 2}"
+            )
+        ell = ops.EllGraph(
+            tuple(
+                ops.EllBucket(*(_put(a, dev) for a in leaves[5 * b: 5 * b + 5]))
+                for b in range(n_buckets)
+            ),
+            _put(leaves[-2], dev),
+            _put(leaves[-1], dev),
+        )
+        res = _Resident(
+            topo_key=tuple(int(x) for x in state["topo_key"]),
+            ell_host=csr.ell,
+            version=int(state["version"] if version is None else version),
+            ell=ell,
+            **{name: _put(arrays[name], dev) for name in RESIDENT_ARRAYS},
+            shadow_metric=arrays["edge_metric"].copy(),
+            shadow_up=arrays["edge_up"].copy(),
+            shadow_overloaded=arrays["node_overloaded"].copy(),
+            sweep_hint=int(state.get("sweep_hint", 16)),
+            rewire_seq=int(state["rewire_seq"] if rewire_seq is None else rewire_seq),
+        )
+        self._adopt(csr, res)
+        self._bump(
+            "device.engine.bytes_staged",
+            sum(a.nbytes for a in arrays.values()) + sum(a.nbytes for a in leaves),
+        )
+        return res
+
+    def cached_program_keys(self) -> list[tuple]:
+        """Ladder keys of the forward runs made, in first-run order."""
+        return list(self._program_keys)
+
+    @staticmethod
+    def _ladder_key(key) -> tuple:
+        """A manifest key as this engine records it: `small` is False,
+        since the port has one program shape for every size."""
+        topo, s_bucket, n_words, n_sweeps, _small, use_link_metric = key
+        return (
+            tuple(int(x) for x in topo),
+            int(s_bucket),
+            int(n_words),
+            int(n_sweeps),
+            False,
+            bool(use_link_metric),
+        )
+
+    def prewarm(self, csr, keys) -> int:
+        """One discarded forward run per ladder key on `csr`'s installed
+        resident, every source the resident's first node: it pays CUDA's
+        cold costs before the first query.  Keys of another topology, or
+        already run, are skipped; nothing runs without a current
+        resident.  Returns how many keys ran."""
+        res = self._residents.get(id(csr))
+        if res is None or res.ell_host is not csr.ell:
+            return 0
+        ran = 0
+        for key in map(self._ladder_key, keys):
+            if key in self._program_keys or key[0] != res.topo_key:
+                continue
+            _topo, s_bucket, n_words, n_sweeps, _small, use_link_metric = key
+            src = torch.zeros(s_bucket, dtype=torch.int32, device=self.device)
+            *_, ok = ops.spf_forward_full(
+                src,
+                res.ell,
+                res.edge_src,
+                res.edge_dst,
+                res.edge_metric,
+                res.edge_up,
+                res.node_overloaded,
+                res.out_slot,
+                n_words,
+                n_sweeps,
+                use_link_metric=use_link_metric,
+            )
+            bool(ok)  # waits for the run
+            self._program_keys[key] = None
+            self._bump("device.engine.prewarm_runs")
+            ran += 1
+        return ran
+
     # -- queries ------------------------------------------------------------
 
     def spf_results(
@@ -589,6 +743,9 @@ class DeviceResidencyEngine:
         self._bump("device.engine.bytes_staged", src_ids.nbytes)
         while True:
             n_sweeps = res.sweep_hint
+            self._program_keys[
+                (res.topo_key, s_bucket, n_words, n_sweeps, False, bool(use_link_metric))
+            ] = None
             dist, dag, nh, ok = ops.spf_forward_full(
                 src_dev,
                 res.ell,

@@ -18,10 +18,15 @@ openr_tpu_torch.platform.fib_agent` process; unless the caller passes
 `fib_agent`) or the Thrift shim (`thrift_shim_port`, -1 for a port the
 kernel picks) gets that part built and started with the daemon, or the
 daemon fails to start.  A failed agent call raises into Fib's retry and
-backoff; nothing stands in for the agent.  The
-replica fleet (`ServingFleet`) and the reference's tracing, fuzzing,
-schedule-exploration, race-detector and snapshot hooks come with the
-modules that bring them (ROADMAP queue 1 items 5, 6, 8 and 9).
+backoff; nothing stands in for the agent.  The ctrl handler's
+`snapshot` surface answers the pre-seeded `snapshot.*` family; the
+reference's tracing, fuzzing, schedule-exploration and race-detector
+hooks come with the modules that bring them (ROADMAP queue 1 items 6, 8
+and 9).
+
+`ServingFleet` runs K daemons in one process, peered over a KvStore full
+mesh and fronted by one `serving.ReplicaRouter`; it scales out with a
+snapshot warm start (`snapshot.EngineSnapshot`) and in under live load.
 
 Queue wiring (reference: Main.cpp:275-287; SURVEY §1 dataflow):
 
@@ -64,6 +69,15 @@ from .runtime.queue import ReplicateQueue
 from .spark import IoProvider, Spark, UdpIoProvider
 
 log = logging.getLogger(__name__)
+
+
+def _snapshot_counters():
+    """The engine-snapshot registry (snapshot.*, pre-seeded zeros): a
+    daemon that never takes or restores a snapshot still answers the
+    whole family on both wires."""
+    from .snapshot import SNAPSHOT_COUNTERS
+
+    return SNAPSHOT_COUNTERS
 
 
 class OpenrDaemon:
@@ -363,6 +377,8 @@ class OpenrDaemon:
             # ride the same surface; the optimizer lives on the serving
             # backend so optimizeMetrics runs and counter reads agree
             te=getattr(self.serving.backend, "te", None),
+            # engine-snapshot counters (snapshot.*, pre-seeded zeros)
+            snapshot=_snapshot_counters(),
             kvstore_updates_queue=self.kvstore_updates_queue,
             fib_updates_queue=self.fib_updates_queue,
             config_store=self.config_store,
@@ -459,6 +475,295 @@ class OpenrDaemon:
         if callable(close_agent):
             close_agent()  # TcpFibAgent holds a persistent socket
         self.config_store.close()
+
+
+def fleet_node_config(name: str, ctrl_port: int = 0) -> OpenrConfig:
+    """Fast-timer config for an in-process serving-fleet replica (the
+    OpenrWrapper posture: mock fabrics, no watchdog, sub-second Spark)."""
+    from .config import AreaConf, DecisionConf, SparkConf
+
+    return OpenrConfig(
+        node_name=name,
+        areas=[AreaConf()],
+        openr_ctrl_port=ctrl_port,
+        spark_config=SparkConf(
+            hello_time_s=0.3,
+            fastinit_hello_time_ms=20,
+            keepalive_time_s=0.05,
+            hold_time_s=0.5,
+            graceful_restart_time_s=1.0,
+        ),
+        decision_config=DecisionConf(debounce_min_ms=5, debounce_max_ms=20),
+        enable_watchdog=False,
+        node_label=0,
+    ).validate()
+
+
+class ServingFleet:
+    """K full daemons in one process, peered over a KvStore full mesh and
+    fronted by one serving.ReplicaRouter (reference: openr_tpu.main
+    ServingFleet).
+
+    Every daemon runs the whole stack (Spark adjacency over a mock
+    fabric, KvStore flooding, Decision on `device`, serving.QueryScheduler),
+    so each replica converges to the same LinkState version on its own
+    and answers any query at its current epoch.  The router spreads
+    queries across the K schedulers with per-session epoch pinning,
+    health-aware failover and bounded hedging; `handler` is the
+    front-door OpenrCtrlHandler whose queryPaths / queryWhatIf / queryKsp
+    go through the router, so the fleet looks like one daemon to ctrl
+    clients while serving.router.* counters expose the spread.
+
+    Where the reference takes `spf_backend=` / `use_device_spf=`, every
+    daemon here computes on `device` (the CUDA card when None), and a
+    scale-out's snapshot warm start that fails raises out of `scale()`.
+    """
+
+    def __init__(
+        self,
+        k: int = 3,
+        *,
+        node_prefix: str = "fleet",
+        hedge_after_s: Optional[float] = 0.05,
+        config_fn=None,
+        device=None,
+    ) -> None:
+        from .kvstore import InProcessTransport
+        from .spark import MockIoProvider
+
+        if k < 1:
+            raise ValueError("ServingFleet needs at least one replica")
+        self._make = config_fn or fleet_node_config
+        self._node_prefix = node_prefix
+        self._device = device
+        self.spark_fabric = MockIoProvider()
+        self.kv_fabric = InProcessTransport()
+        self.daemons: list[OpenrDaemon] = []
+        self._names: list[str] = []
+        # creation index per live daemon: interface names (if-{i}-{j}) and
+        # mock addresses are minted from it and never reused, so a
+        # scale-in followed by a scale-out can't collide with the fabric
+        # state the departed replica left behind
+        self._indices: list[int] = []
+        self._next_idx = 0
+        for _ in range(k):
+            self._new_daemon()
+        self._hedge_after_s = hedge_after_s
+        self.router = None  # serving.ReplicaRouter (built in start())
+        self.handler = None  # front-door OpenrCtrlHandler over the router
+
+    def _new_daemon(self) -> OpenrDaemon:
+        """Mint the next replica (not yet started or meshed)."""
+        i = self._next_idx
+        self._next_idx += 1
+        name = f"{self._node_prefix}-{i}"
+        addr = f"fe80::{name}"
+        daemon = OpenrDaemon(
+            self._make(name),
+            io_provider=self.spark_fabric.endpoint(name),
+            kvstore_transport=self.kv_fabric.bind(addr),
+            spark_v6_addr=addr,
+            device=self._device,
+        )
+        self.kv_fabric.register(addr, daemon.kvstore)
+        self.daemons.append(daemon)
+        self._names.append(name)
+        self._indices.append(i)
+        return daemon
+
+    def start(self) -> None:
+        from .serving import ReplicaRouter, SchedulerReplica
+        from .types import LinkEvent
+
+        for daemon in self.daemons:
+            daemon.start()
+        # full-mesh adjacency: every replica peers with every other, so
+        # one surviving replica keeps the whole fleet's KvStore coherent
+        # through any single partition
+        k = len(self.daemons)
+        for i in range(k):
+            for j in range(i + 1, k):
+                self.spark_fabric.connect(
+                    self._names[i], f"if-{i}-{j}", self._names[j], f"if-{j}-{i}"
+                )
+        for i, daemon in enumerate(self.daemons):
+            for j in range(k):
+                if j != i:
+                    daemon.netlink_events_queue.push(
+                        LinkEvent(f"if-{i}-{j}", j + 1, True)
+                    )
+        self.router = ReplicaRouter(
+            [
+                SchedulerReplica(self._names[i], d.serving)
+                for i, d in enumerate(self.daemons)
+            ],
+            hedge_after_s=self._hedge_after_s if k > 1 else None,
+        )
+        # front door: daemon 0's introspection surfaces plus the router
+        # as the serving module, so queryPaths et al spread over the fleet
+        front = self.daemons[0]
+        self.handler = OpenrCtrlHandler(
+            f"{self._names[0]}-front",
+            kvstore=front.kvstore,
+            decision=front.decision,
+            fib=front.fib,
+            link_monitor=front.link_monitor,
+            prefix_manager=front.prefix_manager,
+            spark=front.spark,
+            monitor=front.monitor,
+            config=front.config,
+            serving=self.router,
+            snapshot=_snapshot_counters(),
+            queues=front._queues,
+        )
+
+    def wait_converged(self, timeout_s: float = 30.0) -> bool:
+        """True once every replica's Decision sees the full mesh of the
+        live replicas AND all replicas answer the same topology epoch:
+        the fleet precondition for equal replies across replicas.
+
+        The reference counts `len(ls.node_names) == k`, which a departed
+        replica's adjacency database (it stays in every store until its
+        TTL) keeps false after any scale-in, so a later scale-out waited
+        out the whole timeout (ROADMAP queue 3, F6).  Here each replica's
+        LinkState is read on its own Decision thread, and a departed
+        node, whose links are down, does not count."""
+        import time
+
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if all(self._sees_full_mesh(d) for d in self.daemons):
+                epochs = {d.serving.backend.epoch("0") for d in self.daemons}
+                if len(epochs) == 1:
+                    return True
+            time.sleep(0.05)
+        return False
+
+    def _sees_full_mesh(self, daemon: OpenrDaemon) -> bool:
+        """True when `daemon`'s LinkState has an up link between every two
+        live replicas."""
+        names = set(self._names)
+
+        def check() -> bool:
+            ls = daemon.decision.area_link_states.get("0")
+            if ls is None:
+                return False
+            return all(
+                {link.other_node_name(a) for link in ls.links_from_node(a) if link.is_up()}
+                >= names - {a}
+                for a in names
+            )
+
+        return daemon.decision.run_in_event_base_thread(check).result()
+
+    # -- elastic membership ---------------------------------------------------
+
+    def scale(self, k_new: int) -> list:
+        """Elastic membership under live load: grow or shrink the fleet to
+        `k_new` replicas one step at a time.  A scale-out replica is
+        warm-started from daemon 0's engine snapshot before it joins the
+        router; a scale-in folds the departed replica's final counters
+        into the router's roll-up, so the fleet's wire surface stays
+        monotone.  Returns the restore rung ("replay" / "install" /
+        "cold") of each scale-out step."""
+        if k_new < 1:
+            raise ValueError("ServingFleet cannot scale below one replica")
+        if self.router is None:
+            raise RuntimeError("scale() requires a started fleet")
+        modes: list = []
+        while len(self.daemons) > k_new:
+            self._scale_in()
+        while len(self.daemons) < k_new:
+            modes.append(self._scale_out())
+        return modes
+
+    def autoscale_step(self, policy):
+        """One autoscaling observation: feed the router's fleet counter
+        roll-up and the deepest replica admission queue to the policy
+        (snapshot.AutoscalePolicy) and apply its decision through
+        scale().  Returns the AutoscaleDecision."""
+        k = len(self.daemons)
+        depth = max((d.serving.admission.size() for d in self.daemons), default=0)
+        decision = policy.observe(k, self.router.get_counters(), admission_depth=depth)
+        if decision.action != "hold" and decision.target_k != k:
+            self.scale(decision.target_k)
+        return decision
+
+    def _scale_out(self) -> str:
+        from .serving import SchedulerReplica
+        from .snapshot import SNAPSHOT_COUNTERS
+        from .types import LinkEvent
+
+        donor = self.daemons[0]
+        peers = list(zip(self._indices, self._names, self.daemons))
+        daemon = self._new_daemon()
+        idx = self._indices[-1]
+        name = self._names[-1]
+        daemon.start()
+        # mesh the joiner with every live peer, then announce the links on
+        # both sides (start()'s choreography, with minted indices)
+        for j, jname, _ in peers:
+            self.spark_fabric.connect(jname, f"if-{j}-{idx}", name, f"if-{idx}-{j}")
+        for j, jname, peer in peers:
+            peer.netlink_events_queue.push(LinkEvent(f"if-{j}-{idx}", idx + 1, True))
+            daemon.netlink_events_queue.push(LinkEvent(f"if-{idx}-{j}", j + 1, True))
+        if not self.wait_converged():
+            raise RuntimeError(f"scale-out: the fleet did not converge with {name}")
+        mode = self._warm_start(donor, daemon)
+        # join the router last: the first routed query finds the restored
+        # residency
+        self.router.add_replica(SchedulerReplica(name, daemon.serving))
+        SNAPSHOT_COUNTERS._bump("snapshot.scaleouts")
+        return mode
+
+    def _scale_in(self) -> None:
+        from .snapshot import SNAPSHOT_COUNTERS
+
+        if len(self.daemons) <= 1:
+            raise ValueError("ServingFleet cannot scale below one replica")
+        # always retire the youngest replica: daemon 0 owns the front door
+        # handler and is the snapshot donor
+        name = self._names[-1]
+        daemon = self.daemons[-1]
+        # stops new picks at once and folds the replica's final counters
+        # into the departed roll-up before the handle dies
+        self.router.remove_replica(name)
+        daemon.stop()
+        self.daemons.pop()
+        self._names.pop()
+        self._indices.pop()
+        SNAPSHOT_COUNTERS._bump("snapshot.scaleins")
+
+    @staticmethod
+    def _warm_start(donor: OpenrDaemon, joiner: OpenrDaemon) -> str:
+        """Snapshot-restore the joiner's engine from the donor's.  Each
+        side runs on its own Decision thread, the one thread that touches
+        its engine, so neither races a route build or a serving batch.  A
+        converged fleet takes the install rung (the joiner's fresh mirror
+        equals the donor's); drift demotes to an accounted cold build.
+        Every daemon computes on its card, so there is no skip, and a
+        failure raises."""
+        from .snapshot import EngineSnapshot
+
+        def take():
+            spf = donor.decision.spf_solver.spf
+            csr = spf.csr_mirror(donor.decision.area_link_states["0"])
+            return EngineSnapshot.take(spf.engine, csr)
+
+        snap = donor.decision.run_in_event_base_thread(take).result()
+
+        def restore():
+            spf = joiner.decision.spf_solver.spf
+            csr = spf.csr_mirror(joiner.decision.area_link_states["0"])
+            return snap.restore(spf.engine, csr)
+
+        return joiner.decision.run_in_event_base_thread(restore).result()
+
+    def stop(self) -> None:
+        if self.router is not None:
+            self.router.stop()
+        for daemon in self.daemons:
+            daemon.stop()
 
 
 def build_flag_parser() -> argparse.ArgumentParser:
