@@ -139,6 +139,23 @@ and its phases timed:
   and a host-Dijkstra Decision → Fib (a publication, a metric raised, a
   link down), one masked k = 2 batch per rebuild on the card.
 
+Tracing (`openr_tpu_torch.obs.trace`) is armed only around four steps,
+each in `traced()`, which disarms it after: `kvstore_decision_wan100k`'s
+flood (every store on the chain roots its own `kvstore.publication`; the
+router's trace, finished with `kvstore.merge` and a `decision` stage per
+Decision holding `fib.program`, the card's tagged with its engine rung,
+read back over TCP with `breeze monitor traces`, `getSpanSamples` and
+`getCounters`; its stage split printed beside `persist_to_programmed_ms`),
+`replica_fleet_wan100k`'s routed queries and its replica kill (every
+`router.query` nesting the answering `serving.query` and its stages, K1's
+launches counted inside the optimize_metrics query's dispatch span, the
+kill's retry or failover edges) and `blocked_main_path`'s route build,
+under a root the smoke opens that the blocked rung tags
+`engine.rung=blocked` and `engine.kernel=outer:cuda`.  `daemon_process`
+spawns its daemon with `OPENR_TRACE=1`: its `obs.*` counters, and the
+trace of a prefix `breeze prefixmgr advertise` publishes, printed by
+`breeze monitor traces`.
+
 The masked batches (KSP2 re-runs, what-if, TI-LFA) are plain PyTorch,
 as the reference leaves them to XLA; their phases print the masked
 runs, the learned `hint_masked`, the per-sweep time against its byte
@@ -2888,6 +2905,50 @@ def wait_until(cond, timeout: float, what: str, interval: float = 0.05) -> float
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def traced(ring: int = 1024):
+    """The port's tracer armed (`obs.trace.enable`) for the steps inside,
+    disarmed after whatever happens: every other phase runs unarmed."""
+    from openr_tpu_torch.obs import trace
+
+    tr = trace.enable(ring=ring)
+    try:
+        yield tr
+    finally:
+        trace.disable()
+
+
+def ring_spans(tr, name: str) -> list:
+    """The finished traces named `name` in the tracer's ring, oldest
+    first (the span objects, for identity)."""
+    with tr._lock:
+        return [sp for sp in tr._ring if sp.name == name]
+
+
+def span_ms(sp):
+    return None if sp.t_end_us is None else (sp.t_end_us - sp.t_start_us) / 1e3
+
+
+class RootLog:
+    """Records the thread that opened each span `tr.root` returns (a
+    module's event base names its thread) until `close()`."""
+
+    def __init__(self, tr) -> None:
+        import threading
+
+        self.tr, self.real, self.roots = tr, tr.root, []
+
+        def root(name, **tags):
+            sp = self.real(name, **tags)
+            self.roots.append((threading.current_thread().name, name, sp))
+            return sp
+
+        tr.root = root
+
+    def close(self) -> None:
+        del self.tr.root
+
+
 # the listen and peer address of the smoke's daemons
 LOOPBACK = "127.0.0.1"
 # how long breeze waits for an answer: the reference's CtrlClient waits
@@ -3332,6 +3393,84 @@ def daemon_queries_paused(daemon, oracle, router, checked, n_keys, port, rec, pr
     rec["monitor_counters"] = len(counters)
 
 
+def flood_trace(tr, roots: RootLog, t0_us: int, port: int, stores, timeout: float = 300.0) -> dict:
+    """The traced flood (`kvstore_decision_wan100k` step (2)).  Every store
+    on the chain roots its own `kvstore.publication` on its own thread; the
+    router's trace is finished with a `kvstore.merge` stage and, for each
+    Decision reading the router's updates queue (the card's and the host
+    oracle's), a `decision` stage holding a finished `fib.program`; the
+    card's `decision` carries the engine rung it took.  Over TCP through
+    the router's daemon: `breeze monitor traces` holds that trace as the
+    tracer dumps it, `getSpanSamples` its structure, and `getCounters`
+    the obs.* family with `obs.traces_finished` >= 1.  Returns the
+    structure, the stage split in ms and what the wire answered."""
+    from openr_tpu_torch.ctrl import CtrlClient
+    from openr_tpu_torch.obs import OBS_COUNTER_KEYS
+
+    def router_trace():
+        for sp in ring_spans(tr, "kvstore.publication"):
+            decisions = [c for c in sp.children if c.name == "decision"]
+            if (
+                sp.t_start_us >= t0_us
+                and len(decisions) == 2
+                and any("engine.rung" in c.tags for c in decisions)
+                and all(
+                    any(g.name == "fib.program" and g.t_end_us is not None for g in c.children)
+                    for c in decisions
+                )
+            ):
+                return sp
+        return None
+
+    waited_s = wait_until(lambda: router_trace() is not None, timeout, "the flood's trace")
+    sp = router_trace()
+    if sorted(c.name for c in sp.children) != ["decision", "decision", "kvstore.merge"]:
+        raise AssertionError(f"flood trace: {sp.structure()}")
+    by_store = sorted(thread for thread, name, _ in roots.roots if name == "kvstore.publication")
+    if set(by_store) != {f"kvstore-{n}" for n in stores}:
+        raise AssertionError(f"flood: publication roots opened on {by_store}")
+    merge = next(c for c in sp.children if c.name == "kvstore.merge")
+    card = next(c for c in sp.children if c.name == "decision" and "engine.rung" in c.tags)
+    oracle = next(c for c in sp.children if c.name == "decision" and "engine.rung" not in c.tags)
+
+    def fib_of(decision):
+        return next(g for g in decision.children if g.name == "fib.program")
+
+    calls = []
+    text, breeze_ms, _ = breeze_run(port, "monitor", "traces", "-n", "64", calls=calls)
+    tree = sp.to_dict()
+    if tree not in calls[0]["answer"] or "fib.program [" not in text:
+        raise AssertionError(f"breeze monitor traces: {text[-2000:]}")
+    with CtrlClient(LOOPBACK, port, timeout_s=60.0) as client:
+        samples = client.call("getSpanSamples")
+        counters = client.call("getCounters")
+    if not any(g["structure"] == sp.structure() for g in samples):
+        raise AssertionError(f"getSpanSamples: {samples}")
+    obs = {k: counters.get(k) for k in OBS_COUNTER_KEYS}
+    if None in obs.values() or obs["obs.traces_finished"] < 1:
+        raise AssertionError(f"getCounters: {obs}")
+    return {
+        "structure": sp.structure(),
+        "roots_by_thread": by_store,
+        "stages_ms": {
+            "trace": span_ms(sp),
+            "kvstore.merge": span_ms(merge),
+            "decision": span_ms(card),
+            "decision_start_ms": (card.t_start_us - sp.t_start_us) / 1e3,
+            "fib.program": span_ms(fib_of(card)),
+            "fib.program_start_ms": (fib_of(card).t_start_us - sp.t_start_us) / 1e3,
+            "oracle_decision": span_ms(oracle),
+            "oracle_fib.program": span_ms(fib_of(oracle)),
+        },
+        "engine_rung": card.tags["engine.rung"],
+        "waited_for_trace_s": waited_s,
+        "breeze_monitor_traces": {"ms": breeze_ms, "lines": text.count("\n"),
+                                  "traces": len(calls[0]["answer"]), "head": text[:600]},
+        "span_samples": samples,
+        "obs_counters": obs,
+    }
+
+
 def kvstore_decision_wan100k(device, timer, handoff: KvHandoff, agent: "AgentProcess",
                              batch: int = 8192, ttl_ms: int = 3000) -> dict:
     """The node's KvStore feeding the card Decision at full width, in the
@@ -3658,14 +3797,25 @@ def kvstore_decision_wan100k(device, timer, handoff: KvHandoff, agent: "AgentPro
         client = KvStoreClientInternal(evb, x, stores["seed"], updates_of["seed"].get_reader())
         raised = dataclasses.replace(handoff.raised, perf_events=None)
         before = {s: sides[s]["programmed"].size() for s in sides}
-        t0 = time.perf_counter()
-        client.persist_key("0", adj_key(x), dumps(raised))
-        programmed_ms = {}
-        for side, s in sides.items():
-            wait_until(lambda s=s, side=side: s["programmed"].size() > before[side],
-                       600, f"flood programmed ({side})", interval=0.005)
-            programmed_ms[side] = (time.perf_counter() - t0) * 1e3
-        step = settle("flood")
+        # traced: armed just before the persist, disarmed once the trace
+        # is read back over TCP
+        with traced() as tr:
+            roots = RootLog(tr)
+            try:
+                t0_us = time.perf_counter_ns() // 1000
+                t0 = time.perf_counter()
+                client.persist_key("0", adj_key(x), dumps(raised))
+                programmed_ms = {}
+                for side, s in sides.items():
+                    wait_until(lambda s=s, side=side: s["programmed"].size() > before[side],
+                               600, f"flood programmed ({side})", interval=0.005)
+                    programmed_ms[side] = (time.perf_counter() - t0) * 1e3
+                step = settle("flood")
+                t0 = time.perf_counter()
+                step["trace"] = flood_trace(tr, roots, t0_us, daemon.ctrl_port, names)
+                step["trace"]["check_s"] = time.perf_counter() - t0
+            finally:
+                roots.close()
         step["persist_to_programmed_ms"] = programmed_ms
         version = stores[router].get_key_vals("0", [adj_key(x)]).key_vals[adj_key(x)].version
         step["version"] = version
@@ -4316,9 +4466,9 @@ def serving_fleet(device, timeout_s: float = 60.0) -> dict:
 
 class DaemonProcess:
     """`python -m openr_tpu_torch.main` as a user starts it, with a config
-    file and flags, on the card.  Entered before the phases that precede
-    `daemon_process`, so its torch import and CUDA start overlap them;
-    killed on exit if it still runs."""
+    file and flags and `OPENR_TRACE=1`, on the card.  Entered before the
+    phases that precede `daemon_process`, so its torch import and CUDA
+    start overlap them; killed on exit if it still runs."""
 
     def __enter__(self) -> "DaemonProcess":
         import os
@@ -4338,9 +4488,11 @@ class DaemonProcess:
         self.log_path = os.path.join(tmp, "daemon.log")
         self.spawned_at = time.time()
         with open(self.log_path, "w") as log_file:
+            # traced: the daemon arms its tracer at import
             self.proc = subprocess.Popen(
                 argv, cwd=os.path.dirname(os.path.abspath(__file__)),
                 stdout=log_file, stderr=subprocess.STDOUT,
+                env={**os.environ, "OPENR_TRACE": "1"},
             )
         return self
 
@@ -4426,8 +4578,12 @@ class AgentProcess:
 def daemon_process(daemon: DaemonProcess, stop_within_s: float = 10.0) -> dict:
     """The daemon process (`DaemonProcess`): up (s from its spawn to its
     "up" log line), it answers `breeze version` and `monitor counters`
-    (its watchdog checking every second, none fired), then exits 0 within
+    (its watchdog checking every second, none fired, the five obs.*
+    counters there), traces the publication `breeze prefixmgr advertise`
+    causes, which `breeze monitor traces` prints as the reference's breeze
+    prints it (KvStore merge, Decision, Fib), then exits 0 within
     `stop_within_s` of SIGTERM."""
+    from openr_tpu_torch.obs import OBS_COUNTER_KEYS
     import signal
 
     t_phase = time.perf_counter()
@@ -4452,7 +4608,33 @@ def daemon_process(daemon: DaemonProcess, stop_within_s: float = 10.0) -> dict:
     counters = dict(line.split(" : ", 1) for line in out.splitlines())
     if counters.get("watchdog.fired") != "0" or "monitor.uptime_s" not in counters:
         raise AssertionError(f"breeze monitor counters: {sorted(counters)[:20]}")
+    if not set(OBS_COUNTER_KEYS) <= set(counters):
+        raise AssertionError(f"breeze monitor counters: no obs.* family in {sorted(counters)[:20]}")
     rec["counters"] = len(counters)
+    # the traced publication of an advertised prefix
+    breeze_run(port, "prefixmgr", "advertise", "fd00::/64")
+    calls = []
+
+    def traced_publication() -> bool:
+        calls.clear()
+        rec["traces_text"] = breeze_run(port, "monitor", "traces", calls=calls)[0]
+        return any(
+            t["name"] == "kvstore.publication" and t["duration_us"] is not None
+            and any(c["name"] == "decision"
+                    and any(g["name"] == "fib.program" for g in c["children"])
+                    for c in t["children"])
+            for t in calls[0]["answer"]
+        )
+
+    rec["trace_wait_s"] = wait_until(traced_publication, 60, "the daemon process's trace",
+                                     interval=0.2)
+    if rec["traces_text"] != breeze_render(["monitor", "traces"], calls[0]["answer"]):
+        raise AssertionError("breeze monitor traces: printed other than its answer")
+    out, _, _ = breeze_run(port, "monitor", "counters", "--regex", "^obs\\.")
+    obs = dict(line.split(" : ", 1) for line in out.splitlines())
+    if sorted(obs) != sorted(OBS_COUNTER_KEYS) or int(obs["obs.traces_finished"]) < 1:
+        raise AssertionError(f"breeze monitor counters: {obs}")
+    rec["obs_counters"] = obs
     t0 = time.perf_counter()
     proc.send_signal(signal.SIGTERM)
     rc = proc.wait(timeout=stop_within_s)
@@ -4903,9 +5085,15 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
         blocked.node_shard_threshold = threshold
     if timer.cuda:
         torch.cuda.reset_peak_memory_stats()
-    dbs_out, t_main, launches, main_counters, view = counted_route_build(
-        solver, inp, timer
-    )
+    # traced: the route build under a root the smoke opens, which the
+    # blocked rung tags with its rung and K2's flavour
+    with traced() as tr:
+        root = tr.root("smoke.blocked_view", pods=pods)
+        with tr.activate((root,)):
+            dbs_out, t_main, launches, main_counters, view = counted_route_build(
+                solver, inp, timer
+            )
+        tr.finish(root)
     peak = torch.cuda.max_memory_allocated() if timer.cuda else None
     n = csr.n_nodes
     b = blocked.tile_for(n)
@@ -4914,6 +5102,9 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
     k2 = OUTER_KERNEL["name"]
     if not view.node_sharded:
         raise AssertionError("the blocked main path did not take the rung")
+    # K2 launched (its count is checked below), so the flavour is cuda
+    if root.tags != {"pods": pods, "engine.rung": "blocked", "engine.kernel": "outer:cuda"}:
+        raise AssertionError(f"blocked main path: the root's tags {root.tags}")
     if (
         launches[k2] != t
         or main_counters[f"device.engine.kernel_launches.{k2}"] != t
@@ -5003,6 +5194,8 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
         "unicast_routes": sum(len(db.unicast_routes) for db in dbs_out.values()),
         "mpls_routes": sum(len(db.mpls_routes) for db in dbs_out.values()),
         "launches": launches,
+        "trace": {"structure": root.structure(), "ms": span_ms(root),
+                  "k2_launches_in_root": launches[k2]},
         "engine_counters": main_counters,
         "blocked_counters": blocked_counters,
         "times": times,
@@ -5760,9 +5953,18 @@ class ExactK1Capture:
             return r
 
         self.epilogue = epilogue = engine.epilogue
+        # with the tracer armed: (the active span scope, K1 launches) per call
+        self.scoped = []
 
         def capturing(d, *rest):
+            from openr_tpu_torch.obs import trace
+            from openr_tpu_torch.ops import epilogue as ep
+
+            n0 = ep.fused_epilogue.launches
             out = epilogue(d, *rest)
+            tr = trace.TRACE
+            if tr is not None:
+                self.scoped.append((tr.scope(), ep.fused_epilogue.launches - n0))
             if self.slab is None:
                 self.slab = (d, rest[:4], rest[4], *staged)
             return out
@@ -6292,6 +6494,37 @@ class ServingHandoff(NamedTuple):
     unflapped: object
 
 
+def routed_traces(tr, n: int, what: str, timeout: float = 120.0) -> list:
+    """The `n` router traces of a routed step, each finished with
+    outcome=ok: a `dispatch` edge per (re)dispatch, and the answering
+    replica's `serving.query` nested in it with outcome=ok and its
+    `admission`, `coalesce`, `dispatch` (tagged with the engine rung) and
+    `reply` stages.  A paths or KSP query's dispatch carries the engine
+    rung; what-if and optimize_metrics run on the forward runner and TE's
+    evaluator, which tag no rung, as in the reference.  Returns the span
+    objects."""
+
+    def done():
+        got = ring_spans(tr, "router.query")
+        return len(got) == n and all("outcome" in sp.tags for sp in got)
+
+    wait_until(done, timeout, f"{what}: {n} finished router traces")
+    spans = ring_spans(tr, "router.query")
+    for sp in spans:
+        answered = [c for c in sp.children
+                    if c.name == "serving.query" and c.tags.get("outcome") == "ok"]
+        edges = [c for c in sp.children if c.name == "dispatch"]
+        stages = {c.name: c for c in answered[0].children} if len(answered) == 1 else {}
+        if (
+            sp.tags.get("outcome") != "ok"
+            or not edges
+            or sorted(stages) != ["admission", "coalesce", "dispatch", "reply"]
+            or ("engine.rung" in stages["dispatch"].tags) != (sp.tags["op"] in ("paths", "ksp"))
+        ):
+            raise AssertionError(f"{what}: router trace {sp.structure()}")
+    return spans
+
+
 def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -> dict:
     """A second replica of the wan100k query service restored from a
     snapshot of the first, both behind a `ReplicaRouter` on the card.
@@ -6452,33 +6685,61 @@ def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -
         admitted0 = sched.get_counters()["serving.admitted"]
         captures = [ExactK1Capture(r0), ExactK1Capture(joiner.engine)]
         try:
-            zero_launch_counts()
-            t0 = time.perf_counter()
-            sessions = ("s0", "s1")
-            futs = [
-                (s, router.submit("paths", sources=(s,), session=sess))
-                for sess in sessions for s in checked
-            ]
-            wi_sources, wi_scen, wi_reply = handoff.what_if
-            wi = router.submit("what_if", sources=wi_sources, scenarios=wi_scen)
-            te = router.submit("optimize_metrics", demand=handoff.demand, bounds=(1, 16), steps=12)
-            submitted += len(futs) + 2
-            for s, f in futs:
-                r = f.result(900)
-                if r.value[s] != answers[s]:
-                    raise AssertionError(f"routed paths {s}: differs from the serving phase's")
-            del futs, r
-            if wi.result(900).value != wi_reply:
-                raise AssertionError("routed what-if: differs from the serving phase's")
-            te_reply = te.result(900).value
-            routed_s = time.perf_counter() - t0
-            launches = launch_counts()
+            # traced: every routed query's trace, K1's launches counted in
+            # the optimize_metrics query's dispatch span
+            with traced() as tr:
+                zero_launch_counts()
+                t0 = time.perf_counter()
+                sessions = ("s0", "s1")
+                futs = [
+                    (s, router.submit("paths", sources=(s,), session=sess))
+                    for sess in sessions for s in checked
+                ]
+                wi_sources, wi_scen, wi_reply = handoff.what_if
+                wi = router.submit("what_if", sources=wi_sources, scenarios=wi_scen)
+                te = router.submit("optimize_metrics", demand=handoff.demand, bounds=(1, 16),
+                                   steps=12)
+                submitted += len(futs) + 2
+                for s, f in futs:
+                    r = f.result(900)
+                    if r.value[s] != answers[s]:
+                        raise AssertionError(f"routed paths {s}: differs from the serving phase's")
+                del futs, r
+                if wi.result(900).value != wi_reply:
+                    raise AssertionError("routed what-if: differs from the serving phase's")
+                te_reply = te.result(900).value
+                routed_s = time.perf_counter() - t0
+                launches = launch_counts()
+                t0 = time.perf_counter()
+                spans = routed_traces(tr, submitted, "routed")
+                te_span = next(sp for sp in spans if sp.tags["op"] == "optimize_metrics")
+                te_dispatch = next(
+                    c for q in te_span.children if q.name == "serving.query"
+                    for c in q.children if c.name == "dispatch"
+                )
+                k1_in_dispatch = sum(
+                    n for capture in captures for scope, n in capture.scoped if te_dispatch in scope
+                )
+                routed_trace = {
+                    "traces": len(spans),
+                    "optimize_metrics": {
+                        "structure": te_span.structure(),
+                        "dispatch_ms": span_ms(te_dispatch),
+                        "k1_launches_in_dispatch": k1_in_dispatch,
+                    },
+                    "span_samples": tr.span_samples(),
+                    "obs_counters": tr.get_counters(),
+                    "check_s": time.perf_counter() - t0,
+                }
+                del spans, te_span, te_dispatch
         finally:
             for capture in reversed(captures):
                 capture.close()
         te_evals = te_reply["roundTrips"]
         if launches[KERNEL_U16["name"]] != te_evals or sum(launches.values()) != te_evals:
             raise AssertionError(f"routed optimize_metrics: {te_evals} evaluations launched {launches}")
+        if routed_trace["optimize_metrics"]["k1_launches_in_dispatch"] != te_evals:
+            raise AssertionError(f"routed optimize_metrics: K1 in its dispatch span {routed_trace}")
         reevaluate_te(r0, csr, handoff.demand, te_reply, "routed optimize_metrics")
         slab = captures[0].slab or captures[1].slab
         k1_exact = slab_pair_records(*slab, timer, "routed exact evaluation")
@@ -6498,6 +6759,7 @@ def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -
             "admitted": admitted,
             "te_reply": {k: v for k, v in te_reply.items() if k != "proposedMetrics"},
             "k1_launches": launches,
+            "trace": routed_trace,
         }
 
         # (d) one flap; pinned sessions see only forward epochs
@@ -6565,13 +6827,22 @@ def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -
         # (g) the joiner killed under the router
         deaths = router.get_counters()["serving.router.replica_deaths"]
         jsched.stop()
-        t0 = time.perf_counter()
-        for s in checked[:3]:
-            submitted += 1
-            r = router.submit("paths", sources=(s,), session="s0").result(900)
-            if s not in r.value:
-                raise AssertionError(f"kill: no answer for {s}")
-        kill_s = time.perf_counter() - t0
+        with traced() as tr:
+            t0 = time.perf_counter()
+            for s in checked[:3]:
+                submitted += 1
+                r = router.submit("paths", sources=(s,), session="s0").result(900)
+                if s not in r.value:
+                    raise AssertionError(f"kill: no answer for {s}")
+            kill_s = time.perf_counter() - t0
+            spans = routed_traces(tr, 3, "kill")
+            edges = sorted(c.tags["kind"] for sp in spans for c in sp.children
+                           if c.name == "dispatch")
+            if not {"retry", "failover"} & set(edges):
+                raise AssertionError(f"kill: no retry or failover edge in {edges}")
+            kill_trace = {"dispatch_edges": edges, "span_samples": tr.span_samples(),
+                          "obs_counters": tr.get_counters()}
+            del spans
         router.stop()
         rc = router.get_counters()
         if rc["serving.router.retries"] + rc["serving.router.failovers"] < 1:
@@ -6580,7 +6851,7 @@ def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -
             raise AssertionError(f"router ledger: {rc} against {submitted}")
         if rc["serving.errors"] or rc["serving.host_fallbacks"]:
             raise AssertionError(f"router: errors or host fallbacks {rc}")
-        rec["kill"] = {"query_s": kill_s, "deaths_before": deaths}
+        rec["kill"] = {"query_s": kill_s, "deaths_before": deaths, "trace": kill_trace}
         rec["router_counters"] = {
             k: v for k, v in rc.items() if k.startswith("serving.router.") and "hist_us" not in k
         }

@@ -2,9 +2,11 @@
 
 Port of `openr_tpu.ctrl.server`: the same methods on the same wire.
 The daemon wires the handler's `snapshot` surface (the pre-seeded
-`snapshot.*` family); its `obs`, `fuzz`, `sched` and `mesh` surfaces
-stay None until the port has those modules, and each method then
-answers as the reference's does without them (`dumpTraces` answers []).
+`snapshot.*` family) and its `obs` surface (`obs.ObsStats`: the `obs.*`
+counters, zeroed when tracing is unarmed, and the tracer's trees on
+`dumpTraces` and `getSpanSamples`); its `fuzz`, `sched` and `mesh`
+surfaces stay None until the port has those modules, and each method
+then answers as the reference's does without them.
 
 Wire protocol (one JSON object per line):
     request:   {"id": N, "method": "...", "params": {...}}
@@ -101,7 +103,7 @@ class OpenrCtrlHandler:
         # schedule-exploration registry (openr_tpu.analysis.sched
         # .SCHED_COUNTERS): exports sched.* (pre-seeded zeros) the same way
         self.sched = sched
-        # observability surface (openr_tpu.obs.ObsStats): exports obs.*
+        # observability surface (obs.ObsStats): exports obs.*
         # trace counters (zeroed when unarmed) plus the dumpTraces /
         # getSpanSamples methods below
         self.obs = obs

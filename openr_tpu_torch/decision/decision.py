@@ -19,8 +19,11 @@ failure scenarios) and `get_ti_lfa` run on the event-base thread over
 the device backend's refreshed mirror and its engine
 (decision.protection_api).  `pending_event_hint` counts the topology
 events admitted since the last rebuild, for the serving layer's
-bounded batch hold.  The reference's trace spans (its `obs` tooling)
-are not ported yet.
+bounded batch hold.  With tracing armed (`obs.trace`), the publication
+traces carried in on the KvStore updates queue wait for the debounced
+rebuild, which opens one `decision` stage under each and runs with all
+of them active (fan-in), so the engine's rung lands on each and the
+route update carries them on to Fib.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import logging
 from typing import Optional
 
+from ..obs import trace as _trace
 from ..runtime.async_util import AsyncDebounce
 from ..runtime.eventbase import OpenrEventBase
 from ..runtime.queue import QueueClosedError, ReplicateQueue, RQueue
@@ -181,6 +185,10 @@ class Decision(OpenrEventBase):
         # publications admitted that need a route update the last rebuild
         # has not folded in yet (pending_event_hint)
         self._pending_events = 0
+        # OPENR_TRACE: publication spans carried in on the KvStore updates
+        # queue, waiting for the rebuild that folds them in (event-base
+        # thread only)
+        self._trace_pending: list = []
         self.counters: dict[str, int] = {"decision.route_rebuild_failures": 0}
 
     def _bump(self, counter: str, n: int = 1) -> None:
@@ -235,6 +243,9 @@ class Decision(OpenrEventBase):
                 pub = await self._kvstore_updates.aget()
             except QueueClosedError:
                 return
+            tr = _trace.TRACE
+            if tr is not None:
+                self._trace_pending.extend(tr.take_carried())
             self.process_publication(pub)
             if self.pending_updates.needs_route_update():
                 self._pending_events += 1
@@ -382,6 +393,26 @@ class Decision(OpenrEventBase):
         next rebuild, and raises."""
         if self._cold_start_pending:
             return
+        tr = _trace.TRACE
+        pending, self._trace_pending = self._trace_pending, []
+        if tr is not None and pending:
+            # fan-in: the debounced rebuild folds every carried publication
+            # at once; a "decision" stage under each, all active, so the
+            # route push carries them on
+            spans = [
+                tr.child_open(sp, "decision", event=event)
+                for sp in dict.fromkeys(pending)
+            ]
+            try:
+                with tr.activate(spans):
+                    self._rebuild_routes_impl(event)
+            finally:
+                for sp in spans:
+                    sp.finish()
+            return
+        self._rebuild_routes_impl(event)
+
+    def _rebuild_routes_impl(self, event: str) -> None:
         self.pending_updates.add_event(event)
         try:
             update = self._compute_route_update()

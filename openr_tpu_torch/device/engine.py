@@ -42,8 +42,15 @@ every forward run `spf_results` has made (`small` is always False: the
 port has one program shape), and `prewarm` runs one discarded forward
 per key of a snapshot's manifest on an installed resident, which pays
 CUDA's cold costs (lazy module loading, the caching allocator's first
-blocks of the [N_cap, S] scratch) before the first query.  The chaos
-`fault_hook` and the trace annotations come in later slices.
+blocks of the [N_cap, S] scratch) before the first query.
+
+With tracing armed (`obs.trace`), every rung tags the spans of the
+active scope with `engine.rung`: `spf` for a query on a warm resident,
+upgraded by `sync` to `restage`, `rewire` or `incremental` when the
+residency moved, and `delta` for a delta-rung program (the blocked
+runner tags `blocked`).  `blocked_outer` tags `engine.kernel` with
+`outer:cuda` when it launched K2 and `outer:plain` when its tensors lay
+on the CPU.  The chaos `fault_hook` comes with the chaos slice.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..obs import trace as _trace
 from ..ops import blocked_outer as _outer
 from ..ops import epilogue as _epilogue
 from ..ops import sssp as ops
@@ -334,12 +342,20 @@ class DeviceResidencyEngine:
         return out
 
     def blocked_outer(self, dist, row_p, col_p, node_overloaded, k: int):
-        """ops.blocked_outer.blocked_outer, counting the kernel launches."""
-        return self._launch(
+        """ops.blocked_outer.blocked_outer, counting the kernel launches;
+        armed, the scope's spans get `engine.kernel` = `outer:cuda` when
+        K2 launched, `outer:plain` when the plain version ran."""
+        before = _outer.blocked_outer.launches
+        out = self._launch(
             "blocked_outer",
             _outer.blocked_outer,
             dist, row_p, col_p, node_overloaded, k,
         )
+        tr = _trace.TRACE
+        if tr is not None:
+            flavor = "cuda" if _outer.blocked_outer.launches > before else "plain"
+            tr.annotate("engine.kernel", f"outer:{flavor}")
+        return out
 
     # -- delta rung ---------------------------------------------------------
 
@@ -385,8 +401,8 @@ class DeviceResidencyEngine:
         device work and raises EpochMismatchError; `bucket_key` names the
         slab's shape cell, a first sighting counted as a miss and a
         repeat as a hit; the call is counted and timed, a raising call
-        included.  The reference's chaos `fault_hook` and trace
-        annotation come with the chaos and observability slices."""
+        included, and armed it tags the scope `engine.rung` = `delta`.
+        The reference's chaos `fault_hook` comes with the chaos slice."""
         if (
             expect_epoch is not None
             and csr is not None
@@ -400,6 +416,9 @@ class DeviceResidencyEngine:
             else:
                 self._delta_buckets_seen.add(bucket_key)
                 self._bump("device.engine.delta_bucket_misses")
+        tr = _trace.TRACE
+        if tr is not None:
+            tr.annotate("engine.rung", "delta")
         t0 = time.perf_counter()
         try:
             return fn(*args, **kwargs)
@@ -437,19 +456,28 @@ class DeviceResidencyEngine:
         if res is None or res.ell_host is not csr.ell:
             res = self._restage(csr)
         else:
-            if csr.rewire_seq != res.rewire_seq and not self._rewire_sync(
-                res, csr
-            ):
-                self._bump("device.engine.rewire_fallbacks")
-                res = self._restage(csr)
+            if csr.rewire_seq != res.rewire_seq:
+                if self._rewire_sync(res, csr):
+                    tr = _trace.TRACE
+                    if tr is not None:
+                        tr.annotate("engine.rung", "rewire")
+                else:
+                    self._bump("device.engine.rewire_fallbacks")
+                    res = self._restage(csr)
             if res.version != csr.version:
                 self._incremental(res, csr)
+                tr = _trace.TRACE
+                if tr is not None:
+                    tr.annotate("engine.rung", "incremental")
         self._bump(
             "device.engine.stage_us", int((time.perf_counter() - t0) * 1e6)
         )
         return res
 
     def _restage(self, csr) -> _Resident:
+        tr = _trace.TRACE
+        if tr is not None:
+            tr.annotate("engine.rung", "restage")
         dev = self.device
         host = {name: getattr(csr, name) for name in RESIDENT_ARRAYS}
         ell = csr.ell.to(dev)
@@ -725,6 +753,10 @@ class DeviceResidencyEngine:
             raise EpochMismatchError(int(expect_epoch), int(csr.version))
         if not sources:
             return {}
+        tr = _trace.TRACE
+        if tr is not None:
+            # the warm rung; sync() upgrades it when the residency moves
+            tr.annotate("engine.rung", "spf")
         t_query = time.perf_counter()
         bytes_before = self.counters.get("device.engine.bytes_staged", 0)
         res = self.sync(csr)

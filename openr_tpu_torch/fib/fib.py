@@ -15,9 +15,11 @@ Port of `openr_tpu.fib.fib` (reference: openr/fib/Fib.{h,cpp}):
 
 The agent seam (`FibAgent`) is the thrift FibService surface
 (openr/if/Platform.thrift:71); `MockFibAgent` mirrors
-openr/tests/mocks/MockNetlinkFibHandler.  The reference's trace spans
-(its `obs` tooling) and the mock agent's chaos schedule (its chaos
-layer) are not ported.
+openr/tests/mocks/MockNetlinkFibHandler.  With tracing armed
+(`obs.trace`), a route update that carries traces is programmed under a
+`fib.program` stage of each, and each carried trace's root is finished
+once: Fib is the terminal of the publication path.  The mock agent's
+chaos schedule (the reference's chaos layer) is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from collections import deque
 from typing import Iterable, Optional, Protocol
 
 from ..decision.rib import DecisionRouteUpdate, RibMplsEntry, RibUnicastEntry
+from ..obs import trace as _trace
 from ..runtime.eventbase import OpenrEventBase
 from ..runtime.queue import QueueClosedError, ReplicateQueue, RQueue
 from ..types import MplsRoute, PerfEvents, UnicastRoute, add_perf_event
@@ -250,6 +253,25 @@ class Fib(OpenrEventBase):
                 update = await self._route_updates.aget()
             except QueueClosedError:
                 return
+            tr = _trace.TRACE
+            carried = tr.take_carried() if tr is not None else ()
+            if carried:
+                # the publication path's terminal: program under a
+                # "fib.program" stage of each carried span, then finish
+                # every carried trace's root
+                spans = [tr.child_open(sp, "fib.program") for sp in carried]
+                try:
+                    with tr.activate(spans):
+                        try:
+                            self.process_route_updates(update)
+                        except Exception:
+                            log.exception("fib: route update processing failed")
+                finally:
+                    for sp in spans:
+                        sp.finish()
+                    for sp in carried:
+                        tr.finish_root(sp)
+                continue
             try:
                 self.process_route_updates(update)
             except Exception:

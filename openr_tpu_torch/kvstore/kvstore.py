@@ -24,12 +24,15 @@ reference where convergence depends on it:
 
 The transport is pluggable: `InProcessTransport` wires N stores in one
 process for clusterless multi-node tests (the KvStoreWrapper pattern,
-openr/kvstore/KvStoreWrapper.h:31).  The reference's TCP transport (its
-ctrl server), its trace spans and its transport fault injector
-(`set_chaos`) are not ported yet.  One difference: a peer whose DUAL
-traffic arrived before the peering counts as speaking DUAL
-(`KvStorePeer.dual_seen`), where the reference floods it outside the
-SPT for good.
+openr/kvstore/KvStoreWrapper.h:31); the TCP transport lives in `ctrl`.
+With tracing armed (`obs.trace`), a publication that enters the store
+roots a `kvstore.publication` trace (`merge_publication`, or the flood
+chokepoint for a locally originated one) with a `kvstore.merge` stage,
+and the trace rides the updates queue into Decision.  The reference's
+transport fault injector (`set_chaos`) is not ported yet.  One
+difference: a peer whose DUAL traffic arrived before the peering counts
+as speaking DUAL (`KvStorePeer.dual_seen`), where the reference floods
+it outside the SPT for good.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Optional, Protocol
 
+from ..obs import trace as _trace
 from ..runtime.eventbase import OpenrEventBase
 from ..runtime.queue import QueueClosedError, ReplicateQueue, RQueue
 from ..types import (
@@ -885,6 +889,19 @@ class KvStoreDb:
         self, pub: Publication, sender_id: Optional[str] = None
     ) -> int:
         """Reference: mergePublication (KvStore.cpp)."""
+        tr = _trace.TRACE
+        if tr is not None:
+            # a publication entering this node roots a trace; it rides the
+            # updates queue into Decision and Fib's terminal finishes it
+            root = tr.root("kvstore.publication", area=self.area)
+            if root is not None:
+                with tr.activate((root,)):
+                    return self._merge_publication_impl(pub, sender_id)
+        return self._merge_publication_impl(pub, sender_id)
+
+    def _merge_publication_impl(
+        self, pub: Publication, sender_id: Optional[str]
+    ) -> int:
         self._bump("kvstore.received_publications")
         self._bump("kvstore.received_key_vals", len(pub.key_vals))
 
@@ -900,12 +917,13 @@ class KvStoreDb:
             self._bump("kvstore.looped_publications")
             return 0
 
-        delta = Publication(
-            key_vals=merge_key_values(self.kv, pub.key_vals, self.store.filters),
-            flood_root_id=pub.flood_root_id,
-            area=self.area,
-            node_ids=list(pub.node_ids) if pub.node_ids is not None else None,
-        )
+        with _trace.maybe_child("kvstore.merge"):
+            delta = Publication(
+                key_vals=merge_key_values(self.kv, pub.key_vals, self.store.filters),
+                flood_root_id=pub.flood_root_id,
+                area=self.area,
+                node_ids=list(pub.node_ids) if pub.node_ids is not None else None,
+            )
         kv_update_cnt = len(delta.key_vals)
         self._bump("kvstore.updated_key_vals", kv_update_cnt)
         self.update_ttl_countdown_queue(delta)
@@ -971,7 +989,17 @@ class KvStoreDb:
         pub.node_ids.append(self.store.node_id)
 
         # internal subscribers
-        self.store.kvstore_updates_queue.push(pub)
+        tr = _trace.TRACE
+        root = None
+        if tr is not None and not tr.scope():
+            # a locally originated publication (API origination, TTL
+            # expiry) roots its trace here instead of in merge_publication
+            root = tr.root("kvstore.publication", area=self.area)
+        if root is not None:
+            with tr.activate((root,)):
+                self.store.kvstore_updates_queue.push(pub)
+        else:
+            self.store.kvstore_updates_queue.push(pub)
         self._bump("kvstore.num_updates")
 
         if not pub.key_vals:
@@ -1285,6 +1313,17 @@ class KvStoreDb:
     def _schedule_ttl_cleanup(self, delay_s: float) -> None:
         if self._ttl_timer is not None:
             self._ttl_timer.cancel()
+        tr = _trace.TRACE
+        if tr is not None and tr.scope():
+            # the countdown is the store's, not the publication's that
+            # re-armed it: an expiry roots its own trace at the flood
+            # chokepoint (F7: the reference's timer carries the arming
+            # publication's scope into the expiry)
+            with tr.activate(()):
+                self._ttl_timer = self.store.schedule_timeout(
+                    max(0.0, delay_s), self.cleanup_ttl_countdown_queue
+                )
+            return
         self._ttl_timer = self.store.schedule_timeout(
             max(0.0, delay_s), self.cleanup_ttl_countdown_queue
         )

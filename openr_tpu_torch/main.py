@@ -19,10 +19,12 @@ openr_tpu_torch.platform.fib_agent` process; unless the caller passes
 kernel picks) gets that part built and started with the daemon, or the
 daemon fails to start.  A failed agent call raises into Fib's retry and
 backoff; nothing stands in for the agent.  The ctrl handler's
-`snapshot` surface answers the pre-seeded `snapshot.*` family; the
-reference's tracing, fuzzing, schedule-exploration and race-detector
-hooks come with the modules that bring them (ROADMAP queue 1 items 6, 8
-and 9).
+`snapshot` surface answers the pre-seeded `snapshot.*` family and its
+`obs` surface (`_obs_stats`) the `obs.*` family, zeroed unless tracing
+is armed (`OPENR_TRACE=1` in the daemon's environment), with
+`dumpTraces` and `getSpanSamples` answering the tracer's trees.  The
+reference's fuzzing, schedule-exploration and race-detector hooks come
+with the modules that bring them (ROADMAP queue 1 items 8 and 9).
 
 `ServingFleet` runs K daemons in one process, peered over a KvStore full
 mesh and fronted by one `serving.ReplicaRouter`; it scales out with a
@@ -69,6 +71,15 @@ from .runtime.queue import ReplicateQueue
 from .spark import IoProvider, Spark, UdpIoProvider
 
 log = logging.getLogger(__name__)
+
+
+def _obs_stats():
+    """The tracing surface (obs.* counters, dumpTraces, getSpanSamples).
+    ObsStats reads the tracer late-bound, so an unarmed daemon answers
+    zeroed counters and empty trace lists."""
+    from .obs import ObsStats
+
+    return ObsStats()
 
 
 def _snapshot_counters():
@@ -377,6 +388,9 @@ class OpenrDaemon:
             # ride the same surface; the optimizer lives on the serving
             # backend so optimizeMetrics runs and counter reads agree
             te=getattr(self.serving.backend, "te", None),
+            # trace-span surface (obs.*, zeroed when OPENR_TRACE is off):
+            # the same wire shape armed or not
+            obs=_obs_stats(),
             # engine-snapshot counters (snapshot.*, pre-seeded zeros)
             snapshot=_snapshot_counters(),
             kvstore_updates_queue=self.kvstore_updates_queue,
@@ -613,6 +627,7 @@ class ServingFleet:
             monitor=front.monitor,
             config=front.config,
             serving=self.router,
+            obs=_obs_stats(),
             snapshot=_snapshot_counters(),
             queues=front._queues,
         )

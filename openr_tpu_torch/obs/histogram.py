@@ -46,6 +46,14 @@ class Histogram:
         counts, n = self.snapshot()
         return _pctl_from_counts(counts, n, p)
 
+    def merge(self, other: "Histogram") -> None:
+        """Add `other`'s counts into this histogram."""
+        counts, n = other.snapshot()
+        with self._lock:
+            for i, c in enumerate(counts):
+                self.counts[i] += c
+            self.n += n
+
 
 def _pctl_from_counts(counts: list[int], n: int, p: float) -> int:
     if n <= 0:

@@ -30,7 +30,9 @@ This module runs the reference's bulk-synchronous round loop
 (`blocked_round_pipelined`) only reorders compute on one device and is
 bit-identical to the bulk loop there; it, the device mesh
 (`make_blocked_mesh`, `OPENR_BLOCKED_MESH`) and their `mesh.blocked.*`
-exchange and pipeline counters come with the multi-GPU slice.
+exchange and pipeline counters come with the multi-GPU slice.  With
+tracing armed (`obs.trace`), `run_apsp` tags the active scope
+`engine.rung` = `blocked`.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..obs import trace as _trace
 from ..ops import allsources as asrc
 from ..ops import blocked_outer as _outer
 from ..ops.blocked_outer import sat_minplus
@@ -218,7 +221,11 @@ class BlockedApspEngine:
         """Full blocked closure of dist0 [S, Np, Np] int32 with the [Np]
         drain mask, in place on dist0's storage; returns the tile tensor
         [S, T, B, T, B] and the tile B.  `outer` replaces the phase-3
-        front-end (a comparison run passes the plain version)."""
+        front-end (a comparison run passes the plain version).  Armed, it
+        tags the scope's spans `engine.rung` = `blocked`."""
+        tr = _trace.TRACE
+        if tr is not None:
+            tr.annotate("engine.rung", "blocked")
         s, n_pad, _ = dist0.shape
         b = self.tile_for(n_pad)
         if n_pad % b:

@@ -6,11 +6,14 @@ openr/common/OpenrEventBase.h:28): every module runs in its own thread
 timers are loop timers, and the heartbeat timestamp is the watchdog's
 getTimestamp() (OpenrEventBase.h:74).  A module may define the async
 hooks `prepare()`, started as a task on its loop when the loop starts,
-and `stopping()`, awaited on its loop before the loop stops.  The
-reference's race-detector, schedule-explorer and trace hand-off
-wrappers (its `analysis` and `obs` tooling) are not ported.  The
-cross-loop coroutine calls `run_async` and `run_coroutine` are: the
-ctrl server starts its listener on its own loop through them.
+and `stopping()`, awaited on its loop before the loop stops.  With
+tracing armed (`obs.trace`), every cross-thread hand-off
+(`add_fiber_task`, `run_in_event_base_thread`, `schedule_timeout`)
+carries the caller's active span scope onto the loop thread
+(`_obs_handoff`).  The reference's race-detector and schedule-explorer
+wrappers (its `analysis` tooling) are not ported.  The cross-loop
+coroutine calls `run_async` and `run_coroutine` are: the ctrl server
+starts its listener on its own loop through them.
 """
 
 from __future__ import annotations
@@ -22,7 +25,21 @@ import threading
 import time
 from typing import Any, Awaitable, Callable, Coroutine, Optional
 
+from ..obs import trace as _trace
+
 log = logging.getLogger(__name__)
+
+# bound on joining a stopping loop's default-executor threads: a call
+# still blocked there after this is left to end on its own
+_EXECUTOR_JOIN_S = 5.0
+
+
+def _obs_handoff(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """OPENR_TRACE: `fn` bound to the caller's active span scope, so work
+    marshalled onto a module loop keeps its trace attribution; `fn`
+    itself when unarmed (one attribute load) or with no active scope."""
+    tr = _trace.TRACE
+    return fn if tr is None else tr.bind_scope(fn)
 
 
 class Timeout:
@@ -106,6 +123,11 @@ class OpenrEventBase:
                 loop.run_until_complete(
                     asyncio.gather(*pending, return_exceptions=True)
                 )
+            # join the loop's default-executor threads (the ctrl server's
+            # sync calls run there), so none outlives stop()
+            loop.run_until_complete(
+                loop.shutdown_default_executor(_EXECUTOR_JOIN_S)
+            )
         finally:
             loop.close()
             self._stopped.set()
@@ -186,7 +208,7 @@ class OpenrEventBase:
         def _create() -> None:
             self._track(self._loop.create_task(coro, name=name or "fiber"))
 
-        self._loop.call_soon_threadsafe(_create)
+        self._loop.call_soon_threadsafe(_obs_handoff(_create))
 
     def in_event_base_thread(self) -> bool:
         return threading.current_thread() is self._thread
@@ -215,7 +237,7 @@ class OpenrEventBase:
             except BaseException as e:  # noqa: BLE001
                 fut.set_exception(e)
 
-        self._loop.call_soon_threadsafe(_call)
+        self._loop.call_soon_threadsafe(_obs_handoff(_call))
         return fut
 
     async def run_async(self, coro: Awaitable[Any]) -> Any:
@@ -232,7 +254,9 @@ class OpenrEventBase:
         cancellable token."""
         assert self._loop is not None
         token = Timeout()
-        self._loop.call_soon_threadsafe(token._arm, self._loop, delay_s, fn)
+        self._loop.call_soon_threadsafe(
+            _obs_handoff(token._arm), self._loop, delay_s, _obs_handoff(fn)
+        )
         return token
 
     # -- watchdog interface (reference: getTimestamp, OpenrEventBase.h:74) --

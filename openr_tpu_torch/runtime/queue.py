@@ -14,8 +14,13 @@ async waiters are woken with call_soon_threadsafe and retry the pop, so
 no item is reserved for a waiter that was cancelled.  A bounded queue
 hands each item it sheds to its `on_shed` callback, outside the lock
 (the serving layer turns a shed query into an explicit error reply).
-The reference's race-detector, schedule-explorer and trace hooks (its
-`analysis` and `obs` tooling) are not ported.
+
+With tracing armed (`obs.trace`), each push stores the pushing thread's
+active span scope next to the item, and the pop that takes the item
+hands that scope to the popping thread (`Tracer.take_carried`); the
+token deque stays None until the first armed push.  The reference's
+race-detector and schedule-explorer hooks (its `analysis` tooling) are
+not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import asyncio
 import threading
 from collections import deque
 from typing import Callable, Generic, Iterable, Optional, TypeVar
+
+from ..obs import trace as _trace
 
 T = TypeVar("T")
 
@@ -76,17 +83,30 @@ class RWQueue(Generic[T]):
         self._num_pushed = 0
         self._num_read = 0
         self._num_overflows = 0
+        # OPENR_TRACE: per-item span-scope tokens kept positionally
+        # aligned with _items under _lock; None until the first armed push
+        self._obs_tokens: Optional[deque] = None
 
     def push(self, item: T) -> bool:
         shed: Optional[T] = None
         with self._lock:
             if self._closed:
                 return False
+            tr = _trace.TRACE
+            if tr is not None:
+                otoks = self._obs_tokens
+                if otoks is None or len(otoks) != len(self._items):
+                    # items enqueued while unarmed carry no trace context
+                    otoks = self._obs_tokens = deque([None] * len(self._items))
             if self._maxlen is not None and len(self._items) >= self._maxlen:
                 # bounded: shed the OLDEST item (later state supersedes it)
                 shed = self._items.popleft()
                 self._num_overflows += 1
+                if tr is not None:
+                    otoks.popleft()
             self._items.append(item)
+            if tr is not None:
+                otoks.append(tr.carry())
             self._num_pushed += 1
             self._cond.notify()
             waiters, self._async_waiters = self._async_waiters, []
@@ -114,8 +134,23 @@ class RWQueue(Generic[T]):
             except RuntimeError:
                 pass  # loop already closed
 
+    def _obs_take(self) -> None:
+        """OPENR_TRACE: pop the head item's carried scope (under _lock,
+        just before the matching _items.popleft()) and stash it on the
+        popping thread, which is the consumer."""
+        otoks = self._obs_tokens
+        if len(otoks) == len(self._items):
+            tok = otoks.popleft()
+            tr = _trace.TRACE
+            if tr is not None:
+                # set even when tok is None: a pop must clear a stale
+                # token of an earlier pop on this thread
+                tr.set_carried(tok)
+
     def _pop(self) -> T:
         self._num_read += 1
+        if self._obs_tokens is not None:
+            self._obs_take()
         return self._items.popleft()
 
     def get(self, timeout: Optional[float] = None) -> T:

@@ -1,8 +1,12 @@
 """ReplicaRouter: one front door over K daemon replicas.
 
 Port of `openr_tpu.serving.router`: host code, the reference's less its
-trace spans and schedule-exploration regions (they come with the port's
-tracer and analysis modules).
+schedule-exploration region (it comes with the port's analysis module).
+With tracing armed (`obs.trace`), each call roots a `router.query` span;
+every (re)dispatch adds a `dispatch` event tagged with its kind (first,
+retry, hedge, failover, epoch_reroute) and submits under the call's
+span, so the replica scheduler's `serving.query` nests in it; the
+outcome (ok, hedge_win, shed, error) closes the trace.
 
 One QueryScheduler saturates one residency engine; scaling past that
 means replicas — and the moment there are replicas the hard problem is
@@ -59,6 +63,7 @@ import time
 from typing import Any, Optional
 
 from ..device.engine import EpochMismatchError
+from ..obs import trace as _trace
 from ..obs.histogram import Histogram, export_histogram
 from ..utils.backoff import ExponentialBackoff
 from .scheduler import QueryResult, QueryShedError
@@ -171,6 +176,7 @@ class _Call:
         "hedge_launched",
         "lock",
         "t_submit",
+        "span",
     )
 
     def __init__(self, op: str, kw: dict, area: str, session) -> None:
@@ -187,6 +193,7 @@ class _Call:
         self.resolved = False
         self.hedge_launched = False
         self.lock = threading.Lock()
+        self.span = None  # OPENR_TRACE: the call's router.query span
 
 
 class ReplicaRouter:
@@ -414,6 +421,9 @@ class ReplicaRouter:
             steps=steps,
         )
         call = _Call(op, kw, area, session)
+        tr = _trace.TRACE
+        if tr is not None:
+            call.span = tr.root("router.query", op=op)
         if self._stopped or not self._replicas:
             self._resolve_shed(call, "router stopped or no replicas")
             return call.future
@@ -499,7 +509,16 @@ class ReplicaRouter:
                 self._terminal(call, kind, last_exc, "no live replica")
                 return
             try:
-                fut = rep.handle.submit(call.op, **call.kw)
+                sp = call.span
+                tr = _trace.TRACE if sp is not None else None
+                if tr is not None:
+                    # the dispatch edge is structural; under the call's
+                    # span the replica's serving.query nests in this trace
+                    with tr.activate((sp,)):
+                        tr.event("dispatch", kind=kind)
+                        fut = rep.handle.submit(call.op, **call.kw)
+                else:
+                    fut = rep.handle.submit(call.op, **call.kw)
             except Exception as e:  # noqa: BLE001 — sync refusal = down
                 # no dispatch was issued: not in the ledger, but the
                 # replica is marked so the next pick skips it
@@ -600,6 +619,7 @@ class ReplicaRouter:
             self._hist.record_us(
                 int((time.perf_counter() - call.t_submit) * 1e6)
             )
+            self._trace_terminal(call, "hedge_win" if hedged else "ok")
             if not call.future.done():
                 call.future.set_result(res)
             return
@@ -641,6 +661,7 @@ class ReplicaRouter:
                 return
             call.resolved = True
         self._bump("serving.router.sheds")
+        self._trace_terminal(call, "shed")
         if not call.future.done():
             call.future.set_exception(QueryShedError(msg))
 
@@ -649,8 +670,18 @@ class ReplicaRouter:
             if call.resolved:
                 return
             call.resolved = True
+        self._trace_terminal(call, "error")
         if not call.future.done():
             call.future.set_exception(exc)
+
+    @staticmethod
+    def _trace_terminal(call: _Call, outcome: str) -> None:
+        sp = call.span
+        if sp is not None:
+            tr = _trace.TRACE
+            if tr is not None:
+                sp.tags["outcome"] = outcome
+                tr.finish_root(sp)
 
     # -- hedging ---------------------------------------------------------------
 

@@ -23,9 +23,15 @@ single-worker executor:
    times, except `optimize_metrics`, which is never retried.  Any other
    exception fails every future of the batch (`serving.errors`).
 
-Accounting lives under `serving.*` (SERVING_COUNTER_KEYS).  The
-reference's trace spans and schedule-explorer regions (its `obs.trace`
-and `analysis.sched` tooling) are not ported.
+Accounting lives under `serving.*` (SERVING_COUNTER_KEYS).  With tracing
+armed (`obs.trace`), each query roots a `serving.query` span (a child of
+the router's when the router submits under its scope) with `admission`,
+`coalesce`, `dispatch` and `reply` stages: a batch opens one `dispatch`
+child per query and runs with all of them active, so the engine's rung
+annotation lands on each; a failed or shed query closes its span with
+`outcome` = `error` / `shed`.  A query's own trace is finished here; a
+router's trace is left to the router to finish.  The reference's schedule-explorer regions
+(its `analysis.sched` tooling) are not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 from ..device.engine import EpochMismatchError
+from ..obs import trace as _trace
 from ..obs.histogram import Histogram, export_histogram
 from ..runtime.eventbase import OpenrEventBase
 from ..runtime.queue import QueueClosedError, RWQueue
@@ -110,6 +117,11 @@ class _Pending:
     query: Query
     future: "concurrent.futures.Future[QueryResult]"
     t_submit: float
+    # OPENR_TRACE only: the query's span and the stage-boundary times the
+    # reply turns into admission / coalesce children
+    span: Any = None
+    t_drain: float = 0.0
+    t_stage: float = 0.0
 
 
 @dataclass
@@ -216,7 +228,12 @@ class QueryScheduler(OpenrEventBase):
             concurrent.futures.Future()
         )
         pending = _Pending(query, fut, time.perf_counter())
+        tr = _trace.TRACE
+        if tr is not None:
+            # extends the router's span when one is active on this thread
+            pending.span = tr.root("serving.query", op=op)
         if not self._accepting or not self.admission.push(pending):
+            # _fail also closes the span opened above (outcome=shed)
             self._fail(pending, QueryShedError("admission closed"))
             return fut
         with self._lock:
@@ -237,6 +254,14 @@ class QueryScheduler(OpenrEventBase):
             self._bump("serving.shed")
         else:
             self._bump("serving.errors")
+        sp = pending.span
+        if sp is not None:
+            tr = _trace.TRACE
+            if tr is not None:
+                sp.tags["outcome"] = (
+                    "shed" if isinstance(exc, QueryShedError) else "error"
+                )
+                self._trace_close(tr, sp)
         pending.future.set_exception(exc)
 
     # -- coalescing (event-base fiber) ---------------------------------------
@@ -281,6 +306,11 @@ class QueryScheduler(OpenrEventBase):
                     if nxt is None:
                         break
                     drained.append(nxt)
+                if _trace.TRACE is not None:
+                    t_drain = time.perf_counter()
+                    for pending in drained:
+                        if pending.span is not None:
+                            pending.t_drain = t_drain
                 # hold the round (bounded) while the decision layer still
                 # has unfolded topology events, so the epoch pinned below
                 # is the post-storm one
@@ -314,6 +344,11 @@ class QueryScheduler(OpenrEventBase):
                 for batch in batches.values():
                     if self.trace_hook is not None:
                         self.trace_hook("stage", batch)
+                    if _trace.TRACE is not None:
+                        t_stage = time.perf_counter()
+                        for pending in batch.pendings:
+                            if pending.span is not None:
+                                pending.t_stage = t_stage
                     await self._staged.put(batch)
         except (QueueClosedError, asyncio.CancelledError):
             pass
@@ -343,15 +378,33 @@ class QueryScheduler(OpenrEventBase):
             attempts = (
                 1 if batch.op == "optimize_metrics" else _MAX_EPOCH_RETRIES
             )
+            tr = _trace.TRACE
+            d_spans: list = []
+            if tr is not None:
+                # one open "dispatch" child per traced query, all active:
+                # one engine-rung annotation lands on every coalesced
+                # query's tree (fan-in scope)
+                d_spans = [
+                    tr.child_open(p.span, "dispatch")
+                    for p in batch.pendings
+                    if p.span is not None
+                ]
             for _attempt in range(attempts):
                 try:
-                    per_query = self._run_batch(batch)
+                    if d_spans:
+                        with tr.activate(d_spans):
+                            per_query = self._run_batch(batch)
+                    else:
+                        per_query = self._run_batch(batch)
                     error = None
                     break
                 except EpochMismatchError as e:
                     # a flap landed between coalescing and dispatch:
                     # re-pin the fresh epoch and recompute
                     self._bump("serving.invalidations")
+                    if d_spans:
+                        with tr.activate(d_spans):
+                            tr.event("epoch_retry")
                     batch.epoch = int(self.backend.epoch(batch.area))
                     error = e
                 except Exception as e:  # noqa: BLE001
@@ -360,6 +413,8 @@ class QueryScheduler(OpenrEventBase):
                     )
                     error = e
                     break
+            for ds in d_spans:
+                ds.finish()
             n = len(batch.pendings)
             with self._lock:
                 self.counters["serving.batches"] += 1
@@ -378,6 +433,8 @@ class QueryScheduler(OpenrEventBase):
                 with self._lock:
                     self._inflight.discard(pending)
                 self._hist.record_us(latency_us)
+                if pending.span is not None and tr is not None:
+                    self._trace_reply(tr, pending, t_done)
                 if pending.future.done():
                     continue
                 self._bump("serving.replies")
@@ -392,6 +449,35 @@ class QueryScheduler(OpenrEventBase):
         finally:
             if self.trace_hook is not None:
                 self.trace_hook("execute_end", batch)
+
+    @staticmethod
+    def _trace_reply(tr, pending: _Pending, t_done: float) -> None:
+        """The recorded stage boundaries as finished children, then the
+        query's trace closed: admission → coalesce → dispatch → reply
+        (the dispatch child was opened live in _execute)."""
+        sp = pending.span
+
+        def us(t: float) -> int:
+            return int(t * 1e6)  # perf_counter, the spans' clock
+
+        if pending.t_drain:
+            tr.stage(sp, "admission", us(pending.t_submit), us(pending.t_drain))
+            if pending.t_stage:
+                tr.stage(sp, "coalesce", us(pending.t_drain), us(pending.t_stage))
+        tr.stage(sp, "reply", us(t_done), us(t_done))
+        sp.tags["outcome"] = "ok"
+        QueryScheduler._trace_close(tr, sp)
+
+    @staticmethod
+    def _trace_close(tr, sp) -> None:
+        """Close a query's span: its own trace when it is the root; under
+        a router's trace only the span itself, since the router, which
+        may still retry elsewhere, finishes its root (F8: the reference
+        finishes the router's root here)."""
+        if sp.parent is None:
+            tr.finish_root(sp)
+        else:
+            sp.finish()
 
     def _run_batch(self, batch: _Batch) -> list:
         """One backend call for the whole batch; per-query values aligned

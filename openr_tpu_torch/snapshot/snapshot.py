@@ -34,8 +34,10 @@ A damaged artifact is an error (`SnapshotFormatError`), not a demotion.
 
 The `snapshot.*` family is pre-seeded: the `SNAPSHOT_COUNTERS` singleton
 is the ctrl handler's `snapshot` module, so a daemon answers the whole
-family on getCounters before any snapshot is taken.  The reference's
-trace spans wait for the port's tracer.
+family on getCounters before any snapshot is taken.  With tracing armed
+(`obs.trace`), `take` and `restore` run under an `engine.snapshot` stage
+(`op` = take / restore) of the active scope, the restore tagged with its
+`snapshot.rung` and its prewarm under `engine.snapshot.prewarm`.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from typing import Optional
 import numpy as np
 
 from ..device.engine import RESIDENT_ARRAYS, ell_leaves
+from ..obs import trace as _trace
 
 # serialized-format version: any layout change bumps it; `from_bytes`
 # refuses a mismatched artifact (SnapshotFormatError), it never guesses
@@ -122,24 +125,32 @@ class EngineSnapshot:
         """Checkpoint `csr`'s residency on `engine` (synced first, so the
         snapshot is at the mirror's current version)."""
         t0 = time.perf_counter()
-        state = engine.export_resident(csr)
-        topo_key = tuple(state["topo_key"])
-        manifest = tuple(k for k in engine.cached_program_keys() if k[0] == topo_key)
-        snap = cls(
-            epoch=int(state["version"]),
-            rewire_seq=int(state["rewire_seq"]),
-            topo_key=topo_key,
-            node_names=tuple(csr.node_names),
-            sweep_hint=int(state["sweep_hint"]),
-            arrays=state["arrays"],
-            ell_leaves=state["ell_leaves"],
-            manifest=manifest,
-            donor_csr_id=id(csr),
-            donor_ell_ref=csr.ell,
-        )
-        SNAPSHOT_COUNTERS._bump("snapshot.taken")
-        SNAPSHOT_COUNTERS._bump("snapshot.bytes", snap.nbytes())
-        SNAPSHOT_COUNTERS._bump("snapshot.manifest_programs", len(manifest))
+        tr = _trace.TRACE
+        with _trace.maybe_child("engine.snapshot", op="take"):
+            state = engine.export_resident(csr)
+            topo_key = tuple(state["topo_key"])
+            manifest = tuple(
+                k for k in engine.cached_program_keys() if k[0] == topo_key
+            )
+            snap = cls(
+                epoch=int(state["version"]),
+                rewire_seq=int(state["rewire_seq"]),
+                topo_key=topo_key,
+                node_names=tuple(csr.node_names),
+                sweep_hint=int(state["sweep_hint"]),
+                arrays=state["arrays"],
+                ell_leaves=state["ell_leaves"],
+                manifest=manifest,
+                donor_csr_id=id(csr),
+                donor_ell_ref=csr.ell,
+            )
+            nbytes = snap.nbytes()
+            SNAPSHOT_COUNTERS._bump("snapshot.taken")
+            SNAPSHOT_COUNTERS._bump("snapshot.bytes", nbytes)
+            SNAPSHOT_COUNTERS._bump("snapshot.manifest_programs", len(manifest))
+            if tr is not None:
+                tr.note("snapshot.bytes", nbytes)
+                tr.note("snapshot.epoch", snap.epoch)
         SNAPSHOT_COUNTERS._bump(
             "snapshot.take_us", int((time.perf_counter() - t0) * 1e6)
         )
@@ -323,12 +334,17 @@ class EngineSnapshot:
         Returns the rung taken: "replay" / "install" / "cold" (module
         docstring).  Staleness demotes, counted; it never raises."""
         t0 = time.perf_counter()
+        tr = _trace.TRACE
         SNAPSHOT_COUNTERS._bump("snapshot.restores")
-        mode = self._restore_residency(engine, csr)
-        if prewarm and self.manifest:
-            SNAPSHOT_COUNTERS._bump(
-                "snapshot.prewarmed_programs", engine.prewarm(csr, self.manifest)
-            )
+        with _trace.maybe_child("engine.snapshot", op="restore"):
+            mode = self._restore_residency(engine, csr)
+            if tr is not None:
+                tr.annotate("snapshot.rung", mode)
+                tr.note("snapshot.epoch", self.epoch)
+            if prewarm and self.manifest:
+                with _trace.maybe_child("engine.snapshot.prewarm"):
+                    warmed = engine.prewarm(csr, self.manifest)
+                SNAPSHOT_COUNTERS._bump("snapshot.prewarmed_programs", warmed)
         SNAPSHOT_COUNTERS._bump(
             "snapshot.restore_us", int((time.perf_counter() - t0) * 1e6)
         )

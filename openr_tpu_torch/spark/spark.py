@@ -14,7 +14,8 @@ Map"):
 - graceful restart: HELLO_RCVD_RESTART -> RESTART state + GR hold timer;
   `flood_restarting_msg` announces our own restart.
 
-The reference's trace span on each neighbor event is not ported yet.
+With tracing armed (`obs.trace`), each neighbor event roots a shallow
+`spark.neighbor_event` trace, finished right after its push.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..obs import trace as _trace
 from ..runtime.eventbase import OpenrEventBase
 from ..runtime.queue import QueueClosedError, ReplicateQueue, RQueue
 from ..serializer import dumps, loads
@@ -674,6 +676,21 @@ class Spark(OpenrEventBase):
             rtt_us=neighbor.rtt_us,
             kvstore_port=neighbor.kvstore_port,
         )
+        tr = _trace.TRACE
+        if tr is not None:
+            # a neighbor transition roots a shallow trace, finished right
+            # after the push: downstream work shows up as the KvStore
+            # publications it causes
+            root = tr.root(
+                "spark.neighbor_event",
+                event=event_type.name,
+                node=neighbor.node_name,
+            )
+            if root is not None:
+                with tr.activate((root,)):
+                    self._neighbor_updates_queue.push(event)
+                tr.finish(root)
+                return
         self._neighbor_updates_queue.push(event)
 
     # -- public API (reference: Spark.h:99-105) ------------------------------

@@ -194,12 +194,17 @@ def test_ring_converges_equally(rings, flood_optimization):
         assert spt(pair["port"]) == spt(pair["ref"])
 
 
+# node 1's prefix on the converged ring, before any failure: a route
+# to it alone can be a transient one over the long way round
+CONVERGED_ON_1 = [{"fc00:1::/64": ["openr-1"]}, {}, {"fc00:1::/64": ["openr-1"]}]
+
+
 @pytest.mark.parametrize("flood_optimization", [False, True], ids=["full_mesh", "spt"])
 def test_link_failure_reroutes_equally(rings, flood_optimization):
     pair = rings(flood_optimization)
     for ring in pair.values():
         ring.advertise(1)
-    settle_both(pair, lambda r: "fc00:1::/64" in table(r.daemons[0]))
+    settle_both(pair, lambda r: r.tables() == CONVERGED_ON_1)
     for ring in pair.values():
         ring.spark_fabric.disconnect("openr-0", "if-0-1", "openr-1", "if-1-0")
     want = [{"fc00:1::/64": ["openr-2"]}, {}, {"fc00:1::/64": ["openr-1"]}]
@@ -214,7 +219,7 @@ def test_drain_diverts_equally(rings, flood_optimization):
     pair = rings(flood_optimization)
     for ring in pair.values():
         ring.advertise(1)
-    settle_both(pair, lambda r: "fc00:1::/64" in table(r.daemons[2]))
+    settle_both(pair, lambda r: r.tables() == CONVERGED_ON_1)
     for ring in pair.values():
         ring.daemons[2].link_monitor.set_link_metric("if-2-1", 10)
     settle_both(pair, lambda r: table(r.daemons[2]).get("fc00:1::/64") == ["openr-0"])
@@ -269,13 +274,14 @@ SESSION = [
 
 PORT_RE = re.compile(r"\b(2[0-9]{4}|[3-6][0-9]{4}|1[0-9]{4})\b")
 COUNTER_FAMILIES = ("decision.", "fib.", "kvstore.", "link_monitor.", "monitor.",
-                    "prefix_manager.", "spark.", "queue.", "serving.", "te.")
+                    "prefix_manager.", "spark.", "queue.", "serving.", "te.", "obs.",
+                    "snapshot.")
 
 # lines that may differ between the two sessions, and why
 DIFFERENCES = {
     "monitor counters": "counter values are event counts and timings; "
-    "the reference also exports its tracing, fuzzing, schedule-exploration "
-    "and snapshot families and its JAX engine's (compile, bucket, Pallas "
+    "the reference also exports its fuzzing and schedule-exploration "
+    "families and its JAX engine's (compile, bucket, Pallas "
     "and mesh) counters, the port its CUDA engine's (kernel launches, ELL "
     "sweeps, masked batches); a counter appears on its first bump, which "
     "follows the timing of events: the ported modules' counter families "
@@ -284,6 +290,9 @@ DIFFERENCES = {
     "fib perf": "convergence times are wall-clock times and the number of "
     "convergences follows the debounce's batching: the event names are compared",
     "kvstore keys": "a TTL column counts down (the ms left)",
+    "kvstore summary": "keyValsBytes sums the values' bytes, and an "
+    "adjacency value holds its measured RTT: each package's is held to "
+    "its own store's bytes",
     "kvstore keyvals": "as kvstore keys, and an adjacency's RTT is measured",
     "spark neighbors": "RTTs are measured",
     "kvstore peers": "the ctrl ports are the kernel's",
@@ -306,7 +315,20 @@ def normalize(argv: list, out: str) -> list:
         lines = [re.sub(r"\s+-?\d+\s*$", "", line) for line in lines]
     if cmd == "kvstore keyvals":
         lines = [re.sub(r'"(ttl_ms|rtt_us)": \d+', r'"\1": <n>', line) for line in lines]
+    if cmd == "kvstore summary":
+        lines = [re.sub(r'"keyValsBytes": \d+', '"keyValsBytes": <n>', line) for line in lines]
     return [PORT_RE.sub("<port>", line) for line in lines]
+
+
+def summary_matches_store(p, port: int, daemon) -> bool:
+    """`kvstore summary`'s keyValsBytes equals the value bytes the
+    daemon's store holds (read again if an RTT update lands between)."""
+    def once() -> bool:
+        printed = re.search(r'"keyValsBytes": (\d+)', breeze_out(p, port, ["kvstore", "summary"]))
+        held = sum(len(v.value or b"") for v in daemon.kvstore.dump_all("0").key_vals.values())
+        return printed is not None and int(printed.group(1)) == held
+
+    return wait_for(once, timeout=10)
 
 
 def breeze_out(p, port: int, argv: list) -> str:
@@ -360,6 +382,8 @@ def test_breeze_session_prints_as_the_reference(tcp_pairs):
             if argv[0] == "lm" and argv[1] == "links":
                 assert wait_for(lambda d=daemons[0]: d.link_monitor.get_state().is_overloaded)
             outs[name] = breeze_out(P[name], ports[node], argv)
+            if argv == ["kvstore", "summary"]:
+                assert summary_matches_store(P[name], ports[node], daemons[node]), name
         cmd = " ".join(argv[:2])
         if outs["port"] != outs["ref"]:
             differing[cmd] = DIFFERENCES.get(cmd, "UNLISTED")
@@ -547,7 +571,8 @@ def test_unported_parts_refuse_at_construction(field, value, part):
         elif field == "fib_agent_port":
             assert isinstance(d.fib_agent, TcpFibAgent) and d.fib_agent.port == value
             assert wait_for(lambda: agent.table.get_counters().get("fibagent.sync_fib", 0) >= 1)
-            assert d.fib.get_counters().get("fib.sync_fib_calls", 0) >= 1
+            # Fib counts the sync once the agent's reply is back
+            assert wait_for(lambda: d.fib.get_counters().get("fib.sync_fib_calls", 0) >= 1)
         else:
             from openr_tpu_torch.interop import thrift_binary as tb
 

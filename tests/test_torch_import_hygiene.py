@@ -53,6 +53,10 @@ DAEMON_MODULES = {
     "openr_tpu_torch.interop",
     "openr_tpu_torch.interop.thrift_binary",
     "openr_tpu_torch.interop.shim",
+    # observability: the tracer and the histogram
+    "openr_tpu_torch.obs",
+    "openr_tpu_torch.obs.trace",
+    "openr_tpu_torch.obs.histogram",
 }
 
 
