@@ -156,6 +156,17 @@ spawns its daemon with `OPENR_TRACE=1`: its `obs.*` counters, and the
 trace of a prefix `breeze prefixmgr advertise` publishes, printed by
 `breeze monitor traces`.
 
+The port's race detector (`openr_tpu_torch.analysis.race`, reads
+tracked) is armed around two steps, each armed before it builds
+anything and disarmed after, and each fails on any unsuppressed race,
+printing both stacks: `race_serving_fleet` runs `serving_fleet` again
+(every tracked class: the daemons' modules, `QueryScheduler`,
+`ReplicaRouter`, `SchedulerReplica`) beside the unarmed run's wall, and
+`race_routed_wan100k` routes 4 paths, 1 what-if and 1 optimize_metrics
+query of the wan100k replicas through a fresh router and schedulers,
+K1's uint16 launches counted inside the armed window and the replies
+held against the unarmed ones.
+
 The masked batches (KSP2 re-runs, what-if, TI-LFA) are plain PyTorch,
 as the reference leaves them to XLA; their phases print the masked
 runs, the learned `hint_masked`, the per-sweep time against its byte
@@ -4342,6 +4353,7 @@ def serving_fleet(device, timeout_s: float = 60.0) -> dict:
         return reply, (time.perf_counter() - t0) * 1e3
 
     t_phase = time.perf_counter()
+    gc_clock = GcClock()
     fleet = ServingFleet(2, device=device)
     taken: list = []
     take = EngineSnapshot.take.__func__
@@ -4452,6 +4464,8 @@ def serving_fleet(device, timeout_s: float = 60.0) -> dict:
     finally:
         EngineSnapshot.take = classmethod(take)
         fleet.stop()
+        rec["gc_ms"] = gc_clock.take()
+        gc_clock.close()
     rc = fleet.router.get_counters()
     if not dispatch_ledger_closes(rc, acct["submitted"] + 4 + 2 + 3):
         raise AssertionError(f"fleet ledger: {rc}")
@@ -6525,7 +6539,23 @@ def routed_traces(tr, n: int, what: str, timeout: float = 120.0) -> list:
     return spans
 
 
-def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -> dict:
+class RoutedHandoff(NamedTuple):
+    """What `replica_fleet_wan100k` hands `race_routed_wan100k`: the
+    joiner's backend, the checked routers and their routed answers, the
+    what-if query and its reply, the TE demand and the routed
+    optimize_metrics reply, and the flapped router's adjacency database
+    from before the phase's flap."""
+
+    joiner: object
+    checked: list
+    answers: dict
+    what_if: tuple
+    demand: tuple
+    te_reply: dict
+    unflapped: object
+
+
+def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff):
     """A second replica of the wan100k query service restored from a
     snapshot of the first, both behind a `ReplicaRouter` on the card.
     The serving phase's flap is undone first, so its checked answers
@@ -6552,7 +6582,8 @@ def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -
     answers equal.  (g) The joiner's scheduler stopped: three more
     queries answered through retries or failovers; the dispatch ledger
     closes, no serving error and no host fallback.  (h) One flipped
-    payload byte: `SnapshotFormatError`, counted."""
+    payload byte: `SnapshotFormatError`, counted.  Returns the record
+    and a `RoutedHandoff`."""
     import dataclasses
 
     import torch
@@ -6881,6 +6912,182 @@ def replica_fleet_wan100k(device, backend, ls, timer, handoff: ServingHandoff) -
     if timer.cuda:
         rec["card"] = card_line()
         rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return rec, RoutedHandoff(joiner, checked, answers, handoff.what_if, handoff.demand,
+                              te_reply, db)
+
+
+@contextlib.contextmanager
+def race_armed():
+    """The port's race detector armed (reads tracked) around the block,
+    then disarmed.  Yields a dict that holds, after the block, the
+    detector's counts, its unsuppressed findings and the tracked
+    attributes it suppressed; raises, printing every finding with both
+    stacks, when there is one."""
+    from openr_tpu_torch.analysis import race
+
+    out: dict = {}
+    det = race.enable()
+    t0 = time.perf_counter()
+    try:
+        yield out
+    finally:
+        out["armed_s"] = time.perf_counter() - t0
+        findings = det.drain()
+        out["detector"] = {**det.stats(), "findings": len(findings),
+                           "reads_tracked": det.track_reads}
+        out["suppressed"] = sorted({f"{f.cls_name}.{f.attr}" for f, _ in det.suppressed})
+        race.disable()
+    if findings:
+        print(race.format_findings(findings), flush=True)
+        raise AssertionError(f"race detector: {len(findings)} unsuppressed findings")
+
+
+def race_serving_fleet(device, unarmed: dict) -> dict:
+    """`serving_fleet` again, with the port's race detector armed before
+    the fleet is built: every tracked class runs (each daemon's modules
+    and scheduler, the router, its `SchedulerReplica`s) through
+    convergence, the front door, a scale-out and a scale-in under load
+    and a replica kill, and the run leaves no unsuppressed race.  Its
+    wall beside the unarmed run's in this process: the detector's cost."""
+    with race_armed() as armed:
+        inner = serving_fleet(device)
+    return {
+        "phase": "race_serving_fleet",
+        "armed_phase_s": inner["phase_s"],
+        "unarmed_phase_s": unarmed["phase_s"],
+        "armed_over_unarmed": inner["phase_s"] / unarmed["phase_s"],
+        "armed_converged_s": inner["converged_s"],
+        "unarmed_converged_s": unarmed["converged_s"],
+        "armed_gc_ms": inner["gc_ms"],
+        "unarmed_gc_ms": unarmed["gc_ms"],
+        **armed,
+        "scale": {k: inner["scale"][k] for k in ("rungs", "scale_out_s", "scale_in_s",
+                                                 "load_queries")},
+        "unarmed_scale_out_s": unarmed["scale"]["scale_out_s"],
+    }
+
+
+#: the armed optimize_metrics reply's objective after against the
+#: unarmed reply's, relative
+TE_ARMED_OBJECTIVE_RTOL = 1e-6
+
+
+def race_routed_wan100k(device, backend, ls, timer, routed: RoutedHandoff,
+                        unarmed_routed_s: float) -> dict:
+    """The wan100k routed step under the port's armed race detector.  The
+    replica phase's flap is undone first.  Armed, a fresh `ReplicaRouter`
+    over fresh `SchedulerReplica`s and `QueryScheduler`s, whose
+    `EngineBatchBackend`s wrap the donor's and the joiner's backends
+    (their mirrors and engines, untracked, as the replica phase left
+    them), takes 4 paths queries of the checked routers in a pinned
+    session, the replica phase's what-if query and one optimize_metrics
+    query (its demand, bounds (1, 16), 12 steps), then stops.  K1's
+    counts are set to 0 just before the queries and read just after: its
+    uint16 variant launches once per exact evaluation.  The paths and
+    what-if replies equal the unarmed ones bit for bit; the TE reply's
+    objective before equals the unarmed reply's, its objective after
+    equals the unarmed reply's within TE_ARMED_OBJECTIVE_RTOL, and its
+    proposal re-evaluates exactly to its objective after (TE's descent
+    sums with atomic scatters, so its proposal is compared, not required
+    equal);
+    the dispatch ledger closes with no error; no unsuppressed race."""
+    import torch
+
+    from openr_tpu_torch.serving import (
+        EngineBatchBackend,
+        QueryScheduler,
+        ReplicaRouter,
+        SchedulerReplica,
+        dispatch_ledger_closes,
+    )
+
+    t_phase = time.perf_counter()
+    ls.update_adjacency_database(routed.unflapped)
+    sources = routed.checked[:4]
+    scheds: list = []
+    router = None
+    with race_armed() as armed:
+        try:
+            scheds = [
+                QueryScheduler(EngineBatchBackend({"0": ls}, spf_backend=b),
+                               max_pending=1024, max_coalesce=64)
+                for b in (backend, routed.joiner)
+            ]
+            for sched in scheds:
+                sched.run()
+            router = ReplicaRouter(
+                [SchedulerReplica(f"armed{i}", s) for i, s in enumerate(scheds)],
+                hedge_after_s=None,
+            )
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            futs = [(s, router.submit("paths", sources=(s,), session="armed")) for s in sources]
+            wi_sources, wi_scen, wi_reply = routed.what_if
+            wi = router.submit("what_if", sources=wi_sources, scenarios=wi_scen)
+            te = router.submit("optimize_metrics", demand=routed.demand, bounds=(1, 16),
+                               steps=12)
+            paths = {s: f.result(900).value[s] for s, f in futs}
+            wi_got = wi.result(900).value
+            te_reply = te.result(900).value
+            if timer.cuda:
+                torch.cuda.synchronize()
+            queries_s = time.perf_counter() - t0
+            launches = launch_counts()
+            admitted = [s.get_counters()["serving.admitted"] for s in scheds]
+        finally:
+            if router is not None:
+                router.stop()
+            for sched in scheds:
+                sched.stop()
+    rc = router.get_counters()
+    for s in sources:
+        if paths[s] != routed.answers[s]:
+            raise AssertionError(f"armed paths {s}: differs from the unarmed reply")
+    if wi_got != wi_reply:
+        raise AssertionError("armed what-if: differs from the unarmed reply")
+    te_evals = te_reply["roundTrips"]
+    if launches[KERNEL_U16["name"]] != te_evals or sum(launches.values()) != te_evals:
+        raise AssertionError(f"armed optimize_metrics: {te_evals} evaluations launched {launches}")
+    if te_reply["objectiveBefore"] != routed.te_reply["objectiveBefore"]:
+        raise AssertionError("armed optimize_metrics: objective before differs from the unarmed")
+    # the descent sums with atomic scatters, so its proposal may differ by
+    # an edge; the objective it reaches must not move beyond 1e-6 relative
+    # (bit-equal in every card run so far)
+    te_after_rel = (abs(te_reply["objectiveAfter"] - routed.te_reply["objectiveAfter"])
+                    / abs(routed.te_reply["objectiveAfter"]))
+    if not te_after_rel <= TE_ARMED_OBJECTIVE_RTOL:
+        raise AssertionError(
+            f"armed optimize_metrics: objective after {te_reply['objectiveAfter']} against the "
+            f"unarmed {routed.te_reply['objectiveAfter']} (relative {te_after_rel})")
+    reevaluate_te(backend.engine, backend.csr_mirror(ls), routed.demand, te_reply,
+                  "armed optimize_metrics")
+    if not dispatch_ledger_closes(rc, len(sources) + 2):
+        raise AssertionError(f"armed router ledger: {rc}")
+    if rc["serving.errors"] or rc["serving.host_fallbacks"] or rc["serving.router.replica_deaths"]:
+        raise AssertionError(f"armed router: errors, host fallbacks or deaths {rc}")
+    rec = {
+        "phase": "race_routed_wan100k",
+        "queries": {"paths": len(sources), "what_if": 1, "optimize_metrics": 1},
+        "queries_s": queries_s,
+        "unarmed_routed_s": unarmed_routed_s,
+        "admitted": admitted,
+        **armed,
+        "k1_launches": launches[KERNEL_U16["name"]],
+        "te_round_trips": te_evals,
+        "te_reply_equal": te_reply == routed.te_reply,
+        "te_reply_differs_in": sorted(k for k in te_reply if te_reply[k] != routed.te_reply[k]),
+        "te_proposals": {"armed": len(te_reply["proposedMetrics"]),
+                         "unarmed": len(routed.te_reply["proposedMetrics"]),
+                         "common": len({tuple(m) for m in te_reply["proposedMetrics"]}
+                                       & {tuple(m) for m in routed.te_reply["proposedMetrics"]})},
+        "te_objective": [te_reply["objectiveBefore"], te_reply["objectiveAfter"]],
+        "unarmed_te_objective": [routed.te_reply["objectiveBefore"],
+                                 routed.te_reply["objectiveAfter"]],
+        "te_objective_after_rel_diff": te_after_rel,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    if timer.cuda:
+        rec["card"] = card_line()
     return rec
 
 
@@ -7092,11 +7299,17 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     te_exact.append(("serving_wan100k", record["k1_exact"]))
     # a second replica restored from a snapshot of the serving one, both
     # behind the router; the serving scheduler is handed over
-    record = replica_fleet_wan100k(device, inp.solver.spf, inp.ls, timer, handoff)
+    record, routed = replica_fleet_wan100k(device, inp.solver.spf, inp.ls, timer, handoff)
     del handoff
     emit(record)
     paths["replica_fleet_wan100k"] = record["k1_launches"]
     te_exact.append(("replica_fleet_wan100k", record["k1_exact"]))
+    # the routed step again under the port's armed race detector
+    record = race_routed_wan100k(device, inp.solver.spf, inp.ls, timer, routed,
+                                 record["routed"]["wall_s"])
+    del routed
+    emit(record)
+    paths["race_routed_wan100k"] = record["k1_launches"]
     for variant in k1_records:
         k1_records[variant]["te_exact"] = [
             {"path": path, **recs[variant]} for path, recs in te_exact
@@ -7131,7 +7344,9 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
             k1_records[variant]["kvstore_flood_slab"] = rec
         emit(node_ring(device))
         emit(daemon_ring_tcp(device))
-        emit(serving_fleet(device))
+        record = serving_fleet(device)
+        emit(record)
+        emit(race_serving_fleet(device, record))
         if process is not None:
             emit(daemon_process(process))
     zero_launch_counts()

@@ -4,7 +4,8 @@ Port of `openr_tpu.ctrl.server`: the same methods on the same wire.
 The daemon wires the handler's `snapshot` surface (the pre-seeded
 `snapshot.*` family) and its `obs` surface (`obs.ObsStats`: the `obs.*`
 counters, zeroed when tracing is unarmed, and the tracer's trees on
-`dumpTraces` and `getSpanSamples`); its `fuzz`, `sched` and `mesh`
+`dumpTraces` and `getSpanSamples`) and its `sched` surface (the
+schedule explorer's pre-seeded `sched.*` family); its `fuzz` and `mesh`
 surfaces stay None until the port has those modules, and each method
 then answers as the reference's does without them.
 
@@ -100,8 +101,8 @@ class OpenrCtrlHandler:
         # chaos fuzzer registry (openr_tpu.chaos.fuzz.FUZZ_COUNTERS):
         # exports chaos.fuzz.* (pre-seeded zeros) the same way
         self.fuzz = fuzz
-        # schedule-exploration registry (openr_tpu.analysis.sched
-        # .SCHED_COUNTERS): exports sched.* (pre-seeded zeros) the same way
+        # schedule-exploration registry (analysis.sched.SCHED_COUNTERS):
+        # exports sched.* (pre-seeded zeros) the same way
         self.sched = sched
         # observability surface (obs.ObsStats): exports obs.*
         # trace counters (zeroed when unarmed) plus the dumpTraces /

@@ -50,7 +50,7 @@ from ..types import (
 )
 from .link_state import LinkState, LinkStateChange
 from .prefix_state import PrefixState
-from .protection_api import ti_lfa, what_if
+from . import protection_api
 from .rib import DecisionRouteDb, DecisionRouteUpdate
 from .rib_policy import PolicyError, RibPolicy, RibPolicyConfig
 from .spf_solver import SpfBackend, SpfSolver
@@ -546,7 +546,7 @@ class Decision(OpenrEventBase):
             if ls is None:
                 return []
             srcs = sources if sources is not None else [self.my_node_name]
-            return what_if(
+            return protection_api.what_if(
                 ls, scenarios, srcs, csr=self._protection_csr(ls),
                 engine=self.spf_solver.engine,
             )
@@ -562,7 +562,7 @@ class Decision(OpenrEventBase):
             ls = self.area_link_states.get(area)
             if ls is None:
                 return {"node": node or self.my_node_name, "error": "no area"}
-            return ti_lfa(
+            return protection_api.ti_lfa(
                 ls, node or self.my_node_name, csr=self._protection_csr(ls),
                 engine=self.spf_solver.engine,
             )

@@ -22,9 +22,12 @@ backoff; nothing stands in for the agent.  The ctrl handler's
 `snapshot` surface answers the pre-seeded `snapshot.*` family and its
 `obs` surface (`_obs_stats`) the `obs.*` family, zeroed unless tracing
 is armed (`OPENR_TRACE=1` in the daemon's environment), with
-`dumpTraces` and `getSpanSamples` answering the tracer's trees.  The
-reference's fuzzing, schedule-exploration and race-detector hooks come
-with the modules that bring them (ROADMAP queue 1 items 8 and 9).
+`dumpTraces` and `getSpanSamples` answering the tracer's trees; its
+`sched` surface (`_sched_counters`) answers the schedule explorer's
+pre-seeded `sched.*` family.  With `OPENR_TSAN=1` in its environment,
+`OpenrDaemon.__init__` arms the port's race detector (`analysis.race`)
+before any module object exists.  The reference's fuzzing hook comes
+with the chaos layer.
 
 `ServingFleet` runs K daemons in one process, peered over a KvStore full
 mesh and fronted by one `serving.ReplicaRouter`; it scales out with a
@@ -56,6 +59,7 @@ import threading
 from typing import Optional
 
 from .allocators import PrefixAllocator
+from .analysis import race as _race
 from .config import OpenrConfig, load_config
 from .config_store import PersistentStore
 from .ctrl import CtrlServer, OpenrCtrlHandler, TcpKvStoreTransport
@@ -82,6 +86,15 @@ def _obs_stats():
     return ObsStats()
 
 
+def _sched_counters():
+    """The schedule explorer's process-wide registry (sched.*, pre-seeded
+    zeros): a daemon that never explores still answers the whole family
+    on both wires."""
+    from .analysis.sched import SCHED_COUNTERS
+
+    return SCHED_COUNTERS
+
+
 def _snapshot_counters():
     """The engine-snapshot registry (snapshot.*, pre-seeded zeros): a
     daemon that never takes or restores a snapshot still answers the
@@ -102,6 +115,9 @@ class OpenrDaemon:
         spark_v6_addr: str = "",
         device=None,
     ) -> None:
+        # OPENR_TSAN=1 arms the happens-before race detector before any
+        # module object exists (a no-op otherwise)
+        _race.maybe_enable()
         self.config = config
         name = config.node_name
         areas = config.area_ids
@@ -388,6 +404,9 @@ class OpenrDaemon:
             # ride the same surface; the optimizer lives on the serving
             # backend so optimizeMetrics runs and counter reads agree
             te=getattr(self.serving.backend, "te", None),
+            # schedule-explorer counters (sched.*, pre-seeded zeros):
+            # exploration sessions' schedules, prunes and replays
+            sched=_sched_counters(),
             # trace-span surface (obs.*, zeroed when OPENR_TRACE is off):
             # the same wire shape armed or not
             obs=_obs_stats(),
@@ -627,6 +646,7 @@ class ServingFleet:
             monitor=front.monitor,
             config=front.config,
             serving=self.router,
+            sched=_sched_counters(),
             obs=_obs_stats(),
             snapshot=_snapshot_counters(),
             queues=front._queues,

@@ -8,12 +8,14 @@ getTimestamp() (OpenrEventBase.h:74).  A module may define the async
 hooks `prepare()`, started as a task on its loop when the loop starts,
 and `stopping()`, awaited on its loop before the loop stops.  With
 tracing armed (`obs.trace`), every cross-thread hand-off
-(`add_fiber_task`, `run_in_event_base_thread`, `schedule_timeout`)
-carries the caller's active span scope onto the loop thread
-(`_obs_handoff`).  The reference's race-detector and schedule-explorer
-wrappers (its `analysis` tooling) are not ported.  The cross-loop
-coroutine calls `run_async` and `run_coroutine` are: the ctrl server
-starts its listener on its own loop through them.
+(`add_fiber_task`, `run_in_event_base_thread`, `schedule_timeout`,
+`stop`) carries the caller's active span scope onto the loop thread
+(`_obs_handoff`).  With the race detector armed (`analysis.race`), the
+same hand-offs and `run_coroutine` add a happens-before edge from the
+caller to the marshalled closure (`_tsan_handoff`); under the schedule
+explorer (`analysis.sched`), each submit is a yield point
+(`_sched_submit`).  The cross-loop coroutine calls `run_async` and
+`run_coroutine` let the ctrl server start its listener on its own loop.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import threading
 import time
 from typing import Any, Awaitable, Callable, Coroutine, Optional
 
+from ..analysis import race as _race
+from ..analysis import sched as _sched
 from ..obs import trace as _trace
 
 log = logging.getLogger(__name__)
@@ -34,12 +38,34 @@ log = logging.getLogger(__name__)
 _EXECUTOR_JOIN_S = 5.0
 
 
+def _tsan_handoff(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """OPENR_TSAN: `fn` wrapped with a happens-before edge from the
+    caller, for a closure marshalled to another thread; `fn` itself when
+    unarmed (one attribute load)."""
+    det = _race.TSAN
+    return fn if det is None else det.wrap_handoff(fn)
+
+
 def _obs_handoff(fn: Callable[..., Any]) -> Callable[..., Any]:
     """OPENR_TRACE: `fn` bound to the caller's active span scope, so work
     marshalled onto a module loop keeps its trace attribution; `fn`
     itself when unarmed (one attribute load) or with no active scope."""
     tr = _trace.TRACE
     return fn if tr is None else tr.bind_scope(fn)
+
+
+def _sched_submit(eb: "OpenrEventBase") -> None:
+    """OPENR_SCHED: a cross-thread submit is a yield point for the
+    explorer's controlled threads; one attribute load when unarmed."""
+    sc = _sched.SCHED
+    if sc is not None:
+        sc.handoff(eb)
+
+
+def _handoff(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """The cross-thread wrappers composed, trace innermost, so the HB
+    edge brackets the whole marshalled closure."""
+    return _tsan_handoff(_obs_handoff(fn))
 
 
 class Timeout:
@@ -161,7 +187,7 @@ class OpenrEventBase:
 
         try:
             self._loop.call_soon_threadsafe(
-                lambda: self._track(self._loop.create_task(_graceful()))
+                _handoff(lambda: self._track(self._loop.create_task(_graceful())))
             )
         except RuntimeError:
             return
@@ -204,11 +230,12 @@ class OpenrEventBase:
         """Schedule a long-running coroutine on this module's loop, from
         any thread (reference: addFiberTask, OpenrEventBase.h:47)."""
         assert self._loop is not None, f"{self.name} not started"
+        _sched_submit(self)
 
         def _create() -> None:
             self._track(self._loop.create_task(coro, name=name or "fiber"))
 
-        self._loop.call_soon_threadsafe(_obs_handoff(_create))
+        self._loop.call_soon_threadsafe(_handoff(_create))
 
     def in_event_base_thread(self) -> bool:
         return threading.current_thread() is self._thread
@@ -221,6 +248,7 @@ class OpenrEventBase:
         openr/decision/Decision.cpp:1513).  From the owning thread the
         call runs inline (waiting on the future there would deadlock)."""
         assert self._loop is not None, f"{self.name} not started"
+        _sched_submit(self)
         fut: concurrent.futures.Future = concurrent.futures.Future()
         if self.in_event_base_thread():
             try:
@@ -237,7 +265,7 @@ class OpenrEventBase:
             except BaseException as e:  # noqa: BLE001
                 fut.set_exception(e)
 
-        self._loop.call_soon_threadsafe(_obs_handoff(_call))
+        self._loop.call_soon_threadsafe(_handoff(_call))
         return fut
 
     async def run_async(self, coro: Awaitable[Any]) -> Any:
@@ -247,15 +275,21 @@ class OpenrEventBase:
     def run_coroutine(self, coro: Awaitable[Any]) -> "concurrent.futures.Future[Any]":
         """Run a coroutine on this module's loop, from any thread."""
         assert self._loop is not None
+        det = _race.TSAN
+        if det is not None:
+            # the caller -> coroutine edge; the return edge rides the
+            # patched Future's resolve token
+            coro = det.wrap_coro(coro)
         return asyncio.run_coroutine_threadsafe(coro, self._loop)
 
     def schedule_timeout(self, delay_s: float, fn: Callable[[], Any]) -> Timeout:
         """Run `fn` after `delay_s` on this module's loop; returns a
         cancellable token."""
         assert self._loop is not None
+        _sched_submit(self)
         token = Timeout()
         self._loop.call_soon_threadsafe(
-            _obs_handoff(token._arm), self._loop, delay_s, _obs_handoff(fn)
+            _handoff(token._arm), self._loop, delay_s, _handoff(fn)
         )
         return token
 

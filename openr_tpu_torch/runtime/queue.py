@@ -18,9 +18,11 @@ hands each item it sheds to its `on_shed` callback, outside the lock
 With tracing armed (`obs.trace`), each push stores the pushing thread's
 active span scope next to the item, and the pop that takes the item
 hands that scope to the popping thread (`Tracer.take_carried`); the
-token deque stays None until the first armed push.  The reference's
-race-detector and schedule-explorer hooks (its `analysis` tooling) are
-not ported.
+token deque stays None until the first armed push.  With the race
+detector armed (`analysis.race`), each push stores a happens-before
+token beside the item in the same way and the pop joins it (put ->
+matching get).  Under the schedule explorer (`analysis.sched`), push,
+close, try_get and a controlled thread's blocking get are yield points.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import threading
 from collections import deque
 from typing import Callable, Generic, Iterable, Optional, TypeVar
 
+from ..analysis import race as _race
+from ..analysis import sched as _sched
 from ..obs import trace as _trace
 
 T = TypeVar("T")
@@ -83,15 +87,28 @@ class RWQueue(Generic[T]):
         self._num_pushed = 0
         self._num_read = 0
         self._num_overflows = 0
-        # OPENR_TRACE: per-item span-scope tokens kept positionally
+        # OPENR_TSAN: per-item HB tokens (put -> matching get) and
+        # OPENR_TRACE: per-item span-scope tokens, each kept positionally
         # aligned with _items under _lock; None until the first armed push
+        self._tsan_tokens: Optional[deque] = None
         self._obs_tokens: Optional[deque] = None
 
     def push(self, item: T) -> bool:
+        sc = _sched.SCHED
+        if sc is not None:
+            # OPENR_SCHED: the push is a yield point (no-op for threads
+            # the explorer does not control)
+            sc.queue_op(self, "queue.push")
         shed: Optional[T] = None
         with self._lock:
             if self._closed:
                 return False
+            det = _race.TSAN
+            if det is not None:
+                toks = self._tsan_tokens
+                if toks is None or len(toks) != len(self._items):
+                    # items enqueued while unarmed carry no HB token
+                    toks = self._tsan_tokens = deque([None] * len(self._items))
             tr = _trace.TRACE
             if tr is not None:
                 otoks = self._obs_tokens
@@ -102,9 +119,13 @@ class RWQueue(Generic[T]):
                 # bounded: shed the OLDEST item (later state supersedes it)
                 shed = self._items.popleft()
                 self._num_overflows += 1
+                if det is not None:
+                    toks.popleft()
                 if tr is not None:
                     otoks.popleft()
             self._items.append(item)
+            if det is not None:
+                toks.append(det.publish_token())
             if tr is not None:
                 otoks.append(tr.carry())
             self._num_pushed += 1
@@ -118,6 +139,9 @@ class RWQueue(Generic[T]):
         return True
 
     def close(self) -> None:
+        sc = _sched.SCHED
+        if sc is not None:
+            sc.queue_op(self, "queue.close")
         with self._lock:
             if self._closed:
                 return
@@ -134,6 +158,16 @@ class RWQueue(Generic[T]):
             except RuntimeError:
                 pass  # loop already closed
 
+    def _tsan_join(self) -> None:
+        """OPENR_TSAN: join the head item's put token (under _lock, just
+        before the matching _items.popleft())."""
+        toks = self._tsan_tokens
+        if len(toks) == len(self._items):
+            tok = toks.popleft()
+            det = _race.TSAN
+            if det is not None and tok is not None:
+                det.acquire_token(tok)
+
     def _obs_take(self) -> None:
         """OPENR_TRACE: pop the head item's carried scope (under _lock,
         just before the matching _items.popleft()) and stash it on the
@@ -149,11 +183,25 @@ class RWQueue(Generic[T]):
 
     def _pop(self) -> T:
         self._num_read += 1
+        if self._tsan_tokens is not None:
+            self._tsan_join()
         if self._obs_tokens is not None:
             self._obs_take()
         return self._items.popleft()
 
     def get(self, timeout: Optional[float] = None) -> T:
+        sc = _sched.SCHED
+        if sc is not None and sc.queue_get_gate(
+            self, lambda: bool(self._items) or self._closed
+        ):
+            # OPENR_SCHED: the gate granted a controlled thread only once
+            # an item was there or the queue closed, and nothing runs
+            # between the grant and this pop (cond.wait would block the
+            # explorer's one-token world)
+            with self._lock:
+                if self._items:
+                    return self._pop()
+                raise QueueClosedError("queue closed")
         with self._cond:
             if not self._cond.wait_for(
                 lambda: self._items or self._closed, timeout=timeout
@@ -164,6 +212,9 @@ class RWQueue(Generic[T]):
             raise QueueClosedError("queue closed")
 
     def try_get(self) -> Optional[T]:
+        sc = _sched.SCHED
+        if sc is not None:
+            sc.queue_op(self, "queue.get")
         with self._lock:
             if self._items:
                 return self._pop()
@@ -223,6 +274,11 @@ class ReplicateQueue(Generic[T]):
         self._maxlen = maxlen  # of each per-reader queue
 
     def push(self, item: T) -> bool:
+        sc = _sched.SCHED
+        if sc is not None:
+            # OPENR_SCHED: the fan-out is a yield point; each reader's
+            # RWQueue.push below declares its own
+            sc.queue_op(self, "queue.push")
         with self._lock:
             if self._closed:
                 return False

@@ -1,8 +1,16 @@
 """ReplicaRouter: one front door over K daemon replicas.
 
-Port of `openr_tpu.serving.router`: host code, the reference's less its
-schedule-exploration region (it comes with the port's analysis module).
-With tracing armed (`obs.trace`), each call roots a `router.query` span;
+Port of `openr_tpu.serving.router`: host code.  Every read of the
+replica list takes the router's lock, which `add_replica` and
+`remove_replica` swap it under.  The reference reads it bare in
+`submit`, `get_counters` and `probe_replicas`: benign, since the list is
+swapped whole and a bare read is atomic, but the race detector reports
+the unordered read against a scale-out or scale-in (ROADMAP queue 3,
+F9), and taking the lock keeps the armed runs clean without a
+suppression beyond the reference's.
+Under the schedule explorer (`analysis.sched`), the stop check of
+`submit` is the `router.dispatch` region.  With tracing armed
+(`obs.trace`), each call roots a `router.query` span;
 every (re)dispatch adds a `dispatch` event tagged with its kind (first,
 retry, hedge, failover, epoch_reroute) and submits under the call's
 span, so the replica scheduler's `serving.query` nests in it; the
@@ -62,6 +70,7 @@ import threading
 import time
 from typing import Any, Optional
 
+from ..analysis import sched as _sched
 from ..device.engine import EpochMismatchError
 from ..obs import trace as _trace
 from ..obs.histogram import Histogram, export_histogram
@@ -268,7 +277,8 @@ class ReplicaRouter:
         agg: dict[str, int] = {}
         with self._lock:
             agg.update(self._departed_counters)
-        for rep in self._replicas:
+            reps = self._replicas  # one read under the lock (F9)
+        for rep in reps:
             fn = getattr(rep.handle, "get_counters", None)
             if fn is None:
                 continue
@@ -312,7 +322,9 @@ class ReplicaRouter:
 
     def probe_replicas(self, area: Optional[str] = None) -> int:
         """Probe every replica; returns how many are alive."""
-        return sum(1 for rep in self._replicas if self._probe(rep, area))
+        with self._lock:
+            reps = self._replicas  # one read under the lock (F9)
+        return sum(1 for rep in reps if self._probe(rep, area))
 
     def alive_replicas(self) -> int:
         with self._lock:
@@ -424,7 +436,18 @@ class ReplicaRouter:
         tr = _trace.TRACE
         if tr is not None:
             call.span = tr.root("router.query", op=op)
-        if self._stopped or not self._replicas:
+        sc = _sched.SCHED
+        if sc is not None:
+            # OPENR_SCHED: the stop-latch read against a concurrent stop()
+            # or replica death is the router's schedule-sensitive window
+            sc.region("router.dispatch")
+        with self._lock:
+            # F9: the membership is swapped whole under this lock by
+            # add_replica / remove_replica; a bare read, as the
+            # reference's, is atomic but unordered, and the race detector
+            # reports it against a scale-out or scale-in
+            empty = not self._replicas
+        if self._stopped or empty:
             self._resolve_shed(call, "router stopped or no replicas")
             return call.future
         self._dispatch(call, "first")

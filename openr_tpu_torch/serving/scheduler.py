@@ -30,8 +30,9 @@ the router's when the router submits under its scope) with `admission`,
 child per query and runs with all of them active, so the engine's rung
 annotation lands on each; a failed or shed query closes its span with
 `outcome` = `error` / `shed`.  A query's own trace is finished here; a
-router's trace is left to the router to finish.  The reference's schedule-explorer regions
-(its `analysis.sched` tooling) are not ported.
+router's trace is left to the router to finish.  Under the schedule
+explorer (`analysis.sched`), the admission check is the
+`serving.admission` region: the accepting latch's read against `stop()`.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+from ..analysis import sched as _sched
 from ..device.engine import EpochMismatchError
 from ..obs import trace as _trace
 from ..obs.histogram import Histogram, export_histogram
@@ -58,7 +60,10 @@ SERVING_COUNTER_KEYS = (
     "serving.shed",
     "serving.batches",
     "serving.invalidations",
-    "serving.host_fallbacks",
+    # the reference's key, kept so the family equals its wire surface
+    # (test_torch_serving.py holds the tuples equal); the port has no host
+    # rung, so it reads 0 by design, which the tests and the smoke check
+    "serving.host_fallbacks",  # openr: disable=counter-unbumped
     "serving.replies",
     "serving.errors",
     "serving.batch_occupancy",
@@ -232,6 +237,11 @@ class QueryScheduler(OpenrEventBase):
         if tr is not None:
             # extends the router's span when one is active on this thread
             pending.span = tr.root("serving.query", op=op)
+        sc = _sched.SCHED
+        if sc is not None:
+            # OPENR_SCHED: the accepting-latch read against stop() is the
+            # scheduler's schedule-sensitive window
+            sc.region("serving.admission")
         if not self._accepting or not self.admission.push(pending):
             # _fail also closes the span opened above (outcome=shed)
             self._fail(pending, QueryShedError("admission closed"))

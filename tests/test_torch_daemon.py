@@ -123,6 +123,15 @@ class Ring:
             )
             kv_fabric.register(addr, d.kvstore)
             self.daemons.append(d)
+        # with DUAL flooding, each peered pair stays partitioned until
+        # both ends have added each other: DUAL traffic then reaches a
+        # store only from a known peer, in both packages (F3's race: the
+        # reference floods a peer heard from before the peering outside
+        # the SPT; see test_torch_kvstore.peer_pairs)
+        kv_pairs = [(f"fe80::openr-{i}", f"fe80::openr-{(i + 1) % n}") for i in range(n)]
+        if flood_optimization:
+            for pair in kv_pairs:
+                kv_fabric.set_partitioned(*pair, True)
         for d in self.daemons:
             d.start()
         for i in range(n):
@@ -131,6 +140,12 @@ class Ring:
         for i, d in enumerate(self.daemons):
             d.netlink_events_queue.push(p.T.LinkEvent(f"if-{i}-{(i + 1) % n}", 1, True))
             d.netlink_events_queue.push(p.T.LinkEvent(f"if-{i}-{(i - 1) % n}", 2, True))
+        if flood_optimization:
+            peered = wait_for(lambda: all(
+                len(d.kvstore.dump_peers("0")) == min(2, n - 1) for d in self.daemons))
+            for pair in kv_pairs:
+                kv_fabric.set_partitioned(*pair, False)
+            assert peered, [sorted(d.kvstore.dump_peers("0")) for d in self.daemons]
 
     def advertise(self, i: int):
         T = self.p.T
@@ -188,8 +203,11 @@ def test_ring_converges_equally(rings, flood_optimization):
                      t.infos["openr-0"].parent if "openr-0" in t.infos else None)
                     for t in infos]
 
+        # converged: every store is rooted at openr-0 and hangs off it
+        # directly (the one-hop path; a two-hop parent is a transient
+        # DUAL passes through while the partitioned peerings heal)
         for ring in pair.values():
-            assert wait_for(lambda r=ring: all(s[0] == "openr-0" for s in spt(r))
+            assert wait_for(lambda r=ring: all(s[0] == s[2] == "openr-0" for s in spt(r))
                             and sum(len(s[1]) for s in spt(r)) == 4)
         assert spt(pair["port"]) == spt(pair["ref"])
 

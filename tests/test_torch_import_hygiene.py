@@ -2,7 +2,8 @@
 
 A fresh interpreter imports every module of the port and must end with
 no `jax*` and no `openr_tpu` module loaded; `chip_smoke.py` and the port
-name neither in an import statement.
+name neither in an import statement; arming the port's race detector
+with its own config tracks only the port's classes.
 """
 
 from __future__ import annotations
@@ -57,6 +58,15 @@ DAEMON_MODULES = {
     "openr_tpu_torch.obs",
     "openr_tpu_torch.obs.trace",
     "openr_tpu_torch.obs.histogram",
+    # the analysis layer: checker, race detector, schedule explorer
+    "openr_tpu_torch.analysis",
+    "openr_tpu_torch.analysis.core",
+    "openr_tpu_torch.analysis.counters",
+    "openr_tpu_torch.analysis.threads",
+    "openr_tpu_torch.analysis.cli",
+    "openr_tpu_torch.analysis.race",
+    "openr_tpu_torch.analysis.sched",
+    "openr_tpu_torch.analysis.pytest_tsan",
 }
 
 
@@ -71,8 +81,44 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr
     names, bad = proc.stdout.splitlines()
     names = set(names.split(","))
-    assert len(names) >= 65
+    assert len(names) >= 74
     assert DAEMON_MODULES <= names, DAEMON_MODULES - names
+    assert bad == "", bad
+
+
+ARM_PROBE = """
+import sys
+from openr_tpu_torch.analysis import race
+det = race.enable()
+tracked = sorted(f"{c.__module__}.{c.__qualname__}" for c in race._TRACKED)
+race.disable()
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "openr_tpu")
+)
+print(",".join(tracked))
+print(",".join(bad))
+"""
+
+
+def test_arming_with_the_ports_config_tracks_only_port_classes():
+    """`race.enable()` resolves the tracked classes of the package's
+    analysis.toml: the port's three, never the reference's, and loading
+    them imports no jax and no openr_tpu."""
+    proc = subprocess.run(
+        [sys.executable, "-c", ARM_PROBE],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    tracked, bad = proc.stdout.splitlines()
+    assert tracked.split(",") == [
+        "openr_tpu_torch.runtime.eventbase.OpenrEventBase",
+        "openr_tpu_torch.serving.router.ReplicaRouter",
+        "openr_tpu_torch.serving.router.SchedulerReplica",
+    ]
     assert bad == "", bad
 
 
