@@ -114,7 +114,7 @@ and its phases timed:
   evaluations; K1 held against its plain version on the first
   evaluation's inputs; the first descent step held against the CPU's;
 - the query-serving layer on the WAN: `QueryScheduler(EngineBatchBackend
-  ({"0": ls}))` answering one burst of 128 paths, 4 what-if, 4 KSP and
+  ({"0": ls}))` answering one burst of 64 paths, 4 what-if, 4 KSP and
   2 coalesced optimize_metrics queries (K1 once per TE evaluation, and
   held against its plain version on the first), against the host
   Dijkstra and scipy, and one flap that invalidates a staged batch;
@@ -138,6 +138,17 @@ and its phases timed:
 - KSP2, BGP and UCMP routes on the same fabric through a card Decision
   and a host-Dijkstra Decision → Fib (a publication, a metric raised, a
   link down), one masked k = 2 batch per rebuild on the card.
+- first of all, the reference's OCS rewire storm (`bench.py`
+  bench_ocs_rewire_wan100k) on `chaos.OcsController`'s chorded ring at
+  100 000 nodes: 16 rounds of 4 chord swaps through `csr.refresh` and
+  `engine.sync` on the rewire rung, the controller's mid-rewire fault
+  injected through `engine.fault_hook` at round 8 (demoted to a
+  restage: 2 restages, 1 rewire fallback, 15 rewire dispatches), 3
+  sources against scipy after round 8, round 16 and the view; then a
+  one-shot fault at the engine's `kernel` gate under the fleet view of
+  64 advertisers (it raises, K1 not launched) and the view again (K1
+  launched, each input held against its plain version), 32 routers'
+  distances and next hops toward every destination against scipy.
 
 Tracing (`openr_tpu_torch.obs.trace`) is armed only around four steps,
 each in `traced()`, which disarms it after: `kvstore_decision_wan100k`'s
@@ -190,6 +201,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from typing import NamedTuple
 
@@ -6245,7 +6257,7 @@ def path_links_key(paths) -> list:
 
 
 def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
-                    n_paths: int = 128, n_checked: int = 8) -> dict:
+                    n_paths: int = 64, n_checked: int = 8) -> dict:
     """The query-serving layer at wan100k (no drained node: the scipy
     oracle takes none): `EngineBatchBackend({"0": ls})` on `backend`
     (the card's DeviceSpfBackend) before
@@ -6284,7 +6296,10 @@ def serving_wan100k(device, backend, ls, timer, n_routers: int = 64,
     n = csr.n_nodes
     rng = np.random.RandomState(5)
     routers = [names[i * n // n_routers] for i in range(n_routers)]
-    path_srcs = [routers[i] for i in rng.randint(n_routers, size=n_paths)]
+    # 128 draws whatever the burst (the first n_paths are asked), so the
+    # what-if links and KSP destinations drawn next stay those of every
+    # burst size (128 before this slice, 256 before slice 14)
+    path_srcs = [routers[i] for i in rng.randint(n_routers, size=max(n_paths, 128))][:n_paths]
     wi_sources = (routers[0], routers[n_routers // 2])
     link_ids = rng.choice(csr.n_edges, size=8, replace=False)
     wi_links = [csr.edge_links[int(e)][0] for e in link_ids]
@@ -7210,10 +7225,358 @@ def decision_serving(card, oracle, routers, router) -> dict:
     }
 
 
+OCS_NODES = 100_000
+# the OCS view's destinations: on this ring's hop diameter a view needs
+# hundreds of supersweeps, whose cost grows with P (PERF.md §5,
+# scripts/probe_ocs_view.py)
+OCS_DESTS = 64
+
+
+class KernelFault(RuntimeError):
+    """The one-shot fault `ocs_rewire_wan100k` injects at the engine's
+    `kernel` gate."""
+
+
+def router_hops(oracle, router: str, dest_ids=None) -> tuple:
+    """(distances, next-hop neighbour names) of `router` toward each
+    node id of `dest_ids` (every node when None) from scipy's Dijkstra
+    over `ScipySpf`'s graph: a neighbour v is a next hop toward t when
+    the link's metric plus dist(v, t) equals dist(router, t).  One
+    Dijkstra call from the router and its out-neighbours, no per-level
+    DAG walk; no drained node and no parallel link.  Unreachable
+    destinations read inf with no next hop."""
+    from scipy.sparse.csgraph import dijkstra
+
+    si = oracle.node_id[router]
+    if oracle.drained.any():
+        raise AssertionError("router_hops takes no drained node")
+    base = oracle.up & ~oracle.drained[oracle.src]
+    graph = oracle._graphs.get(True)
+    if graph is None:
+        graph = oracle._graphs[True] = oracle._graph(base, oracle.metric)
+    mine = base & (oracle.src == si)
+    nbr, w = oracle.dst[mine], oracle.metric[mine]
+    if len(np.unique(nbr)) != len(nbr) or len(nbr) > 62:
+        raise AssertionError(f"router_hops: {router} has parallel links or too many")
+    dist = dijkstra(graph, directed=True, indices=np.r_[si, nbr])
+    cols = slice(None) if dest_ids is None else np.asarray(dest_ids, dtype=np.int64)
+    d = dist[0, cols]
+    tight = (w[:, None] + dist[1:, cols]) == d[None, :]
+    # one bit per neighbour, each distinct mask decoded once
+    masks = (tight.astype(np.int64) << np.arange(len(nbr), dtype=np.int64)[:, None]).sum(0)
+    names = oracle.names
+    decoded = {}
+    hops = []
+    for m in masks.tolist():
+        got = decoded.get(m)
+        if got is None:
+            got = decoded[m] = {names[v] for k, v in enumerate(nbr.tolist()) if m >> k & 1}
+        hops.append(got)
+    return d, hops
+
+
+def ocs_rewire_wan100k(device, timer, n: int = OCS_NODES, rounds: int = 16,
+                       swaps_per_round: int = 4, seed: int = 13,
+                       n_dests: int = OCS_DESTS, n_checked: int = 32,
+                       before_launch=lambda: None) -> tuple:
+    """The reference's OCS rewire storm at WAN scale (`bench.py`
+    bench_ocs_rewire_wan100k) with the controller's mid-rewire fault.
+    The port's `OcsController` geometry: a ring with +-1/+-2 links under
+    the flap storm's asymmetric metrics (1..10) and the perfect chord
+    matching i <-> i + n/2 (metrics 3..9), names zero-padded to six digits
+    so they sort in ring order (the banded rung's requirement).  Each of
+    `rounds` rounds retires `swaps_per_round` chords and programs as many
+    fresh ones, rejection-sampled under the controller's degree cap (its
+    candidate scan is O(n^2)), re-pushes only the touched nodes' adjacency
+    databases (the controller's `_node_db`, with each node's chords kept
+    apart: its scan of every chord per node is O(n^2) too), then runs one `csr.refresh` (which must rewire) and one
+    `engine.sync` on the card, timed with the device synchronized.  The
+    fault is armed at round `rounds // 2` through `engine.fault_hook`:
+    the hook's exception at `rewire` demotes that round to a restage.
+    After that round, after the last and after the view, 3 sources'
+    `spf_results` against `ScipySpf` (metrics and next hops).  Then a
+    one-shot fault at the `kernel` gate: the fleet view of `n_dests`
+    advertisers (`default_rng(7)`, the main path's convention, at 64
+    rather than its 1024: the ring's hop diameter makes every column
+    cost hundreds of supersweeps) must raise it with no K1 launch; the second call launches K1, whose every
+    input is held against its plain version, and `n_checked` routers'
+    distances and next hops toward every destination against scipy.
+    `before_launch` runs before the first call that can launch a kernel
+    (the smoke's wait for its kernel build).  Returns (record, K1
+    launches by kernel record name, K1 records by variant)."""
+    import random
+
+    import torch
+
+    from openr_tpu_torch.chaos.ocs import _CHORD_DEG_CAP, OcsController
+    from openr_tpu_torch.decision.csr import CsrTopology
+    from openr_tpu_torch.decision.fleet import FleetViewCache
+    from openr_tpu_torch.decision.link_state import LinkState
+    from openr_tpu_torch.device.engine import DeviceResidencyEngine
+    from openr_tpu_torch.ops import epilogue as ep
+
+    class Controller(OcsController):
+        """The controller's geometry; each node's chords looked up in
+        `by_node` (`_node_db` reads only the chords that touch node i)."""
+
+        def _name(self, i: int) -> str:
+            return f"w{i % self.n:06d}"
+
+        def node_db(self, i: int):
+            return self._node_db(i, by_node[i], {})
+
+    t_phase = time.perf_counter()
+    fault_round = rounds // 2
+    ctl = Controller(seed=seed, n=n, rounds=rounds, fault_round=fault_round)
+    rng = random.Random(seed)
+    chords = ctl._initial_chords()
+    deg = [1] * n  # the perfect matching: one chord each
+    by_node = [set() for _ in range(n)]
+    for a, b in chords:
+        by_node[a].add((a, b))
+        by_node[b].add((a, b))
+    rec: dict = {
+        "phase": "ocs_rewire_wan100k",
+        "n_nodes": n,
+        "rounds": rounds,
+        "swaps_per_round": swaps_per_round,
+        "seed": seed,
+        "fault_round": fault_round,
+    }
+
+    def synced() -> float:
+        if timer.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    with gc_paused():
+        t0 = time.perf_counter()
+        ls = LinkState("0")
+        for i in range(n):
+            ls.update_adjacency_database(ctl.node_db(i))
+        rec["ls_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        csr = CsrTopology.from_link_state(ls)
+        rec["csr_build_s"] = time.perf_counter() - t0
+    names = csr.node_names
+    engine = DeviceResidencyEngine(device)
+    # this view is the fused rung's (ROADMAP: the blocked threshold)
+    engine.blocked.node_shard_threshold = n
+    fault = {"rewire": False, "kernel": False, "fired": []}
+
+    def hook(op: str) -> None:
+        if fault.get(op):
+            fault[op] = False
+            fault["fired"].append(op)
+            if op == "kernel":
+                raise KernelFault("ocs: injected kernel fault")
+            raise RuntimeError("ocs: injected mid-rewire device fault")
+
+    engine.fault_hook = hook
+    t0 = synced()
+    engine.sync(csr)  # the one legitimate full staging
+    rec["stage_s"] = synced() - t0
+    rec["restage_bytes"] = engine.get_counters()["device.engine.bytes_staged"]
+
+    def pick_chord() -> tuple:
+        while True:
+            a, b = rng.randrange(n), rng.randrange(n)
+            if a == b:
+                continue
+            a, b = min(a, b), max(a, b)
+            if b - a in (1, 2) or n - (b - a) in (1, 2) or (a, b) in chords:
+                continue
+            if deg[a] >= _CHORD_DEG_CAP or deg[b] >= _CHORD_DEG_CAP:
+                continue
+            return a, b
+
+    oracles: dict = {}
+
+    def oracle():
+        if ls.version not in oracles:
+            oracles.clear()
+            t0 = time.perf_counter()
+            oracles[ls.version] = (ScipySpf(ls), time.perf_counter() - t0)
+        return oracles[ls.version][0]
+
+    checks = []
+
+    def check_sources(what: str, k: int) -> None:
+        sources = [names[(k * 40503 + j * 33353) % n] for j in range(3)]
+        t0 = time.perf_counter()
+        got = engine.spf_results(csr, sources)
+        query_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for s in sources:
+            dist, hops = router_hops(oracle(), s)
+            res, onames = got[s], oracle().names
+            reached = np.flatnonzero(np.isfinite(dist)).tolist()
+            if len(res) != len(reached):
+                raise AssertionError(f"ocs {what}: {s} reaches {len(res)} nodes, scipy {len(reached)}")
+            for v in reached:
+                r = res.get(onames[v])
+                if r is None or r.metric != dist[v] or r.next_hops != hops[v]:
+                    raise AssertionError(f"ocs {what}: {s}'s route to {onames[v]} differs from scipy")
+        checks.append({"after": what, "sources": sources, "query_s": query_s,
+                       "oracle_s": time.perf_counter() - t0, "bit_equal": True})
+
+    rounds_rec = []
+    for r in range(rounds):
+        c0 = engine.get_counters()
+        touched = set()
+        for _ in range(swaps_per_round):
+            victim = rng.choice(sorted(chords))
+            chords.discard(victim)
+            for v in victim:
+                deg[v] -= 1
+                by_node[v].discard(victim)
+            fresh = pick_chord()
+            chords.add(fresh)
+            for v in fresh:
+                deg[v] += 1
+                by_node[v].add(fresh)
+            touched.update(victim)
+            touched.update(fresh)
+        if r == fault_round:
+            fault["rewire"] = True
+        t0 = time.perf_counter()
+        for i in sorted(touched):
+            ls.update_adjacency_database(ctl.node_db(i))
+        push_ms = (time.perf_counter() - t0) * 1e3
+        t0 = synced()
+        rewired = csr.refresh(ls)
+        t1 = time.perf_counter()
+        engine.sync(csr)
+        t2 = synced()
+        if not rewired:
+            raise AssertionError(f"ocs round {r}: the bounded swap left the rewire path")
+        c1 = engine.get_counters()
+        d = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k] and not k.endswith("_us")}
+        rounds_rec.append({
+            "round": r,
+            "touched": len(touched),
+            "push_ms": push_ms,
+            "refresh_ms": (t1 - t0) * 1e3,
+            "sync_ms": (t2 - t1) * 1e3,
+            "ms": (t2 - t0) * 1e3,
+            "rewire_slots": d.get("device.engine.rewire_slots", 0),
+            "rewire_rows": d.get("device.engine.rewire_rows", 0),
+            "rewire_bytes_staged": d.get("device.engine.rewire_bytes_staged", 0),
+            "bytes_staged": d.get("device.engine.bytes_staged", 0),
+            "full_restages": d.get("device.engine.full_restages", 0),
+            "rewire_fallbacks": d.get("device.engine.rewire_fallbacks", 0),
+        })
+        if r == fault_round:
+            if fault["fired"] != ["rewire"] or d.get("device.engine.rewire_fallbacks") != 1:
+                raise AssertionError(f"ocs round {r}: the rewire fault {fault}, {d}")
+            check_sources(f"round {r}", r)
+    check_sources(f"round {rounds - 1}", rounds)
+    c = engine.get_counters()
+    want = {"device.engine.full_restages": 2, "device.engine.rewire_fallbacks": 1,
+            "device.engine.rewire_dispatches": rounds - 1}
+    got = {k: c[k] for k in want}
+    if got != want:
+        raise AssertionError(f"ocs counters {got}, want {want}")
+    ms = [x["ms"] for x in rounds_rec if x["round"] != fault_round]
+    rec.update(
+        counters={k: c[k] for k in c if k.startswith("device.engine.") and not k.endswith("_us")
+                  and ("rewire" in k or k.endswith(("full_restages", "incremental_updates",
+                                                     "bytes_staged")))},
+        round_ms_p50=float(np.median(ms)),
+        round_ms_max=float(max(ms)),
+        demoted_round_ms=rounds_rec[fault_round]["ms"],
+        rewire_bytes_per_round=float(np.mean(
+            [x["rewire_bytes_staged"] for x in rounds_rec if x["round"] != fault_round])),
+        rounds_detail=rounds_rec,
+    )
+
+    # the fleet view on the rewired mirror, first under a kernel fault
+    adv = np.sort(np.random.default_rng(7).choice(n, size=n_dests, replace=False))
+    dests = [ctl._name(int(i)) for i in adv]
+    before_launch()
+    cache = FleetViewCache()
+    zero_launch_counts()
+    fault["kernel"] = True
+    t0 = synced()
+    try:
+        cache.view(ls, dests, csr=csr, engine=engine)
+    except KernelFault:
+        faulted_ms = (synced() - t0) * 1e3
+    else:
+        raise AssertionError("ocs view: the kernel fault did not surface")
+    if fault["fired"][-1:] != ["kernel"] or any(launch_counts().values()):
+        raise AssertionError(f"ocs view: the faulted call launched {launch_counts()}")
+    retries0 = engine.get_counters()["device.engine.small_dist_retries"]
+    captured = []
+    real_epilogue = engine.epilogue
+
+    def capturing(d, *rest):
+        out = real_epilogue(d, *rest)
+        captured.append((d, rest[:4], rest[4]))
+        return out
+
+    engine.epilogue = capturing
+    try:
+        zero_launch_counts()
+        t0 = synced()
+        view = cache.view(ls, dests, csr=csr, engine=engine)
+        view_ms = (synced() - t0) * 1e3
+        launches = launch_counts()
+    finally:
+        engine.epilogue = real_epilogue
+    retried = engine.get_counters()["device.engine.small_dist_retries"] - retries0
+    dtype = str(view._dist_dev.dtype).replace("torch.", "")
+    want = {KERNEL_U16["name"]: 1, KERNEL["name"]: retried, OUTER_KERNEL["name"]: 0}
+    if launches != want or view.node_sharded or (dtype == "int32") != bool(retried):
+        raise AssertionError(f"ocs view: {dtype}, retries {retried}, launches {launches}")
+    k1 = {}
+    for d, groups, n_words in captured:
+        variant = ep.variant_name(d.dtype)
+        check = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d, groups, n_words)
+        k1[variant] = slab_record(d, groups, n_words, view._runner, timer, variant, check)
+        k1[variant]["verdict"] = check["verdict"]
+    del captured, d, groups
+    rec["view"] = {
+        "dests": n_dests,
+        "faulted_call_ms": faulted_ms,
+        "ms": view_ms,
+        "product_dtype": dtype,
+        "small_dist_retries": retried,
+        "k1_launches": launches,
+        "k1": k1,
+    }
+    check_sources("view", rounds + 1)
+
+    # n_checked routers of the view against scipy, every destination
+    t0 = time.perf_counter()
+    routers = [names[int(i)] for i in np.sort(
+        np.random.default_rng(seed).choice(n, size=n_checked, replace=False))]
+    view.prefetch_rows(routers)
+    dest_ids = [csr.node_id[t] for t in dests]
+    for r in routers:
+        dist, hops = router_hops(oracle(), r, dest_ids)
+        got = np.asarray([view.dist(r, t) for t in dests], dtype=np.int64)
+        if not np.array_equal(got, dist.astype(np.int64)):
+            raise AssertionError(f"ocs view: {r}'s distances differ from scipy")
+        if any(view.next_hop_neighbors(r, t) != h for t, h in zip(dests, hops)):
+            raise AssertionError(f"ocs view: {r}'s next hops differ from scipy")
+    rec["view"]["routers_checked"] = len(routers)
+    rec["view"]["router_check_s"] = time.perf_counter() - t0
+    rec["checks"] = checks
+    rec["oracle_build_s"] = [v[1] for v in oracles.values()]
+    rec["faults_fired"] = fault["fired"]
+    engine.fault_hook = None
+    rec["phase_s"] = time.perf_counter() - t_phase
+    if timer.cuda:
+        rec["card"] = card_line()
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return rec, launches, k1
+
+
 def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         n_routers=N_ROUTERS, n_checked=N_CHECKED, kernel=None,
         outer_kernel=None, fabric_pods=FABRIC_PODS, check_pods=CHECK_PODS,
-        node_shard_threshold=None, emit=emit):
+        node_shard_threshold=None, ocs_nodes=OCS_NODES, emit=emit):
     """Every phase on `device`, each phase record passed to `emit` as it
     completes; returns the kernels record.  `kernel` and `outer_kernel`
     replace the two kernels' wrappers in the kernel-against-plain phases
@@ -7225,26 +7588,57 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     from openr_tpu_torch.ops import epilogue as ep
 
     timer = Timer(device)
+    built: dict = {}
+    builder = None
     if timer.cuda:
         names = ["fused_epilogue", "blocked_outer"]
-        build_s = _build.build(names)
-        emit(
-            {
-                "phase": "build",
-                "seconds": build_s,
-                "ptxas": {
-                    name: [
-                        line.strip()
-                        for line in _build.library_path(name)
-                        .with_suffix(".log")
-                        .read_text()
-                        .splitlines()
-                        if "registers" in line or "spill" in line
-                    ]
-                    for name in names
-                },
-            }
-        )
+
+        def build() -> None:
+            try:
+                built["seconds"] = _build.build(names)
+            except BaseException as e:  # re-raised by kernels_built
+                built["error"] = e
+
+        # nvcc runs in processes of its own: the OCS phase's host work
+        # overlaps the build, and waits for it before its first launch
+        builder = threading.Thread(target=build, name="kernel-build")
+        builder.start()
+
+    def kernels_built() -> None:
+        if builder is None or "record" in built:
+            return
+        t0 = time.perf_counter()
+        builder.join()
+        if "error" in built:
+            raise built["error"]
+        built["record"] = {
+            "phase": "build",
+            "seconds": built["seconds"],
+            "waited_s": time.perf_counter() - t0,
+            "ptxas": {
+                name: [
+                    line.strip()
+                    for line in _build.library_path(name)
+                    .with_suffix(".log")
+                    .read_text()
+                    .splitlines()
+                    if "registers" in line or "spill" in line
+                ]
+                for name in names
+            },
+        }
+        emit(built["record"])
+
+    # the chaos slice's path: the OCS rewire storm with its two faults,
+    # first while the heap is small (its LinkState goes with it)
+    zero_launch_counts()
+    record, ocs_launches, ocs_k1 = ocs_rewire_wan100k(
+        device, timer, n=ocs_nodes, before_launch=kernels_built
+    )
+    emit(record)
+    del record
+    gc.collect()
+    kernels_built()
     for record in kernel_vs_plain_small(
         device, kernel or ep.fused_epilogue, ep.fused_epilogue_reference
     ):
@@ -7273,8 +7667,15 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     # K1 on the delta rung's slabs: the storm's launches and slab times
     k1_records["uint16"]["launches_paths"] = {
         "main_path": k1_records["uint16"]["launches"],
+        "ocs_rewire_wan100k": ocs_launches[KERNEL_U16["name"]],
         "flap_storm_wan100k": storm_k1,
     }
+    k1_records["int32"]["launches_paths"] = {
+        "saturation_retry": int32_launches,
+        "ocs_rewire_wan100k": ocs_launches[KERNEL["name"]],
+    }
+    for variant, rec in ocs_k1.items():
+        k1_records[variant]["ocs_view"] = rec
     for variant, slabs in storm_slabs.items():
         k1_records[variant]["delta_slabs"] = slabs
     # warm_rebuild's drained node restored before spf_main_path: the
@@ -7344,9 +7745,14 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
             k1_records[variant]["kvstore_flood_slab"] = rec
         emit(node_ring(device))
         emit(daemon_ring_tcp(device))
+        # the fleets' collections walk only what they allocate: the armed
+        # run's records trigger full collections (PERF.md §5)
+        gc.collect()
+        gc.freeze()
         record = serving_fleet(device)
         emit(record)
         emit(race_serving_fleet(device, record))
+        gc.unfreeze()
         if process is not None:
             emit(daemon_process(process))
     zero_launch_counts()
@@ -7390,6 +7796,11 @@ def main() -> int:
         return 1
     import openr_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    # the host phases allocate millions of acyclic objects, which
+    # refcounting frees; the default thresholds (700, 10, 10) weigh
+    # collecting them every 70 000 allocations over the unfrozen heap
+    # (PERF.md §5): every 2 000 000 here
+    gc.set_threshold(10_000, 20, 10)
     card = card_line()
     print(card, flush=True)
     emit(

@@ -4,10 +4,11 @@ Port of `openr_tpu.ctrl.server`: the same methods on the same wire.
 The daemon wires the handler's `snapshot` surface (the pre-seeded
 `snapshot.*` family) and its `obs` surface (`obs.ObsStats`: the `obs.*`
 counters, zeroed when tracing is unarmed, and the tracer's trees on
-`dumpTraces` and `getSpanSamples`) and its `sched` surface (the
-schedule explorer's pre-seeded `sched.*` family); its `fuzz` and `mesh`
-surfaces stay None until the port has those modules, and each method
-then answers as the reference's does without them.
+`dumpTraces` and `getSpanSamples`), its `sched` surface (the
+schedule explorer's pre-seeded `sched.*` family) and its `fuzz` surface
+(the chaos fuzzer's pre-seeded `chaos.fuzz.*` family); its `mesh`
+surface stays None until the port has that module, and each method
+then answers as the reference's does without it.
 
 Wire protocol (one JSON object per line):
     request:   {"id": N, "method": "...", "params": {...}}
@@ -98,7 +99,7 @@ class OpenrCtrlHandler:
         # differentiable-TE optimizer (te.TeOptimizer): exports
         # te.* counters (pre-seeded at construction) the same way
         self.te = te
-        # chaos fuzzer registry (openr_tpu.chaos.fuzz.FUZZ_COUNTERS):
+        # chaos fuzzer registry (chaos.fuzz.FUZZ_COUNTERS):
         # exports chaos.fuzz.* (pre-seeded zeros) the same way
         self.fuzz = fuzz
         # schedule-exploration registry (analysis.sched.SCHED_COUNTERS):

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import bisect
 import gc
+import operator
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional
@@ -42,6 +43,9 @@ import numpy as np
 from ..ops.banded import BandedGraph, SpfRunner, build_banded
 from ..ops.sssp import INF32, EllGraph, build_ell
 from .link_state import LinkState, NodeSpfResult, SpfResult
+
+
+_ordered_names = operator.attrgetter("ordered_names")
 
 
 def _ids(objs) -> np.ndarray:
@@ -205,44 +209,46 @@ class CsrTopology:
         node_capacity: Optional[int] = None,
         edge_capacity: Optional[int] = None,
     ) -> "CsrTopology":
-        names = ls.node_names
-        node_id = {n: i for i, n in enumerate(names)}
-        links = sorted(ls.all_links)
-        n_links = len(links)
-        ends = np.empty((n_links, 2), dtype=np.int64)
-        metric = np.empty((n_links, 2), dtype=np.int64)
-        up = np.empty(n_links, dtype=bool)
-        pairs = []
-        for k, link in enumerate(links):
-            ends[k] = (node_id[link.n1], node_id[link.n2])
-            metric[k] = (link.metric1, link.metric2)
-            up[k] = link.is_up()
-            pairs.append((link, link.n1))
-            pairs.append((link, link.n2))
-        if n_links and int(metric.min()) < 1:
-            raise ValueError(
-                "edge metrics must be >= 1 (int32 distance math and the "
-                "d == 0 source exception rely on positive metrics)"
+        # the cyclic collector off while the per-link lists are built: on a
+        # large heap their allocations trigger full collections
+        with _gc_paused():
+            names = ls.node_names
+            node_id = {n: i for i, n in enumerate(names)}
+            # Link.__lt__'s order, with the key compared in C
+            links = sorted(ls.all_links, key=_ordered_names)
+            n_links = len(links)
+            ends = np.array(
+                [(node_id[link.n1], node_id[link.n2]) for link in links], dtype=np.int64
+            ).reshape(n_links, 2)
+            metric = np.array(
+                [(link.metric1, link.metric2) for link in links], dtype=np.int64
+            ).reshape(n_links, 2)
+            up = np.fromiter((link.is_up() for link in links), dtype=bool, count=n_links)
+            pairs = [pair for link in links for pair in ((link, link.n1), (link, link.n2))]
+            if n_links and int(metric.min()) < 1:
+                raise ValueError(
+                    "edge metrics must be >= 1 (int32 distance math and the "
+                    "d == 0 source exception rely on positive metrics)"
+                )
+            # per link: n1 -> n2 then n2 -> n1; stable sort by (dst, src)
+            src = ends.ravel()
+            dst = ends[:, ::-1].ravel()
+            order = np.lexsort((src, dst))
+            overloaded = np.array(
+                [ls.is_node_overloaded(name) for name in names], dtype=bool
             )
-        # per link: n1 -> n2 then n2 -> n1; stable sort by (dst, src)
-        src = ends.ravel()
-        dst = ends[:, ::-1].ravel()
-        order = np.lexsort((src, dst))
-        overloaded = np.array(
-            [ls.is_node_overloaded(name) for name in names], dtype=bool
-        )
-        return cls._build(
-            names,
-            src[order],
-            dst[order],
-            metric.ravel()[order],
-            np.repeat(up, 2)[order],
-            overloaded,
-            ls.version,
-            edge_links=[pairs[i] for i in order.tolist()],
-            node_capacity=node_capacity,
-            edge_capacity=edge_capacity,
-        )
+            return cls._build(
+                names,
+                src[order],
+                dst[order],
+                metric.ravel()[order],
+                np.repeat(up, 2)[order],
+                overloaded,
+                ls.version,
+                edge_links=[pairs[i] for i in order.tolist()],
+                node_capacity=node_capacity,
+                edge_capacity=edge_capacity,
+            )
 
     @classmethod
     def from_arrays(
@@ -474,8 +480,11 @@ class CsrTopology:
         down), the values it already holds."""
         links = self.edge_links
         e = len(links)
+        # Link.metric_from_node inlined: a slot's node is an endpoint
         self.edge_metric[:e] = [
-            1 if lp is None else lp[0].metric_from_node(lp[1]) for lp in links
+            1 if lp is None
+            else (lp[0].metric1 if lp[1] == lp[0].n1 else lp[0].metric2)
+            for lp in links
         ]
         self.edge_up[:e] = [lp is not None and lp[0].is_up() for lp in links]
         self.node_overloaded[: self.n_nodes] = [
@@ -485,7 +494,9 @@ class CsrTopology:
     def _slot_link_ids(self) -> np.ndarray:
         """id() of each edge slot's Link, 0 for a retired slot (the
         mirror holds the Links, so no id is reused while it lives)."""
-        return _ids(None if lp is None else lp[0] for lp in self.edge_links)
+        return np.array(
+            [0 if lp is None else id(lp[0]) for lp in self.edge_links], dtype=np.uint64
+        )
 
     def _try_rewire(self, ls: LinkState, slot_ids, new_links, new_ids) -> bool:
         """Bounded in-place edge-set change through the slot freelist.

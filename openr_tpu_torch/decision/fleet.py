@@ -374,6 +374,11 @@ class FleetRouteView:
             if runner.bg is not None
             else None
         )
+        # the banded relax's budget: blocks of 4 supersweeps up to n
+        # supersweeps (the Bellman-Ford bound), at least the reference's
+        # 64 blocks, so a graph whose hop diameter outgrows those (a ring
+        # whose chords all span half of it) converges instead of raising
+        max_blocks = max(64, -(-int(self.csr.n_nodes) // 4))
 
         def product(init_dist):
             return self._engine.dispatch(
@@ -388,6 +393,7 @@ class FleetRouteView:
                 init_dist=init_dist,
                 maps=maps,
                 epilogue=self._engine.epilogue,
+                max_blocks=max_blocks,
             )
 
         dist, bitmap, ok = product(init)

@@ -27,7 +27,8 @@ runtime's fast dispatch path) and caches jit programs per S bucket; here
 the deltas are plain indexed writes of the real indices, and there is no
 program cache.  Where the reference demotes any rewire failure to a
 restage, the port demotes only a gap in the rewire log (a resident that
-fell behind the log's window) and lets every other error propagate.
+fell behind the log's window) and an injected `rewire` fault, and lets
+every other error propagate.
 
 `counters` holds the fleet path's keys (ENGINE_COUNTER_KEYS) from the
 start and each residency key (RESIDENCY_COUNTER_KEYS), masked-batch
@@ -50,11 +51,23 @@ upgraded by `sync` to `restage`, `rewire` or `incremental` when the
 residency moved, and `delta` for a delta-rung program (the blocked
 runner tags `blocked`).  `blocked_outer` tags `engine.kernel` with
 `outer:cuda` when it launched K2 and `outer:plain` when its tensors lay
-on the CPU.  The chaos `fault_hook` comes with the chaos slice.
+on the CPU.
+
+`fault_hook` is the chaos layer's seam (`chaos.ChaosSpfBackend`, the
+OCS controller, the fuzzer): a callable of the op name, fired where the
+reference fires it — `sync`, `rewire` (top of the rewire replay), `spf`,
+`dispatch`'s op, `delta_<op>` — plus `kernel`, fired in `_launch` before
+a kernel wrapper is called (the reference's gate is `pallas`, inside its
+Pallas-or-XLA chooser).  A hook that raises stops the call: the fault
+propagates, and no other path runs in its place.  The one exception is
+`rewire`: the hook's own exception there demotes to a restage counted
+in `device.engine.rewire_fallbacks`, as a log gap does; it fires before
+any slot is written, and any other exception of the replay propagates.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 import weakref
 from dataclasses import dataclass, field
@@ -68,6 +81,8 @@ from ..ops import blocked_outer as _outer
 from ..ops import epilogue as _epilogue
 from ..ops import sssp as ops
 from ..parallel.blocked import BlockedApspEngine
+
+log = logging.getLogger(__name__)
 
 KERNELS = ("fused_epilogue", "blocked_outer")
 
@@ -248,6 +263,8 @@ class DeviceResidencyEngine:
         # ladder keys of the forward runs made (spf_results and prewarm),
         # in first-run order: the snapshot manifest's source
         self._program_keys: dict[tuple, None] = {}
+        # chaos seam: called with the op name at each gate (module doc)
+        self.fault_hook: Optional[Callable[[str], None]] = None
 
     # -- counters -----------------------------------------------------------
 
@@ -306,7 +323,10 @@ class DeviceResidencyEngine:
     def dispatch(self, op: str, fn: Callable, *args, **kwargs):
         """Run one unit of device work (`op` names it), count it and time
         it into `device.engine.dispatch_us` (host wall time of the call,
-        which includes the device work it waits for)."""
+        which includes the device work it waits for).  The fault hook
+        sees `op` first."""
+        if self.fault_hook is not None:
+            self.fault_hook(op)
         t0 = time.perf_counter()
         try:
             return fn(*args, **kwargs)
@@ -318,7 +338,12 @@ class DeviceResidencyEngine:
             )
 
     def _launch(self, name: str, kernel: Callable, *args):
-        """Call a kernel wrapper and count the launches it made."""
+        """Call a kernel wrapper and count the launches it made.  The
+        fault hook's `kernel` gate fires first: an injected fault leaves
+        before the wrapper runs, so neither the kernel nor its plain
+        version runs in its place."""
+        if self.fault_hook is not None:
+            self.fault_hook("kernel")
         before = kernel.launches
         out = kernel(*args)
         launched = kernel.launches - before
@@ -402,7 +427,9 @@ class DeviceResidencyEngine:
         slab's shape cell, a first sighting counted as a miss and a
         repeat as a hit; the call is counted and timed, a raising call
         included, and armed it tags the scope `engine.rung` = `delta`.
-        The reference's chaos `fault_hook` comes with the chaos slice."""
+        The fault hook sees `delta_<op>` first."""
+        if self.fault_hook is not None:
+            self.fault_hook("delta_" + op)
         if (
             expect_epoch is not None
             and csr is not None
@@ -450,7 +477,9 @@ class DeviceResidencyEngine:
         """Bring `csr`'s residency to csr.version: a restage only when the
         ELL object changed (a rebuild) or the rewire log has a gap; the
         rewire rung for pending RewireDeltas; the incremental rung for
-        attribute changes."""
+        attribute changes.  The fault hook sees `sync` first."""
+        if self.fault_hook is not None:
+            self.fault_hook("sync")
         t0 = time.perf_counter()
         res = self._residents.get(id(csr))
         if res is None or res.ell_host is not csr.ell:
@@ -539,8 +568,17 @@ class DeviceResidencyEngine:
         the rewritten edge slots and row writes for every re-encoded ELL
         row, O(touched slots + rows) uploaded.  Returns False, touching
         nothing, when the log no longer holds a contiguous chain from the
-        resident's position (the caller restages)."""
+        resident's position, or when the fault hook raises at `rewire`
+        (the caller restages); the hook fires before anything is
+        written, and only its own exception demotes."""
         t0 = time.perf_counter()
+        if self.fault_hook is not None:
+            try:
+                self.fault_hook("rewire")
+            except Exception:
+                log.warning("rewire fault injected: demoting to a restage",
+                            exc_info=True)
+                return False
         pending = [d for d in csr._rewire_log if d.seq > res.rewire_seq]
         if (
             not pending
@@ -747,7 +785,9 @@ class DeviceResidencyEngine:
 
         `expect_epoch` pins the csr.version the caller coalesced against:
         a moved topology raises EpochMismatchError before any device
-        work."""
+        work.  The fault hook sees `spf` first."""
+        if self.fault_hook is not None:
+            self.fault_hook("spf")
         if expect_epoch is not None and int(csr.version) != int(expect_epoch):
             self._bump("device.engine.epoch_invalidations")
             raise EpochMismatchError(int(expect_epoch), int(csr.version))

@@ -19,7 +19,9 @@ openr/tests/mocks/MockNetlinkFibHandler.  With tracing armed
 (`obs.trace`), a route update that carries traces is programmed under a
 `fib.program` stage of each, and each carried trace's root is finished
 once: Fib is the terminal of the publication path.  The mock agent's
-chaos schedule (the reference's chaos layer) is not ported.
+`chaos` seam takes a `chaos.FibChaosPlan`: before every FibService call
+the plan's `on_call(op)` verdict lets it through (`ok`), fails it
+(`fail`) or restarts the agent mid-call (`restart`), as the reference's.
 """
 
 from __future__ import annotations
@@ -72,6 +74,9 @@ class MockFibAgent:
         self.mpls: dict[int, dict[int, MplsRoute]] = {}
         self._alive_since = int(time.time())
         self.fail = False  # raise on every call when set
+        # seeded per-call failure/restart schedule (chaos.FibChaosPlan
+        # duck type: on_call(op) -> "ok" | "fail" | "restart")
+        self.chaos = None
         # Bare keys are the mock's public test surface (asserted as
         # agent.counters["sync_fib"] etc.); the daemon-side dump exports
         # them convention-clean as fib.agent.<key> via Fib.get_counters.
@@ -84,9 +89,19 @@ class MockFibAgent:
             "sync_mpls": 0,
         }
 
-    def _check(self) -> None:
+    def _check(self, op: str) -> None:
         if self.fail:
             raise RuntimeError("agent unavailable (injected)")
+        plan = self.chaos
+        if plan is not None:
+            verdict = plan.on_call(op)
+            if verdict == "restart":
+                # spontaneous restart: tables wiped, aliveSince bumps, and
+                # the in-flight call dies like a severed thrift channel
+                self.restart()
+                raise RuntimeError(f"agent restarted during {op} (injected)")
+            if verdict == "fail":
+                raise RuntimeError(f"injected agent failure on {op}")
 
     def restart(self) -> None:
         """Simulate agent restart: state wiped, aliveSince bumps."""
@@ -96,7 +111,7 @@ class MockFibAgent:
             self._alive_since = int(time.time() * 1000)  # strictly increases
 
     def add_unicast_routes(self, client_id: int, routes: list[UnicastRoute]) -> None:
-        self._check()
+        self._check("add_unicast_routes")
         with self._lock:
             table = self.unicast.setdefault(client_id, {})
             for route in routes:
@@ -104,7 +119,7 @@ class MockFibAgent:
             self.counters["add_unicast"] += len(routes)  # openr: disable=counter-name
 
     def delete_unicast_routes(self, client_id: int, prefixes: list[str]) -> None:
-        self._check()
+        self._check("delete_unicast_routes")
         with self._lock:
             table = self.unicast.setdefault(client_id, {})
             for prefix in prefixes:
@@ -112,7 +127,7 @@ class MockFibAgent:
             self.counters["del_unicast"] += len(prefixes)  # openr: disable=counter-name
 
     def add_mpls_routes(self, client_id: int, routes: list[MplsRoute]) -> None:
-        self._check()
+        self._check("add_mpls_routes")
         with self._lock:
             table = self.mpls.setdefault(client_id, {})
             for route in routes:
@@ -120,7 +135,7 @@ class MockFibAgent:
             self.counters["add_mpls"] += len(routes)  # openr: disable=counter-name
 
     def delete_mpls_routes(self, client_id: int, labels: list[int]) -> None:
-        self._check()
+        self._check("delete_mpls_routes")
         with self._lock:
             table = self.mpls.setdefault(client_id, {})
             for label in labels:
@@ -128,13 +143,13 @@ class MockFibAgent:
             self.counters["del_mpls"] += len(labels)  # openr: disable=counter-name
 
     def sync_fib(self, client_id: int, routes: list[UnicastRoute]) -> None:
-        self._check()
+        self._check("sync_fib")
         with self._lock:
             self.unicast[client_id] = {r.dest: r for r in routes}
             self.counters["sync_fib"] += 1  # openr: disable=counter-name
 
     def sync_mpls_fib(self, client_id: int, routes: list[MplsRoute]) -> None:
-        self._check()
+        self._check("sync_mpls_fib")
         with self._lock:
             self.mpls[client_id] = {r.top_label: r for r in routes}
             self.counters["sync_mpls"] += 1  # openr: disable=counter-name
@@ -148,7 +163,7 @@ class MockFibAgent:
             return list(self.mpls.get(client_id, {}).values())
 
     def alive_since(self) -> int:
-        self._check()
+        self._check("alive_since")
         with self._lock:
             return self._alive_since
 

@@ -28,8 +28,10 @@ openr/kvstore/KvStoreWrapper.h:31); the TCP transport lives in `ctrl`.
 With tracing armed (`obs.trace`), a publication that enters the store
 roots a `kvstore.publication` trace (`merge_publication`, or the flood
 chokepoint for a locally originated one) with a `kvstore.merge` stage,
-and the trace rides the updates queue into Decision.  The reference's
-transport fault injector (`set_chaos`) is not ported yet.  One
+and the trace rides the updates queue into Decision.  The transport's
+fault seam (`InProcessTransport.set_chaos`) takes a
+`chaos.KvChaosInjector`, whose seeded schedule fails `full_dump` and
+`key_set` calls with `TransportError`, as the reference's does.  One
 difference: a peer whose DUAL traffic arrived before the peering counts
 as speaking DUAL (`KvStorePeer.dual_seen`), where the reference floods
 it outside the SPT for good.
@@ -280,9 +282,19 @@ class InProcessTransport:
     def __init__(self) -> None:
         self._stores: dict[str, "KvStore"] = {}
         self._partitioned: set[frozenset[str]] = set()
+        # seeded per-edge failure injector (chaos.KvChaosInjector duck
+        # type: check(op, src, dst) raises TransportError on schedule)
+        self._chaos = None
 
     def register(self, addr: str, store: "KvStore") -> None:
         self._stores[addr] = store
+
+    def set_chaos(self, injector) -> None:
+        self._chaos = injector
+
+    def _chaos_check(self, op: str, src: str, dst: str) -> None:
+        if self._chaos is not None:
+            self._chaos.check(op, src, dst)
 
     def set_partitioned(self, a: str, b: str, partitioned: bool) -> None:
         key = frozenset((a, b))
@@ -313,6 +325,7 @@ class _BoundInProcessTransport:
     async def full_dump(
         self, peer: PeerSpec, area: str, params: KeyDumpParams
     ) -> Publication:
+        self._fabric._chaos_check("full_dump", self.addr, peer.peer_addr)
         store = self._fabric._target(self.addr, peer)
         return await asyncio.wrap_future(
             store.run_in_event_base_thread(
@@ -323,6 +336,7 @@ class _BoundInProcessTransport:
     async def key_set(
         self, peer: PeerSpec, area: str, params: KeySetParams
     ) -> None:
+        self._fabric._chaos_check("key_set", self.addr, peer.peer_addr)
         store = self._fabric._target(self.addr, peer)
         await asyncio.wrap_future(
             store.run_in_event_base_thread(

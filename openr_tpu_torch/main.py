@@ -26,8 +26,9 @@ is armed (`OPENR_TRACE=1` in the daemon's environment), with
 `sched` surface (`_sched_counters`) answers the schedule explorer's
 pre-seeded `sched.*` family.  With `OPENR_TSAN=1` in its environment,
 `OpenrDaemon.__init__` arms the port's race detector (`analysis.race`)
-before any module object exists.  The reference's fuzzing hook comes
-with the chaos layer.
+before any module object exists.  Its `fuzz` surface
+(`_fuzz_counters`) answers the chaos fuzzer's pre-seeded `chaos.fuzz.*`
+family, live-valued when a fuzz session ran in the process.
 
 `ServingFleet` runs K daemons in one process, peered over a KvStore full
 mesh and fronted by one `serving.ReplicaRouter`; it scales out with a
@@ -84,6 +85,16 @@ def _obs_stats():
     from .obs import ObsStats
 
     return ObsStats()
+
+
+def _fuzz_counters():
+    """The chaos fuzzer's process-wide registry (chaos.fuzz.*, pre-seeded
+    zeros): a daemon that never fuzzes still answers the whole family on
+    both wires, and an in-process session's runs and shrinks show there.
+    Imported lazily: the daemon never needs the fuzzer's harness."""
+    from .chaos.fuzz import FUZZ_COUNTERS
+
+    return FUZZ_COUNTERS
 
 
 def _sched_counters():
@@ -404,6 +415,9 @@ class OpenrDaemon:
             # ride the same surface; the optimizer lives on the serving
             # backend so optimizeMetrics runs and counter reads agree
             te=getattr(self.serving.backend, "te", None),
+            # chaos fuzzer counters (chaos.fuzz.*, pre-seeded zeros): a
+            # daemon that never fuzzes still answers the whole family
+            fuzz=_fuzz_counters(),
             # schedule-explorer counters (sched.*, pre-seeded zeros):
             # exploration sessions' schedules, prunes and replays
             sched=_sched_counters(),
@@ -646,6 +660,7 @@ class ServingFleet:
             monitor=front.monitor,
             config=front.config,
             serving=self.router,
+            fuzz=_fuzz_counters(),
             sched=_sched_counters(),
             obs=_obs_stats(),
             snapshot=_snapshot_counters(),

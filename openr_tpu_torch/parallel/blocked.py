@@ -32,7 +32,10 @@ bit-identical to the bulk loop there; it, the device mesh
 (`make_blocked_mesh`, `OPENR_BLOCKED_MESH`) and their `mesh.blocked.*`
 exchange and pipeline counters come with the multi-GPU slice.  With
 tracing armed (`obs.trace`), `run_apsp` tags the active scope
-`engine.rung` = `blocked`.
+`engine.rung` = `blocked`.  The chaos seam fires `blocked_round` before
+each round and `blocked_product` before each fleet product, through
+the parent engine's `fault_hook` when it has one, else this engine's
+own; an injected fault propagates out of the call.
 """
 
 from __future__ import annotations
@@ -133,6 +136,9 @@ class BlockedApspEngine:
         self._parent = parent
         self.tile = tile
         self.node_shard_threshold = node_shard_threshold
+        # chaos seam for engine-less use; with a parent, the parent's
+        # hook takes precedence (`_hook`)
+        self.fault_hook: Optional[Callable[[str], None]] = None
         if parent is not None:
             self.device = parent.device
         else:
@@ -147,6 +153,13 @@ class BlockedApspEngine:
 
     def _bump(self, name: str, delta: int = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + delta
+
+    def _hook(self, op: str) -> None:
+        hook = self._parent.fault_hook if self._parent is not None else None
+        if hook is None:
+            hook = self.fault_hook
+        if hook is not None:
+            hook(op)
 
     # -- policy -------------------------------------------------------------
 
@@ -244,6 +257,7 @@ class BlockedApspEngine:
         """The bulk-synchronous round loop: every round serializes diag
         closure -> panels -> outer update."""
         for k in range(t):
+            self._hook("blocked_round")
             t0 = time.monotonic_ns()
             closed = blocked_diag(dist, ov, k)
             t1 = time.monotonic_ns()
@@ -263,6 +277,7 @@ class BlockedApspEngine:
         destination-column extract, ECMP bitmap.  Returns (dist [N, P]
         int32, bitmap [N, P, W] int32, True), the `reduced_all_sources`
         contract the fleet view stores."""
+        self._hook("blocked_product")
         n = int(csr.n_nodes)
         b = self.tile_for(n)
         n_pad = -(-n // b) * b

@@ -250,12 +250,15 @@ class TestTreeIsClean:
         findings = reporter.sorted_findings()
         assert not findings, "\n" + "\n".join(f.format() for f in findings)
         # every suppression in the tree is one the reference carries for
-        # the same construct, or the serving family's wire-parity seed
+        # the same construct, the serving family's wire-parity seed, or
+        # the chaos harness's pin-trace seam (the reference's checker
+        # skips its chaos/ altogether; the port's checks it)
         assert sorted({(f.rule, f.path) for f in reporter.suppressed}) == [
             ("counter-name", "openr_tpu_torch/fib/fib.py"),
             ("counter-unbumped", "openr_tpu_torch/serving/scheduler.py"),
             ("guarded-by", "openr_tpu_torch/allocators/prefix_allocator.py"),
             ("guarded-by", "openr_tpu_torch/config_store/persistent_store.py"),
+            ("thread-cross-module-write", "openr_tpu_torch/chaos/replicafleet.py"),
             ("thread-cross-module-write", "openr_tpu_torch/main.py"),
         ]
 

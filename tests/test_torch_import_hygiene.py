@@ -67,6 +67,15 @@ DAEMON_MODULES = {
     "openr_tpu_torch.analysis.race",
     "openr_tpu_torch.analysis.sched",
     "openr_tpu_torch.analysis.pytest_tsan",
+    # the chaos layer: injectors, scenarios, OCS, load generator, fuzzer
+    "openr_tpu_torch.chaos",
+    "openr_tpu_torch.chaos.chaos",
+    "openr_tpu_torch.chaos.scenario",
+    "openr_tpu_torch.chaos.flapstorm",
+    "openr_tpu_torch.chaos.ocs",
+    "openr_tpu_torch.chaos.overload",
+    "openr_tpu_torch.chaos.replicafleet",
+    "openr_tpu_torch.chaos.fuzz",
 }
 
 

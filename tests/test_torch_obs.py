@@ -269,6 +269,8 @@ def test_every_seam_reads_the_tracer_late_bound():
         "openr_tpu_torch/serving/scheduler.py",
         "openr_tpu_torch/serving/router.py",
         "openr_tpu_torch/snapshot/snapshot.py",
+        # the fuzzer drains span-structure tokens for its fingerprint
+        "openr_tpu_torch/chaos/fuzz.py",
     ])
 
 

@@ -163,3 +163,36 @@ def test_a_moved_link_state_is_refused():
     ls.update_adjacency_database(dbs[0])
     with pytest.raises(AssertionError, match="moved"):
         oracle.run_spf(ls.node_names[0])
+
+
+@pytest.mark.parametrize("n,seed,rounds", [(48, 13, 3), (96, 5, 6)])
+def test_router_hops_equal_run_spf_on_the_ocs_ring(n, seed, rounds):
+    """`chip_smoke.router_hops`, the OCS phase's lighter oracle (one
+    Dijkstra from a node and its neighbours, no DAG walk): every node's
+    metric and next hops equal `run_spf`'s, on the controller's ring
+    after a few rounds of seeded chord swaps, to every node and to a
+    subset of destination ids."""
+    import random
+
+    from openr_tpu_torch.chaos import OcsController
+
+    ctl = OcsController(seed=seed, n=n)
+    chords = ctl._initial_chords()
+    rng = random.Random(seed)
+    for _ in range(rounds):
+        chords.discard(rng.choice(sorted(chords)))
+        chords.add(rng.choice(ctl._chord_candidates(chords)))
+    ls = ctl._build_ls(chords, {5: 70})
+    oracle = chip_smoke.ScipySpf(ls)
+    names = oracle.names
+    dest_ids = [3, 11, n // 2, n - 1]
+    for src in names[:: max(1, n // 12)]:
+        want = ls.run_spf(src)
+        dist, hops = chip_smoke.router_hops(oracle, src)
+        assert {names[v]: int(dist[v]) for v in range(n)} == {
+            v: r.metric for v, r in want.items()}
+        assert {names[v]: hops[v] for v in range(n)} == {
+            v: r.next_hops for v, r in want.items()}
+        d, h = chip_smoke.router_hops(oracle, src, dest_ids)
+        assert d.tolist() == [want[names[t]].metric for t in dest_ids]
+        assert h == [want[names[t]].next_hops for t in dest_ids]
