@@ -220,6 +220,21 @@ CHECK_PODS = 96
 # random tile cases of K2 (S, T, B): every B the rung and the tests use;
 # with B = 8 and 16, Np is not a multiple of the kernel's 64-wide tile
 OUTER_CASES = ((1, 13, 8), (2, 9, 16), (1, 3, 128), (2, 2, 128))
+# K2 on one shard of a tile tensor sharded over a ("batch", "row", "col")
+# mesh: (name, S, T, B, rows, cols, shard row, shard col).  A 1x8 mesh
+# gives B / C = 2 columns of lanes per tile, so at an odd T the row
+# stride 2T takes the kernel's scalar path; a 2x4 mesh gives B / R !=
+# B / C; S = 2 is a batch slice of two variants (fabric96's T = 630)
+OUTER_SHARD_CASES = (
+    ("bc2_odd_t", 1, 631, 16, 1, 8, 0, 5),
+    ("br_ne_bc", 1, 630, 16, 2, 4, 1, 2),
+    ("s2", 2, 630, 16, 2, 2, 1, 1),
+)
+# the logical meshes of the mesh phases, every shard on the one card
+MESH_FABRIC_SHAPE = (1, 2, 2)
+MESH_PRODUCT_SHARDS = 4
+MESH_PREFETCH_SHAPE = (2, 2)
+MESH_PREFETCH_SOURCES = 64
 # random-table cases of K1 (N, P, W, residual groups, bands?): node
 # counts that are no multiple of any node tile, P ragged against 4 (1001,
 # 37: the kernel's scalar path) and against the slab (1020, 36), 1, 2, 3
@@ -1387,6 +1402,101 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
     if timer.cuda:
         record["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     return record, kernel_records, (inp, solver, checked)
+
+
+def mesh_fleet_product_wan100k(device, inp, solver, timer):
+    """`fleet_product_sharded` over a logical batch mesh of
+    MESH_PRODUCT_SHARDS shards on `device` at the main path's full width
+    ([100 000, 1024], 256 destinations per shard), for the sweeps the
+    main path's cold view ran: each shard runs the banded relax and K1
+    uint16 (launched once per shard, its count set to 0 just before and
+    read just after), and the gathered product, bitmap and verdict must
+    equal the main path's bit for bit.  K1 is then held against its
+    plain version on shard 0's input and timed there.  Returns (record,
+    K1's record at the shard's shape)."""
+    import torch
+
+    from openr_tpu_torch.decision.fleet import fleet_destinations
+    from openr_tpu_torch.ops import allsources as asrc
+    from openr_tpu_torch.ops import epilogue as ep
+    from openr_tpu_torch.parallel.mesh import fleet_product_sharded, make_mesh
+
+    view = solver.fleet.view(
+        inp.ls, fleet_destinations(inp.ls, inp.ps), engine=solver.engine
+    )
+    runner, csr = view._runner, inp.csr
+    dest_ids = np.asarray([csr.node_id[d] for d in view.dest_names], np.int32)
+    out = asrc.build_out_ell(
+        csr.edge_src, csr.edge_dst, csr.n_edges, csr.n_nodes, csr.out_slot
+    )
+    mesh = make_mesh([device] * MESH_PRODUCT_SHARDS)
+    n_sweeps = runner.hint
+    step = fleet_product_sharded(
+        mesh, n_sweeps, out.n_words, runner.depth, runner.resid_rounds,
+        runner.small_dist, runner.chord_mode,
+    )
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    dist, bitmap, ok = step(
+        dest_ids, runner.bg, *runner.arrays, out, csr.edge_metric, csr.edge_up
+    )
+    if timer.cuda:
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    u16 = KERNEL_U16["name"]
+    if (
+        launches[u16] != MESH_PRODUCT_SHARDS
+        or launches[KERNEL["name"]]
+        or launches[OUTER_KERNEL["name"]]
+    ):
+        raise AssertionError(f"sharded product: launches {launches}")
+    if not ok or not (same(dist, view._dist_dev) and same(bitmap, view._bitmap_dev)):
+        raise AssertionError("the sharded product differs from the main path's")
+
+    # K1 against its plain version on shard 0's input
+    per = len(dest_ids) // MESH_PRODUCT_SHARDS
+    d0 = dist.view(torch.int16)[:, :per].contiguous().view(torch.uint16)
+    maps = asrc.build_epilogue_maps(runner.bg, out)
+    groups, _ = relax_groups(runner, maps, out.n_words, d0.device, True)
+    parity = compare(ep.fused_epilogue, ep.fused_epilogue_reference, d0, groups, out.n_words)
+    n, p = d0.shape
+    g = int(groups[0].shape[0])
+    plan = ep.epilogue_plan(n, p, runner.bg.offsets, l2_bytes(d0.device), g, 2)
+    traffic = ep.epilogue_traffic(
+        groups[0].cpu().numpy(), groups[1].cpu().numpy(), p, plan, True
+    )
+    bytes_ms = (n * p * 2 + n * p * out.n_words * 4 + 16 * g * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = traffic["active_pairs"] * p * EPILOGUE_OPS / int32_ops_per_s(timer.cuda) * 1e3
+    k1 = {
+        "path": "mesh_fleet_product_wan100k",
+        "launches": launches[u16],
+        "max_abs_err": parity["max_abs_err"],
+        "ms": timer.median_ms(lambda: ep.fused_epilogue(d0, *groups, out.n_words), reps=20),
+        "plain_ms": timer.ms(
+            lambda: ep.fused_epilogue_reference(d0, *groups, out.n_words), reps=2
+        ),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "shape": {"N": n, "P": p, "W": out.n_words, "G": g, "dtype": "uint16"},
+    }
+    record = {
+        "phase": "mesh_fleet_product_wan100k",
+        "rung": "fused",
+        "mesh": mesh.shape,
+        "devices": [str(d) for d in mesh.devices.flat],
+        "nodes": csr.n_nodes,
+        "destinations": len(dest_ids),
+        "destinations_per_shard": per,
+        "n_sweeps": n_sweeps,
+        "product_dtype": str(dist.dtype),
+        "equal_to_main_path": True,
+        "verdict": ok,
+        "wall_s": wall_s,
+        "launches": launches,
+        "k1_shard": k1,
+    }
+    return record, k1
 
 
 def warm_rebuild(inp, solver, checked, timer) -> dict:
@@ -4808,23 +4918,28 @@ def fabric_rounds(device, pods: int) -> tuple[int, int]:
 
 
 def outer_bound_ms(s: int, np_: int, b: int, drained: int,
-                   ops_per_s: float) -> tuple[float, str]:
-    """Least time of one K2 launch: each element of d read and written
-    once plus the panels and drain flags read once, against the
+                   ops_per_s: float, mc: int = None) -> tuple[float, str]:
+    """Least time of one K2 launch over [S, np_, mc] (mc = np_ unless
+    given: a shard's rectangle): each element of d read and written once
+    plus the panels and drain flags read once, against the
     2 * (B - drained) add-and-min operations per element at the card's
     int32 rate."""
-    bytes_ms = (2 * s * np_ * np_ * 4 + 2 * s * np_ * b * 4 + b) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * (b - drained) * s * np_ * np_ / ops_per_s * 1e3
+    mc = np_ if mc is None else mc
+    bytes_moved = 2 * s * np_ * mc * 4 + s * np_ * b * 4 + s * b * mc * 4 + b
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * (b - drained) * s * np_ * mc / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def blocked_kernel_vs_plain(device, outer, t_main: int, b_main: int, timer):
     """K2 against `blocked_outer_reference`, bit for bit: random tile
     tensors (values below 2^20, 10% INF, 20% drained lanes) for every
-    round k of OUTER_CASES, then three launches (k = 0, T/2, T-1) at the
-    blocked main path's full [Np, Np] shape, which are also timed (the
-    kernel's work does not depend on the values).  Returns (phase record,
-    timing at the main path's shape)."""
+    round k of OUTER_CASES; one shard of a sharded tile tensor for
+    OUTER_SHARD_CASES (k = 0, T/2, T-1, timed at T/2); then three launches
+    (k = 0, T/2, T-1) at the blocked main path's full [Np, Np] shape,
+    which are also timed (the kernel's work does not depend on the
+    values).  Returns (phase record, timing at the main path's shape and
+    of the shard cases)."""
     import torch
 
     from openr_tpu_torch.ops import blocked_outer as bo
@@ -4833,27 +4948,27 @@ def blocked_kernel_vs_plain(device, outer, t_main: int, b_main: int, timer):
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
 
-    def tiles(s, t, b):
-        def randint(*shape):
-            return torch.randint(
-                0, 1 << 20, shape, dtype=torch.int32, device=device, generator=gen
-            )
+    def randint(*shape):
+        return torch.randint(
+            0, 1 << 20, shape, dtype=torch.int32, device=device, generator=gen
+        )
 
+    def tiles(s, t, b):
         d = randint(s, t, b, t, b)
         d.masked_fill_(torch.rand(d.shape, device=device, generator=gen) < 0.1, INF32)
         ov = torch.rand(t * b, device=device, generator=gen) < 0.2
         return d, randint(s, b, t, b), randint(s, t, b, b), ov
 
-    def same(d, row, col, ov, k) -> None:
-        got = outer(d.clone(), row, col, ov, k)
-        want = bo.blocked_outer_reference(d.clone(), row, col, ov, k)
+    def same(d, row, col, ov, k, lanes=(0, 0)) -> None:
+        got = outer(d.clone(), row, col, ov, k, lanes)
+        want = bo.blocked_outer_reference(d.clone(), row, col, ov, k, lanes)
         if timer.cuda:
             torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(
                 f"K2 and its plain version disagree at {bad} elements "
-                f"(S, T, B = {tuple(d.shape[:3])}, k = {k})"
+                f"(dist {tuple(d.shape)}, lanes {lanes}, k = {k})"
             )
 
     cases = []
@@ -4862,6 +4977,37 @@ def blocked_kernel_vs_plain(device, outer, t_main: int, b_main: int, timer):
         for k in range(t):
             same(d, row, col, ov, k)
         cases.append({"S": s, "T": t, "B": b, "Np": t * b, "rounds": t})
+    # one shard of a sharded tile tensor, every case at its own extents
+    shard_cases = []
+    ops_per_s = int32_ops_per_s(timer.cuda)
+    for name, s, t, b, nr, nc, r, c in OUTER_SHARD_CASES:
+        br, bc = b // nr, b // nc
+        d = randint(s, t, br, t, bc)
+        d.masked_fill_(torch.rand(d.shape, device=device, generator=gen) < 0.1, INF32)
+        row, col = randint(s, b, t, bc), randint(s, t, br, b)
+        ov = torch.rand(t * b, device=device, generator=gen) < 0.2
+        lanes = (r * br, c * bc)
+        for k in sorted({0, t // 2, t - 1}):
+            same(d, row, col, ov, k, lanes)
+        k = t // 2
+        x = d.clone()
+        drained = int(ov[k * b : (k + 1) * b].sum())
+        bound_ms, bound_by = outer_bound_ms(
+            s, t * br, b, drained, ops_per_s, mc=t * bc
+        )
+        shard_cases.append({
+            "case": name,
+            "S": s, "T": t, "B": b, "mesh": [nr, nc], "shard": [r, c],
+            "mr": t * br, "mc": t * bc,
+            "max_abs_err": 0,
+            "ms": timer.ms(lambda: outer(x, row, col, ov, k, lanes), reps=20),
+            "plain_ms": timer.ms(
+                lambda: bo.blocked_outer_reference(x, row, col, ov, k, lanes), reps=2
+            ),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        })
+        del d, x, row, col
     d, row, col, ov = tiles(1, t_main, b_main)
     ks = sorted({0, t_main // 2, t_main - 1})
     for k in ks:
@@ -4883,6 +5029,7 @@ def blocked_kernel_vs_plain(device, outer, t_main: int, b_main: int, timer):
         "phase": "blocked_kernel_vs_plain",
         "rung": "blocked",
         "tile_cases": cases,
+        "shard_cases": shard_cases,
         "full_shape": {"S": 1, "T": t_main, "B": b_main, "Np": np_, "k": ks},
         "max_abs_err": 0,
     }
@@ -4892,14 +5039,17 @@ def blocked_kernel_vs_plain(device, outer, t_main: int, b_main: int, timer):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "shape": {"S": 1, "Np": np_, "B": b_main, "T": t_main, "drained_lanes": drained},
+        "shard_cases": shard_cases,
     }
     return record, timing
 
 
 def blocked_closure_vs_plain(device, pods: int, n_advertisers: int, timer) -> dict:
     """The whole closure of a `pods`-pod fabric through the blocked rung
-    (threshold pinned to 0 for this phase only), once with K2 and once
-    with its plain version: distances and bitmap bit for bit."""
+    (threshold pinned to 0 for this phase only), once with K2 in the
+    pipelined loop and once with its plain version in the bulk loop:
+    distances and bitmap bit for bit.  Returns ((dest names, dist,
+    bitmap), (LinkState, mirror, advertiser ids), record)."""
     import torch
 
     from openr_tpu_torch.decision.csr import CsrTopology
@@ -4930,11 +5080,19 @@ def blocked_closure_vs_plain(device, pods: int, n_advertisers: int, timer) -> di
     out = asrc.build_out_ell(
         csr.edge_src, csr.edge_dst, csr.n_edges, csr.n_nodes, csr.out_slot
     )
+    # the plain comparison run takes the bulk loop: the check holds the
+    # pipelined loop with K2 against the bulk loop with the plain phase 3
+    if view.node_sharded and engine.blocked.counters[
+        "mesh.blocked.pipeline_prefetch_issues"
+    ] != engine.blocked.counters["mesh.blocked.rounds"] - 1:
+        raise AssertionError("the closure with K2 did not take the pipelined loop")
+    engine.blocked.pipeline_mode = "0"
     (drev, bitmap, _), t_plain = synced(
         lambda: engine.blocked.fleet_product(
             csr, adv_ids, out, outer=bo.blocked_outer_reference
         )
     )
+    engine.blocked.pipeline_mode = None
     if not torch.equal(drev, view._dist_dev) or not torch.equal(
         bitmap, view._bitmap_dev
     ):
@@ -4943,7 +5101,7 @@ def blocked_closure_vs_plain(device, pods: int, n_advertisers: int, timer) -> di
         (drev < (1 << 30)).all()
     ):
         raise AssertionError("the fabric's closure is not finite everywhere")
-    return view.dest_names, view._dist_dev, view._bitmap_dev, {
+    return (view.dest_names, view._dist_dev, view._bitmap_dev), (ls, csr, adv_ids), {
         "phase": "blocked_closure_vs_plain",
         "rung": "blocked",
         "nodes": csr.n_nodes,
@@ -4955,6 +5113,166 @@ def blocked_closure_vs_plain(device, pods: int, n_advertisers: int, timer) -> di
         "max_abs_err": 0,
         "closure_with_kernel_s": t_kernel,
         "closure_with_plain_s": t_plain,
+        "kernel_loop": "pipelined",
+        "plain_loop": "bulk",
+    }
+
+
+def blocked_mesh_fabric96(device, fabric, closure, timer) -> dict:
+    """fabric96's closure through a logical 1x2x2 mesh of four shards,
+    every one on `device`, in the pipelined loop: K2 once per shard per
+    round on its [T * B / 2, T * B / 2] rectangle, the panels gathered
+    over the shards.  Its distances and bitmap must equal `closure`,
+    the one-shard closure `blocked_closure_vs_plain` held against the
+    plain version on the card, bit for bit."""
+    import torch
+
+    from openr_tpu_torch.decision.fleet import FleetViewCache
+    from openr_tpu_torch.device.engine import DeviceResidencyEngine
+    from openr_tpu_torch.parallel.blocked import make_blocked_mesh
+
+    ls, csr, _ = fabric
+    dests, dist, bitmap = closure
+    nb, nr, nc = MESH_FABRIC_SHAPE
+    mesh = make_blocked_mesh([device] * (nb * nr * nc), batch=nb, rows=nr, cols=nc)
+    engine = DeviceResidencyEngine(device)
+    engine.blocked.node_shard_threshold = 0
+    engine.blocked._mesh = mesh
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    view = FleetViewCache().view(ls, dests, csr=csr, engine=engine)
+    if timer.cuda:
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    counters = engine.blocked.get_counters()
+    t = counters["mesh.blocked.rounds"]
+    k2 = OUTER_KERNEL["name"]
+    if (
+        not view.node_sharded
+        or launches[k2] != mesh.size * t
+        or engine.counters[f"device.engine.kernel_launches.{k2}"] != mesh.size * t
+        or counters["mesh.blocked.pipeline_prefetch_issues"] != t - 1
+        or counters["mesh.blocked.pipeline_rounds_overlapped"] != t - 1
+        or counters["mesh.blocked.pipeline_fallbacks"]
+    ):
+        raise AssertionError(
+            f"mesh closure: launches {launches}, counters {counters}"
+        )
+    if view.dest_names != dests or not (
+        same(view._dist_dev, dist) and same(view._bitmap_dev, bitmap)
+    ):
+        raise AssertionError("the 1x2x2 mesh closure differs from the one-shard one")
+    b = engine.blocked.tile_for(csr.n_nodes, nr, nc)
+    return {
+        "phase": "blocked_mesh_fabric96",
+        "rung": "blocked",
+        "mesh": mesh.shape,
+        "devices": [str(d) for d in mesh.devices.flat],
+        "nodes": csr.n_nodes,
+        "destinations": len(dests),
+        "tile": b,
+        "shard_extent": [t * b // nr, t * b // nc],
+        "rounds": t,
+        "k2_launches": launches[k2],
+        "equal_to_one_shard_closure": True,
+        "wall_s": wall_s,
+        "bytes_exchanged": counters["mesh.blocked.bytes_exchanged"],
+        "mesh_bytes_moved": mesh.bytes_moved,
+        "panel_broadcasts": counters["mesh.blocked.panel_broadcasts"],
+        "pipeline_overlap_frac_est": counters["mesh.blocked.pipeline_overlap_frac_est"],
+        "blocked_counters": counters,
+    }
+
+
+def mesh_prefetch_fabric96(device, fabric, timer, n_sources=MESH_PREFETCH_SOURCES):
+    """`SpfSolver.prefetch_via_mesh` over a logical ("batch" 2, "node" 2)
+    mesh on `device` for `n_sources` fabric96 routers: every SpfResult
+    (metrics, path links, first hops from the DAG's host propagation)
+    equal to the single-device `prefetch`'s (first hops from the card's
+    bitmaps).  Then `whatif_step_sharded` with one failed link per row
+    (`n_sources` rows from one router) equal to the unsharded
+    `spf_forward_ell_masked`, distances and SP-DAG."""
+    import torch
+
+    from openr_tpu_torch.decision.spf_solver import DeviceSpfBackend, SpfSolver
+    from openr_tpu_torch.ops import sssp
+    from openr_tpu_torch.parallel.mesh import make_mesh, whatif_step_sharded
+
+    def synced(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if timer.cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ls = fabric[0]
+    nb, nn = MESH_PREFETCH_SHAPE
+    mesh = make_mesh([device] * (nb * nn), batch_axis=nb)
+    names = ls.node_names
+    rng = np.random.default_rng(11)
+    sources = [names[i] for i in np.sort(rng.choice(len(names), n_sources, replace=False))]
+    solver = SpfSolver(sources[0], device=device)
+    _, mesh_s = synced(lambda: solver.prefetch_via_mesh(ls, sources, mesh))
+    step = solver.spf._mesh_steps[mesh]
+    single = DeviceSpfBackend(device)
+    _, single_s = synced(lambda: single.prefetch(ls, sources))
+    got, want = solver.spf._result_cache(ls), single._result_cache(ls)
+    t0 = time.perf_counter()
+    for src in sources:
+        # NodeSpfResult equality: metric, path links in order, next hops
+        if got[src] != want[src]:
+            raise AssertionError(f"mesh prefetch of {src} differs from prefetch")
+    compare_s = time.perf_counter() - t0
+    if solver.engine.get_counters()["device.engine.queries"]:
+        raise AssertionError("the mesh prefetch queried the engine")
+
+    # what-if rows: one failed link (both directions) per row
+    csr = solver.spf.csr_mirror(ls)
+    links = list(csr.edges_of_links().values())
+    mask = np.ones((n_sources, csr.edge_capacity), dtype=bool)
+    for row, i in enumerate(rng.choice(len(links), n_sources, replace=False)):
+        mask[row, links[i]] = False
+    src_ids = np.full(n_sources, csr.node_id[sources[0]], dtype=np.int32)
+    whatif = whatif_step_sharded(mesh)
+    (dist, dag), whatif_s = synced(
+        lambda: whatif(
+            src_ids, csr.ell, csr.edge_src, csr.edge_dst, csr.edge_metric,
+            csr.edge_up, csr.node_overloaded, mask.T.copy(),
+        )
+    )
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    (udist, udag), unsharded_s = synced(
+        lambda: sssp.spf_forward_ell_masked(
+            put(src_ids), csr.ell.to(device), put(csr.edge_src), put(csr.edge_dst),
+            put(csr.edge_metric), put(csr.edge_up), put(csr.node_overloaded),
+            put(mask),
+        )
+    )
+    if not (torch.equal(dist, udist) and torch.equal(dag, udag)):
+        raise AssertionError("sharded what-if differs from spf_forward_ell_masked")
+    return {
+        "phase": "mesh_prefetch_fabric96",
+        "mesh": mesh.shape,
+        "devices": [str(d) for d in mesh.devices.flat],
+        "nodes": csr.n_nodes,
+        "sources": n_sources,
+        "equal_to_prefetch": True,
+        "mesh_prefetch_s": mesh_s,
+        "single_prefetch_s": single_s,
+        "compare_s": compare_s,
+        "relax_sweeps": step.sweeps,
+        "shard_shapes": step.shard_shapes,
+        "bytes_moved": step.bytes_moved,
+        "whatif_rows": n_sources,
+        "whatif_equal": True,
+        "whatif_s": whatif_s,
+        "whatif_unsharded_s": unsharded_s,
+        "whatif_sweeps": whatif.sweeps,
+        "whatif_bytes_moved": whatif.bytes_moved,
     }
 
 
@@ -5090,13 +5408,15 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
                       timer, outer_timing, threshold=None):
     """The fleet route build over the `pods`-pod fabric under the default
     policy (a rehearsal may pin `threshold`): it must take the blocked
-    rung with one K2 launch per round, and its routes must equal the host
-    Dijkstra's.  Returns (phase record, K2's kernels record)."""
+    rung on the engine's 1x1x1 mesh and the pipelined loop, with one K2
+    launch per round, and its routes must equal the host Dijkstra's.
+    Returns (phase record, K2's kernels record)."""
     import torch
 
     from openr_tpu_torch.decision.fleet import FleetViewCache
     from openr_tpu_torch.ops import allsources as asrc
     from openr_tpu_torch.parallel.blocked import (
+        TileShards,
         blocked_diag,
         blocked_extract,
         blocked_panels,
@@ -5142,6 +5462,17 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
             f"{main_counters}, expected {t} K2 launches per closure"
         )
     blocked_counters = blocked.get_counters()
+    # the engine's default mesh is 1x1x1 on the card, and a closure of
+    # T >= 2 rounds takes the pipelined loop: T - 1 lookaheads, nothing
+    # to overlap on one shard, no demotion
+    if (
+        blocked.mesh().size != 1
+        or blocked_counters["mesh.blocked.pipeline_prefetch_issues"] != t - 1
+        or blocked_counters["mesh.blocked.pipeline_fallbacks"]
+        or blocked_counters["mesh.blocked.pipeline_rounds_overlapped"]
+        or blocked_counters["mesh.blocked.rounds"] != t
+    ):
+        raise AssertionError(f"blocked main path: counters {blocked_counters}")
     t0 = time.perf_counter()
     checked = check_routes(
         inp, dbs_out, view, checked_routers(inp, n_routers, n_checked)
@@ -5168,11 +5499,18 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
     out = asrc.build_out_ell(
         csr.edge_src, csr.edge_dst, csr.n_edges, n, csr.out_slot
     )
+    tiles = TileShards(blocked.mesh(), d5)
+    ovd = {d5.device: ov}
+    panels = blocked._round_panels(tiles, ovd, k)
     round_ms = {
         "diag": timer.ms(lambda: blocked_diag(d5, ov, k), reps=20),
         "panels": timer.ms(lambda: blocked_panels(d5, closed, ov, k), reps=20),
+        "lookahead": timer.ms(
+            lambda: blocked.blocked_lookahead(tiles, panels, ovd, k), reps=20
+        ),
         "outer_kernel": outer_timing["ms"],
     }
+    del tiles, panels
     times = {
         "host_link_state_s": inp.t_ls,
         "host_csr_s": inp.t_csr,
@@ -5240,6 +5578,7 @@ def blocked_main_path(device, pods, n_advertisers, n_routers, n_checked,
         "library_ms": None,
         "library_note": NO_LIBRARY + " (a min-plus product)",
         "shape": outer_timing["shape"],
+        "shard_cases": outer_timing["shard_cases"],
     }
     return record, kernel_record
 
@@ -7653,6 +7992,10 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         device, n_nodes, n_advertisers, n_routers, n_checked, timer
     )
     emit(main)
+    # the main path's product again, its destinations over a batch mesh
+    record, k1_shard = mesh_fleet_product_wan100k(device, inp, solver, timer)
+    emit(record)
+    k1_records["uint16"]["mesh_shard"] = k1_shard
     # the wan100k state main_path built lives through serving_wan100k:
     # frozen, the full collections of the host-heavy phases in between
     # walk only what they allocate
@@ -7667,6 +8010,7 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     # K1 on the delta rung's slabs: the storm's launches and slab times
     k1_records["uint16"]["launches_paths"] = {
         "main_path": k1_records["uint16"]["launches"],
+        "mesh_fleet_product_wan100k": k1_shard["launches"],
         "ocs_rewire_wan100k": ocs_launches[KERNEL_U16["name"]],
         "flap_storm_wan100k": storm_k1,
     }
@@ -7764,10 +8108,16 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         device, outer_kernel or bo.blocked_outer, t_main, b_main, timer
     )
     emit(record)
-    *closure, record = blocked_closure_vs_plain(
+    closure, fabric, record = blocked_closure_vs_plain(
         device, check_pods, n_advertisers, timer
     )
     emit(record)
+    # the same closure over a logical mesh of four shards, and the mesh
+    # prefetch and what-if steps on the same fabric
+    mesh_record = blocked_mesh_fabric96(device, fabric, closure, timer)
+    emit(mesh_record)
+    emit(mesh_prefetch_fabric96(device, fabric, timer))
+    del fabric
     emit(
         ell_main_path(
             device, check_pods, n_advertisers, n_routers, n_checked, timer,
@@ -7785,6 +8135,10 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
         outer_timing, threshold=node_shard_threshold,
     )
     emit(blocked)
+    outer_record["launches_paths"] = {
+        "blocked_main_path": outer_record["launches"],
+        "blocked_mesh_fabric96": mesh_record["k2_launches"],
+    }
     return {"kernels": [k1_records["int32"], k1_records["uint16"], outer_record]}
 
 

@@ -18,8 +18,9 @@ this mapping of the reference-only names:
   its XLA path instead and counts `pallas_fallbacks`).
 - **The fingerprint whitelist** names the port's counters: the
   reference's `device.engine.pallas_*` keys become
-  `device.engine.kernel_launches.*`, and `mesh.blocked.pipeline_fallbacks`
-  has no counterpart (the port has no pipelined blocked loop).
+  `device.engine.kernel_launches.*`; `mesh.blocked.pipeline_fallbacks`
+  is the reference's own key (the pipelined blocked loop demotes on the
+  fault hook's `blocked_round` exception in both).
 
 Where the reference swallows an injected fault (its Pallas-to-XLA
 demotion, its delta rung's full-product fallback), the port's engine
@@ -148,6 +149,7 @@ _FP_ENGINE_KEYS = (
 _FP_BLOCKED_KEYS = (
     "mesh.blocked.products",
     "mesh.blocked.rounds",
+    "mesh.blocked.pipeline_fallbacks",
 )
 _FP_DELTA_KEYS = (
     "decision.delta.updates",

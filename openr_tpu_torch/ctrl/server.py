@@ -6,9 +6,9 @@ The daemon wires the handler's `snapshot` surface (the pre-seeded
 counters, zeroed when tracing is unarmed, and the tracer's trees on
 `dumpTraces` and `getSpanSamples`), its `sched` surface (the
 schedule explorer's pre-seeded `sched.*` family) and its `fuzz` surface
-(the chaos fuzzer's pre-seeded `chaos.fuzz.*` family); its `mesh`
-surface stays None until the port has that module, and each method
-then answers as the reference's does without it.
+(the chaos fuzzer's pre-seeded `chaos.fuzz.*` family) and its `mesh`
+surface (the engine's blocked rung, `parallel.blocked.
+BlockedApspEngine`: the pre-seeded `mesh.blocked.*` family).
 
 Wire protocol (one JSON object per line):
     request:   {"id": N, "method": "...", "params": {...}}
@@ -93,7 +93,7 @@ class OpenrCtrlHandler:
         # query scheduler (serving.QueryScheduler): async query
         # methods below submit into its admission queue; exports serving.*
         self.serving = serving
-        # blocked-APSP node-sharding rung (openr_tpu.parallel.blocked
+        # blocked-APSP node-sharding rung (parallel.blocked
         # .BlockedApspEngine): exports mesh.blocked.* the same way
         self.mesh = mesh
         # differentiable-TE optimizer (te.TeOptimizer): exports

@@ -662,12 +662,15 @@ class CsrTopology:
         sources: list[str],
         dist: np.ndarray,  # [S, N_cap] int32
         dag: np.ndarray,  # [S, E_cap] bool
-        nh_words: np.ndarray,  # [S, N_cap, W] int32 (uint32 bit patterns)
+        nh_words: Optional[np.ndarray] = None,  # [S, N_cap, W] int32
     ) -> dict[str, SpfResult]:
         """Device output as the host Dijkstra's SpfResults: per reachable
         node its metric, its tie-retaining path_links in the Dijkstra's
         append order, and its first-hop `next_hops` decoded from the
-        bitmaps (reference: CsrTopology.to_spf_results with nh_words).
+        bitmaps `nh_words` (uint32 bit patterns; reference:
+        CsrTopology.to_spf_results with nh_words).  Without them (a
+        distances-and-DAG step, the mesh prefetch) the first hops come
+        from the reference's host propagation along the DAG.
 
         Host work is O(reachable + DAG edges): next-hop sets are decoded
         once per distinct word row.  The decode allocates a few acyclic
@@ -675,10 +678,33 @@ class CsrTopology:
         paused meanwhile: its full collections would walk the whole heap
         and find nothing to free."""
         with _gc_paused():
+            if nh_words is None:
+                return {
+                    src: self._propagated_result(src, dist[row], dag[row])
+                    for row, src in enumerate(sources)
+                }
             return {
                 src: self._spf_result(src, dist[row], dag[row], nh_words[row])
                 for row, src in enumerate(sources)
             }
+
+    def _propagated_result(self, src_name, dist_row, dag_row) -> SpfResult:
+        """One row's SpfResult with first hops by host propagation along
+        the DAG in increasing-distance order (reference: to_spf_results
+        without nh_words): a shortest edge from the source to v gives v
+        itself, any other in-edge (prev -> v) gives prev's first hops."""
+        result = self.row_path_links(dist_row, dag_row)
+        order = sorted(result, key=lambda name: (result[name].metric, name))
+        for name in order:
+            if name == src_name:
+                continue
+            res = result[name]
+            for _link, prev in res.path_links:
+                if prev == src_name:
+                    res.next_hops.add(name)
+                else:
+                    res.next_hops |= result[prev].next_hops
+        return result
 
     def _spf_result(self, src_name, dist_row, dag_row, words) -> SpfResult:
         names = self.node_names

@@ -189,6 +189,8 @@ class DeviceSpfBackend:
         )
         # topology shape -> learned fixed-sweep hint (see _hint_key)
         self._hint_by_shape: dict[tuple, int] = {}
+        # mesh -> its sharded SPF step (prefetch_via_mesh)
+        self._mesh_steps: dict = {}
 
     def csr_mirror(self, link_state: LinkState) -> CsrTopology:
         """The CSR mirror of `link_state`, refreshed in place to its
@@ -241,6 +243,58 @@ class DeviceSpfBackend:
         ]
         if missing:
             self._query(link_state, missing)
+
+    def prefetch_via_mesh(
+        self, link_state: LinkState, sources: list[str], mesh
+    ) -> None:
+        """Batch-prefetch over a ("batch", "node") device mesh
+        (parallel.mesh.make_mesh; reference: DeviceSpfBackend.
+        prefetch_via_mesh): the sources split over the mesh's batch axis
+        (`spf_step_sharded`, one step per mesh, kept), padded with node 0
+        to a multiple of it, and the results land in the same
+        per-LinkState cache the solver reads, so a route build after a
+        mesh prefetch queries nothing.
+
+        The step returns distances and SP-DAG only; first hops come from
+        the host propagation along the DAG (`CsrTopology.to_spf_results`
+        without bitmaps), as in the reference.  Every source with links
+        goes to the mesh: like `prefetch`, there is no host-Dijkstra
+        size gate."""
+        from ..parallel.mesh import spf_step_sharded
+
+        cache = self._result_cache(link_state)
+        missing = [
+            s
+            for s in sources
+            if s not in cache and link_state.links_from_node(s)
+        ]
+        if not missing:
+            return
+        csr = self.csr_mirror(link_state)
+        step = self._mesh_steps.get(mesh)
+        if step is None:
+            step = self._mesh_steps[mesh] = spf_step_sharded(mesh)
+        batch = mesh.devices.shape[0]
+        src_ids = np.asarray([csr.node_id[s] for s in missing], dtype=np.int32)
+        pad = (-len(src_ids)) % batch
+        if pad:
+            src_ids = np.concatenate([src_ids, np.zeros(pad, dtype=np.int32)])
+        dist, dag = step(
+            src_ids,
+            csr.ell,
+            csr.edge_src,
+            csr.edge_dst,
+            csr.edge_metric,
+            csr.edge_up,
+            csr.node_overloaded,
+        )
+        cache.update(
+            csr.to_spf_results(
+                missing,
+                dist[: len(missing)].cpu().numpy(),
+                dag[: len(missing)].cpu().numpy(),
+            )
+        )
 
     def get_spf_result(self, link_state: LinkState, src: str) -> SpfResult:
         cache = self._result_cache(link_state)
@@ -377,6 +431,12 @@ class SpfSolver:
     def _spf_result(self, link_state: LinkState, src: str) -> SpfResult:
         """The backend's SPF of `src`; a device error propagates."""
         return self.spf.get_spf_result(link_state, src)
+
+    def prefetch_via_mesh(self, link_state: LinkState, sources: list[str], mesh) -> None:
+        """The backend's `prefetch_via_mesh` (DeviceSpfBackend): the SPFs
+        of `sources` over a device mesh, cached for this solver's route
+        builds."""
+        self.spf.prefetch_via_mesh(link_state, sources, mesh)
 
     def _kth_paths(
         self, link_state: LinkState, src: str, dest: str, k: int

@@ -366,15 +366,17 @@ class DeviceResidencyEngine:
         )
         return out
 
-    def blocked_outer(self, dist, row_p, col_p, node_overloaded, k: int):
-        """ops.blocked_outer.blocked_outer, counting the kernel launches;
-        armed, the scope's spans get `engine.kernel` = `outer:cuda` when
-        K2 launched, `outer:plain` when the plain version ran."""
+    def blocked_outer(self, dist, row_p, col_p, node_overloaded, k: int,
+                      lanes=(0, 0)):
+        """ops.blocked_outer.blocked_outer, counting the kernel launches
+        (one per shard of a sharded tile tensor); armed, the scope's spans
+        get `engine.kernel` = `outer:cuda` when K2 launched,
+        `outer:plain` when the plain version ran."""
         before = _outer.blocked_outer.launches
         out = self._launch(
             "blocked_outer",
             _outer.blocked_outer,
-            dist, row_p, col_p, node_overloaded, k,
+            dist, row_p, col_p, node_overloaded, k, lanes,
         )
         tr = _trace.TRACE
         if tr is not None:

@@ -410,6 +410,14 @@ class OpenrDaemon:
             # device-residency engine counters (device.engine.*) ride the
             # same getCounters surface as every module's
             device=getattr(self.decision.spf_solver.spf, "engine", None),
+            # node-sharding rung counters (mesh.blocked.*) ride along;
+            # pre-seeded at engine construction so they dump before the
+            # first blocked dispatch
+            mesh=getattr(
+                getattr(self.decision.spf_solver.spf, "engine", None),
+                "blocked",
+                None,
+            ),
             serving=self.serving,
             # TE optimizer counters (te.*, pre-seeded at construction)
             # ride the same surface; the optimizer lives on the serving

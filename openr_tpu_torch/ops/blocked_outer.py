@@ -17,6 +17,10 @@ tensors holding values in [0, INF32 = 2^30], bit-identical to the
 reference's uint32; sums are formed as `minimum(a, INF - b) + b`, which
 is min(a + b, INF) without the int32 overflow of INF + INF.
 
+On a device mesh (parallel.blocked, sharded) each shard of the tile
+tensor is its own rectangle [S, T * Br, T * Bc], updated by one launch
+from the panels' rows and columns of that shard (`lanes`).
+
 `blocked_outer` updates `dist` in place (the reference donates it) and
 returns it: the hand-written CUDA kernel (`csrc/blocked_outer.cu`) for
 tensors on a CUDA device, the plain PyTorch version
@@ -44,23 +48,34 @@ def sat_minplus(a, b):
     return torch.minimum(a, INF32 - b) + b
 
 
-def _write_back(dist, row_p, col_p, k: int) -> None:
-    dist[:, k] = row_p
-    dist[:, :, :, k] = col_p
+def _write_back(dist, row_p, col_p, k: int, lanes) -> None:
+    r0, c0 = lanes
+    dist[:, k] = row_p[:, r0 : r0 + dist.shape[2]]
+    dist[:, :, :, k] = col_p[..., c0 : c0 + dist.shape[4]]
 
 
-def blocked_outer_reference(dist, row_p, col_p, node_overloaded, k: int):
+def blocked_outer_reference(
+    dist, row_p, col_p, node_overloaded, k: int, lanes=(0, 0)
+):
     """Plain PyTorch phase 3, in place on `dist`: the port of
     `parallel/blocked.blocked_outer` (:246) — panel write-back first (under
     the drain mask the outer product does not subsume the panel
     positions), then the rank-B update one lane m at a time, each lane's
-    candidate dropped to INF where lane m of tile k is drained."""
-    s, t, b = dist.shape[0], dist.shape[1], dist.shape[2]
-    np_ = t * b
-    _write_back(dist, row_p, col_p, k)
-    d = dist.view(s, np_, np_)
-    rm = row_p.reshape(s, b, np_)
-    cm = col_p.reshape(s, np_, b)
+    candidate dropped to INF where lane m of tile k is drained.
+
+    `dist` may be one shard [S, T, Br, T, Bc] of a tile tensor sharded
+    over a ("batch", "row", "col") mesh: `row_p` [S, B, T, Bc] then holds
+    the row panel's columns of the shard and every lane of tile k,
+    `col_p` [S, T, Br, B] the column panel's rows of the shard, and
+    `lanes` = (r0, c0) the shard's first row lane and first column lane
+    within a tile, where its slices of the panels are written back."""
+    s, t, br, bc = dist.shape[0], dist.shape[1], dist.shape[2], dist.shape[4]
+    b = row_p.shape[1]
+    mr, mc = t * br, t * bc
+    _write_back(dist, row_p, col_p, k, lanes)
+    d = dist.view(s, mr, mc)
+    rm = row_p.reshape(s, b, mc)
+    cm = col_p.reshape(s, mr, b)
     ov = node_overloaded[k * b : (k + 1) * b]
     for m in range(b):
         cand = sat_minplus(cm[:, :, m, None], rm[:, None, m, :])
@@ -73,7 +88,7 @@ def blocked_outer_reference(dist, row_p, col_p, node_overloaded, k: int):
 def _library() -> ctypes.CDLL:
     lib = load("blocked_outer")
     lib.blocked_outer_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.blocked_outer_launch.restype = ctypes.c_int
     lib.blocked_outer_error_string.argtypes = [ctypes.c_int]
@@ -81,16 +96,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_args(dist, row_p, col_p, node_overloaded, k: int) -> None:
-    if dist.dim() != 5:
-        raise ValueError(f"dist must be [S, T, B, T, B]; got {tuple(dist.shape)}")
-    s, t, b, t2, b2 = dist.shape
-    if (t2, b2) != (t, b):
-        raise ValueError(f"dist must be [S, T, B, T, B]; got {tuple(dist.shape)}")
+def _check_args(dist, row_p, col_p, node_overloaded, k: int, lanes) -> None:
+    if dist.dim() != 5 or dist.shape[1] != dist.shape[3]:
+        raise ValueError(
+            f"dist must be [S, T, Br, T, Bc]; got {tuple(dist.shape)}"
+        )
+    s, t, br, _, bc = dist.shape
+    b = row_p.shape[1] if row_p.dim() == 4 else -1
     want = {
-        "row_p": (row_p, (s, b, t, b), torch.int32),
-        "col_p": (col_p, (s, t, b, b), torch.int32),
-        "dist": (dist, (s, t, b, t, b), torch.int32),
+        "row_p": (row_p, (s, b, t, bc), torch.int32),
+        "col_p": (col_p, (s, t, br, b), torch.int32),
+        "dist": (dist, (s, t, br, t, bc), torch.int32),
         "node_overloaded": (node_overloaded, (t * b,), torch.bool),
     }
     for name, (x, shape, dtype) in want.items():
@@ -105,30 +121,37 @@ def _check_args(dist, row_p, col_p, node_overloaded, k: int) -> None:
             )
         if x.data_ptr() % 16:
             raise ValueError(f"blocked_outer: {name} is not 16-byte aligned")
-    if b % 4 or not 4 <= b <= MAX_TILE:
+    if not 1 <= b <= MAX_TILE:
+        raise ValueError(f"blocked_outer: tile B={b} outside 1..{MAX_TILE}")
+    r0, c0 = lanes
+    if not (0 <= r0 <= b - br and 0 <= c0 <= b - bc):
         raise ValueError(
-            f"blocked_outer: tile B={b} must be a multiple of 4 in "
-            f"4..{MAX_TILE}"
+            f"blocked_outer: shard lanes {tuple(lanes)} of widths "
+            f"({br}, {bc}) outside the tile of {b} lanes"
         )
     if not 0 <= k < t:
         raise ValueError(f"blocked_outer: round k={k} outside 0..{t - 1}")
 
 
-def blocked_outer(dist, row_p, col_p, node_overloaded, k: int):
-    """Phase 3 of round `k`, in place on `dist` [S, T, B, T, B] int32,
-    from the panels row_p [S, B, T, B] and col_p [S, T, B, B] int32 and
-    the [T * B] bool drain mask; returns `dist`.  Values must lie in
-    [0, 2^30].  Runs the CUDA kernel for CUDA tensors and the plain
-    version for CPU tensors."""
+def blocked_outer(dist, row_p, col_p, node_overloaded, k: int, lanes=(0, 0)):
+    """Phase 3 of round `k`, in place on `dist` [S, T, Br, T, Bc] int32 (the
+    whole tile tensor, Br = Bc = B, or one shard of it: see
+    `blocked_outer_reference`), from the panels row_p [S, B, T, Bc] and
+    col_p [S, T, Br, B] int32 and the [T * B] bool drain mask; returns
+    `dist`.  Values must lie in [0, 2^30].  Runs the CUDA kernel for CUDA
+    tensors and the plain version for CPU tensors."""
     if dist.device.type == "cpu":
-        return blocked_outer_reference(dist, row_p, col_p, node_overloaded, k)
+        return blocked_outer_reference(
+            dist, row_p, col_p, node_overloaded, k, lanes
+        )
     if dist.device.type != "cuda":
         raise ValueError(f"blocked_outer: no kernel for device {dist.device}")
-    _check_args(dist, row_p, col_p, node_overloaded, k)
+    _check_args(dist, row_p, col_p, node_overloaded, k, lanes)
     lib = _library()
-    s, t, b = dist.shape[0], dist.shape[1], dist.shape[2]
+    s, t, br, bc = dist.shape[0], dist.shape[1], dist.shape[2], dist.shape[4]
+    b = row_p.shape[1]
     with torch.cuda.device(dist.device):
-        _write_back(dist, row_p, col_p, k)
+        _write_back(dist, row_p, col_p, k, lanes)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.blocked_outer_launch(
             dist.data_ptr(),
@@ -136,7 +159,8 @@ def blocked_outer(dist, row_p, col_p, node_overloaded, k: int):
             row_p.data_ptr(),
             node_overloaded.data_ptr() + k * b,
             s,
-            t * b,
+            t * br,
+            t * bc,
             b,
             stream,
         )

@@ -9,7 +9,7 @@
 //   d[i, j] = min(d[i, j], min over m of col[i, m] + row[m, j])
 //
 // where col is the [Np, B] column panel and row the [B, Np] row panel of
-// tile k, and row m counts as INF when lane m of tile k is drained (an
+// tile k (on a shard, the rectangle below), and row m counts as INF when lane m of tile k is drained (an
 // overloaded node relays nothing).  The wrapper writes both panels back
 // into tile k before the launch and the kernel updates d in place.
 //
@@ -37,8 +37,18 @@
 // keeps a 4 x 4 group of outputs in registers — rows ty + 16a, four
 // consecutive columns read and written as one 16-byte vector, so a warp
 // touches two 256-byte row segments — and runs the m loop over shared
-// memory.  Each d element is read once and written once.  Masks cover a
-// ragged Np (a multiple of B, not of 64).
+// memory.  Each d element is read once and written once.  Masks cover
+// ragged extents (multiples of nothing in particular).
+//
+// Shards of a device mesh: the matrix may be a rectangle [mr, mc], one
+// shard of the tile tensor sharded over a ("batch", "row", "col") mesh
+// (openr_tpu/parallel/blocked.py:12-26): mr = T * B / R rows and
+// mc = T * B / C columns, with the column panel [mr, B] and the row panel
+// [B, mc] of the whole tile width B.  The 16-byte vectors need every row
+// of d and of the row panel to start on a 16-byte boundary, so a row
+// stride mc that is not a multiple of 4 (B / C = 2 with T odd on a 1 x 8
+// mesh) takes the scalar instantiation: the same tiling with four 4-byte
+// accesses per vector, each masked against mc.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,10 +61,35 @@ constexpr int kTile = 64;          // output tile edge, rows and columns
 constexpr int kLanes = 16;         // threads along a tile edge
 constexpr int kVec = kTile / kLanes;  // 4 outputs per thread per edge
 
+// Four consecutive elements of a row at column j (j < mc), INF past mc.
+template <bool Vec>
+__device__ __forceinline__ uint4 load4(const unsigned* p, int j, int mc) {
+  if (Vec) return *reinterpret_cast<const uint4*>(p + j);
+  uint4 v;
+  v.x = p[j];
+  v.y = j + 1 < mc ? p[j + 1] : kInf;
+  v.z = j + 2 < mc ? p[j + 2] : kInf;
+  v.w = j + 3 < mc ? p[j + 3] : kInf;
+  return v;
+}
+
+template <bool Vec>
+__device__ __forceinline__ void store4(unsigned* p, int j, int mc, uint4 v) {
+  if (Vec) {
+    *reinterpret_cast<uint4*>(p + j) = v;
+    return;
+  }
+  p[j] = v.x;
+  if (j + 1 < mc) p[j + 1] = v.y;
+  if (j + 2 < mc) p[j + 2] = v.z;
+  if (j + 3 < mc) p[j + 3] = v.w;
+}
+
+template <bool Vec>
 __global__ void __launch_bounds__(kThreads) blocked_outer_kernel(
     unsigned* __restrict__ d, const unsigned* __restrict__ col,
     const unsigned* __restrict__ row, const unsigned char* __restrict__ drained,
-    int np, int b) {
+    int mr, int mc, int b) {
   extern __shared__ uint4 smem[];
   uint4* rs = smem;                                  // [b][kTile / 4]
   unsigned* cs = reinterpret_cast<unsigned*>(rs + b * (kTile / 4));
@@ -63,37 +98,35 @@ __global__ void __launch_bounds__(kThreads) blocked_outer_kernel(
   const int64_t s = blockIdx.z;
   const int i0 = blockIdx.y * kTile;
   const int j0 = blockIdx.x * kTile;
-  d += s * (int64_t)np * np;
-  col += s * (int64_t)np * b;
-  row += s * (int64_t)b * np;
+  d += s * (int64_t)mr * mc;
+  col += s * (int64_t)mr * b;
+  row += s * (int64_t)b * mc;
 
   const int tid = threadIdx.x;
   for (int e = tid; e < b * (kTile / 4); e += kThreads) {
     const int m = e / (kTile / 4);
     const int j = j0 + 4 * (e % (kTile / 4));
     uint4 v = make_uint4(kInf, kInf, kInf, kInf);
-    if (!drained[m] && j < np) {
-      v = *reinterpret_cast<const uint4*>(row + (int64_t)m * np + j);
-    }
+    if (!drained[m] && j < mc) v = load4<Vec>(row + (int64_t)m * mc, j, mc);
     rs[e] = v;
   }
   for (int e = tid; e < kTile * b; e += kThreads) {
     const int i = e / b;
     const int m = e % b;
     cs[i * cs_stride + m] =
-        i0 + i < np ? col[(int64_t)(i0 + i) * b + m] : kInf;
+        i0 + i < mr ? col[(int64_t)(i0 + i) * b + m] : kInf;
   }
   __syncthreads();
 
   const int tx = tid % kLanes;
   const int ty = tid / kLanes;
   const int j = j0 + 4 * tx;
-  if (j >= np) return;  // np % 4 == 0: a vector is wholly in or out
+  if (j >= mc) return;  // with Vec, mc % 4 == 0: a vector is wholly in or out
   uint4 acc[kVec];
 #pragma unroll
   for (int a = 0; a < kVec; ++a) {
     const int i = i0 + ty + kLanes * a;
-    acc[a] = i < np ? *reinterpret_cast<const uint4*>(d + (int64_t)i * np + j)
+    acc[a] = i < mr ? load4<Vec>(d + (int64_t)i * mc, j, mc)
                     : make_uint4(kInf, kInf, kInf, kInf);
   }
   for (int m = 0; m < b; ++m) {
@@ -110,36 +143,53 @@ __global__ void __launch_bounds__(kThreads) blocked_outer_kernel(
 #pragma unroll
   for (int a = 0; a < kVec; ++a) {
     const int i = i0 + ty + kLanes * a;
-    if (i < np) *reinterpret_cast<uint4*>(d + (int64_t)i * np + j) = acc[a];
+    if (i < mr) store4<Vec>(d + (int64_t)i * mc, j, mc, acc[a]);
   }
 }
 
 // Dynamic shared memory of one block for tile width b, in bytes.
 int smem_bytes(int b) { return b * kTile * 4 + kTile * (b + 1) * 4; }
 
-}  // namespace
-
-// d [s, np, np], col [s, np, b] and row [s, b, np] are int32 storage of
-// values in [0, 2^30], contiguous and 16-byte aligned on the device;
-// drained [b] holds the drain flags (0 or 1, one byte each) of the lanes of
-// tile k.  np is a multiple of b and b a multiple of 4.  Updates d in
-// place on `stream`.  Returns a cudaError_t code.
-extern "C" int blocked_outer_launch(void* d, const void* col, const void* row,
-                                    const void* drained, int s, int np, int b,
-                                    void* stream) {
-  if (s <= 0 || np <= 0) return (int)cudaSuccess;
-  if (b <= 0 || b % 4 || np % b) return (int)cudaErrorInvalidValue;
+template <bool Vec>
+cudaError_t launch(unsigned* d, const unsigned* col, const unsigned* row,
+                   const unsigned char* drained, int s, int mr, int mc, int b,
+                   cudaStream_t stream) {
   const int smem = smem_bytes(b);
   cudaError_t err = cudaFuncSetAttribute(
-      blocked_outer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (np + kTile - 1) / kTile;
-  if (s > 65535 || tiles > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid(tiles, tiles, s);
-  blocked_outer_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (unsigned*)d, (const unsigned*)col, (const unsigned*)row,
-      (const unsigned char*)drained, np, b);
-  return (int)cudaGetLastError();
+      blocked_outer_kernel<Vec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_i = (mr + kTile - 1) / kTile;
+  const int tiles_j = (mc + kTile - 1) / kTile;
+  if (s > 65535 || tiles_i > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid(tiles_j, tiles_i, s);
+  blocked_outer_kernel<Vec><<<grid, kThreads, smem, stream>>>(
+      d, col, row, drained, mr, mc, b);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// d [s, mr, mc], col [s, mr, b] and row [s, b, mc] are int32 storage of
+// values in [0, 2^30], contiguous on the device, with 16-byte aligned
+// bases; drained [b] holds the drain flags (0 or 1, one byte each) of the
+// lanes of tile k.  Updates d in place on `stream`: the 16-byte vector
+// path when mc is a multiple of 4, else the scalar path.  Returns a
+// cudaError_t code.
+extern "C" int blocked_outer_launch(void* d, const void* col, const void* row,
+                                    const void* drained, int s, int mr, int mc,
+                                    int b, void* stream) {
+  if (s <= 0 || mr <= 0 || mc <= 0) return (int)cudaSuccess;
+  if (b <= 0) return (int)cudaErrorInvalidValue;
+  auto* dd = (unsigned*)d;
+  auto* cc = (const unsigned*)col;
+  auto* rr = (const unsigned*)row;
+  auto* dr = (const unsigned char*)drained;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err =
+      mc % 4 == 0 ? launch<true>(dd, cc, rr, dr, s, mr, mc, b, st)
+                  : launch<false>(dd, cc, rr, dr, s, mr, mc, b, st);
+  return (int)err;
 }
 
 extern "C" const char* blocked_outer_error_string(int code) {

@@ -274,11 +274,32 @@ def _slot_chunks(
     return tables
 
 
+def _ell_rows(ell: EllGraph, a: int, b: int) -> EllGraph:
+    """The ELL restricted to relabelled rows [a, b): each bucket's slice
+    of those rows, in order (node ids keep their meaning)."""
+    buckets = []
+    lo = 0
+    for bk in ell.buckets:
+        r = bk.nbr.shape[0]
+        i, j = max(a, lo) - lo, min(b, lo + r) - lo
+        if i < j:
+            buckets.append(EllBucket(*(x[i:j] for x in bk)))
+        lo += r
+    return EllGraph(tuple(buckets), ell.new_of_old, ell.old_of_new)
+
+
 def _ell_relax(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
                unit_metric: bool = False, small_dist: bool = False,
-               row_allowed_T=None):
+               row_allowed_T=None, rows=None):
     """One Jacobi sweep over [N_cap, S] relabelled distances, as a
-    function of the sweep's input."""
+    function of the sweep's input.  With `rows` (a, b) the sweep yields
+    only relabelled rows [a, b) of the result, [b - a, S], still from
+    the whole input: one node shard's part of a sweep on a device mesh
+    (parallel.mesh)."""
+    a = 0
+    if rows is not None:
+        a, b = rows
+        ell = _ell_rows(ell, a, b)
     tables = _slot_chunks(
         ell, edge_up, node_overloaded, edge_metric, s, unit_metric, small_dist,
         row_allowed_T,
@@ -286,9 +307,12 @@ def _ell_relax(ell: EllGraph, edge_up, node_overloaded, edge_metric, s: int,
     inf = domain(small_dist)[0]
 
     def relax(d):
-        out = torch.empty_like(d)
+        if rows is None:
+            out = torch.empty_like(d)
+        else:
+            out = d.new_empty((b - a, d.shape[1]))
         for lo, r, chunks in tables:
-            acc = d[lo : lo + r]
+            acc = d[a + lo : a + lo + r]
             for idx, ok, transit, w in chunks:
                 du = d.index_select(0, idx).view(r, -1, s)
                 allow = ok & (transit | (du == 0)) & (du < inf)

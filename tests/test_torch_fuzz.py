@@ -5,10 +5,10 @@ Oracle: tests/test_fuzz.py.  The same timeline and seed give the same
 scenario log, the same counter deltas and the same fingerprint in both
 packages after the documented mapping (the module's docstring):
 
-- the reference's `device.engine.pallas_*` and
-  `mesh.blocked.pipeline_fallbacks` keys have no counterpart, and the
-  port's `device.engine.kernel_launches.*` keys stay 0 on the CPU, whose
-  wrappers run their plain versions uncounted;
+- the reference's `device.engine.pallas_*` keys have no counterpart,
+  and the port's `device.engine.kernel_launches.*` keys stay 0 on the
+  CPU, whose wrappers run their plain versions uncounted;
+  `mesh.blocked.pipeline_fallbacks` is compared as it is;
 - an armed `pallas` fault fires at the port's `kernel` gate only in the
   world's `interpret` mode, propagates, and is retried once: the port's
   log holds one more `fuzz:fault:fired:` step where the reference
@@ -41,7 +41,7 @@ PARITY_N = 12
 CPU = "cpu"
 
 # the reference-only counters, and the port's stand-ins for them
-REF_ONLY = ("device.engine.pallas_", "mesh.blocked.pipeline_fallbacks")
+REF_ONLY = ("device.engine.pallas_",)
 PORT_ONLY = ("device.engine.kernel_launches.",)
 # what a replica-side fault moves: the replicas' residency on the shared
 # engine (the port re-dispatches the query, the reference answers it on

@@ -3,7 +3,8 @@
 A fresh interpreter imports every module of the port and must end with
 no `jax*` and no `openr_tpu` module loaded; `chip_smoke.py` and the port
 name neither in an import statement; arming the port's race detector
-with its own config tracks only the port's classes.
+with its own config tracks only the port's classes; the mesh builders
+default to the CUDA cards and never drop to the CPU unasked.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import ast
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -76,6 +80,10 @@ DAEMON_MODULES = {
     "openr_tpu_torch.chaos.overload",
     "openr_tpu_torch.chaos.replicafleet",
     "openr_tpu_torch.chaos.fuzz",
+    # the device mesh, its sharded steps and the blocked rung over it
+    "openr_tpu_torch.parallel",
+    "openr_tpu_torch.parallel.mesh",
+    "openr_tpu_torch.parallel.blocked",
 }
 
 
@@ -146,3 +154,20 @@ def test_port_and_chip_smoke_import_statements():
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "openr_tpu"}, path
+
+
+def test_mesh_builders_default_to_cuda_and_raise_without_it():
+    """With no devices named, `make_mesh()` and `make_blocked_mesh()`
+    take every CUDA card, and raise where there is none; a CPU mesh is
+    asked for by name (`["cpu"] * 8`), and may repeat a device."""
+    from openr_tpu_torch.parallel import make_blocked_mesh, make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    for build in (make_mesh, make_blocked_mesh):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(["cuda:0"])
+    assert make_mesh(["cpu"] * 8).shape == {"batch": 8, "node": 1}
+    assert make_blocked_mesh(["cpu"] * 8).shape == {"batch": 1, "row": 2, "col": 4}
