@@ -236,9 +236,11 @@ MESH_PRODUCT_SHARDS = 4
 MESH_PREFETCH_SHAPE = (2, 2)
 MESH_PREFETCH_SOURCES = 64
 # random-table cases of K1 (N, P, W, residual groups, bands?): node
-# counts that are no multiple of any node tile, P ragged against 4 (1001,
-# 37: the kernel's scalar path) and against the slab (1020, 36), 1, 2, 3
-# and 8 bitmap words, no groups at all, and N below the halo window (13)
+# counts that are no multiple of any node tile, P ragged against 8 (1001,
+# 37, 1, 3, 4, 65: the kernels' scalar paths) and against the slab (1020,
+# 36), P on both sides of the uint16 narrow path's limit (64, 65) and one
+# and three columns, 1, 2, 3 and 8 bitmap words, no groups at all, and N
+# below the halo window (13)
 EPILOGUE_CASES = (
     (4099, 1001, 1, 4, True),
     (4099, 1020, 1, 4, True),
@@ -247,6 +249,11 @@ EPILOGUE_CASES = (
     (777, 64, 8, 4, True),
     (4099, 128, 1, 0, False),
     (13, 8, 2, 2, True),
+    (4099, 1, 1, 4, True),
+    (4099, 3, 2, 4, True),
+    (4099, 4, 1, 4, True),
+    (1031, 65, 1, 4, True),
+    (4099, 256, 2, 4, True),
 )
 # H100 SXM (NVIDIA data sheet and architecture white paper): HBM bytes/s,
 # and 64 int32 lanes per SM per clock (the integer pipe; the float32 rate
@@ -262,6 +269,11 @@ H100_MAX_SM_MHZ = 1980
 # (cuobjdump -sass) shows per element and group IADD3, VIMNMX, ISETP.NE
 # and a predicated LOP3 in the unrolled W = 1 body.
 EPILOGUE_OPS = 4
+# integer operations per (node, column pair, active group) of K1's packed
+# uint16 loop: the add of both columns' candidates (IMAD), the packed min
+# with its two per-column predicates (VIMNMX.U16x2), and the two
+# predicated ors of the bit; two columns share each int32 lane
+EPILOGUE_U16_OPS_PER_PAIR = 4
 # K1's two variants, one CUDA source, counted apart by the wrapper
 KERNEL = {
     "name": "fused_epilogue_int32",
@@ -345,6 +357,25 @@ def int32_ops_per_s(cuda: bool) -> float:
     ).stdout.split()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * INT32_LANES_PER_SM * float(mhz) * 1e6
+
+
+def k1_bound(n: int, p: int, n_words: int, g: int, small: bool,
+             active_pairs: int, cuda: bool) -> dict:
+    """K1's bound on [n, p] with `g` groups: the larger of the bytes (d
+    read once, the bitmap written once, the four [G, N] tables read once)
+    over the HBM rate and the operations its data needs over the int32
+    rate: EPILOGUE_OPS per element and active (node, group) pair for
+    int32, EPILOGUE_U16_OPS_PER_PAIR per column pair for uint16."""
+    bytes_moved = n * p * (2 if small else 4) + n * p * n_words * 4 + 16 * g * n
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    per_pair = (p + 1) // 2 * EPILOGUE_U16_OPS_PER_PAIR if small else p * EPILOGUE_OPS
+    ops_ms = active_pairs * per_pair / int32_ops_per_s(cuda) * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms,
+    }
 
 
 def card_line() -> str:
@@ -542,8 +573,8 @@ def random_groups(n, p, n_words, n_resid, bands, device, seed, small=False):
     rows, 15% empty slots (w >= WBIG), weights 0..49, 10% overloaded
     predecessors, 10% slot -1.  The product starts in [0, 2^20) with 10%
     INF32 entries, 2% zeros (so overloaded rows meet d = 0) and 10% of
-    its columns INF32 throughout, and is relaxed to its fixed point with
-    the relax's own rule.  With `small` it is a uint16 product of the
+    its columns (at least one; none below 8) INF32 throughout, and is
+    relaxed to its fixed point with the relax's own rule.  With `small` it is a uint16 product of the
     16-bit domain: values from [0, 2^12), INF16, empty slots at WBIG16
     (and some at WBIG), relaxed with INF16 and WBIG16."""
     import torch
@@ -572,7 +603,7 @@ def random_groups(n, p, n_words, n_resid, bands, device, seed, small=False):
     d = rng.integers(0, 1 << (12 if small else 20), (n, p))
     d[rng.random((n, p)) < 0.1] = inf
     d[rng.random((n, p)) < 0.02] = 0
-    d[:, rng.choice(p, max(1, p // 10), replace=False)] = inf
+    d[:, rng.choice(p, max(1, p // 10) if p >= 8 else 0, replace=False)] = inf
 
     def dev(a):
         return torch.as_tensor(a.astype(np.int32), device=device).contiguous()
@@ -609,21 +640,43 @@ def saturate(d, seed: int):
     return to_u16(torch.as_tensor(dn.astype(np.int32), device=d.device))
 
 
+def check_plans(small: bool, p: int) -> tuple:
+    """The plans `kernel_vs_plain_random` holds a variant under besides
+    its default one: int32's 64 x 64, 32 x 128 and 128 x 32 (slab x
+    tile); uint16's wide path at slabs of 32 to 256 columns, in one pass
+    of the block's threads and in two, and its narrow path (one slab of
+    up to 256 columns, several slabs past that)."""
+    from openr_tpu_torch.ops.epilogue import (
+        HALO, THREADS, TILE_ELEMS, U16_COLS, EpiloguePlan,
+    )
+
+    if not small:
+        return tuple(
+            EpiloguePlan(slab, tile, HALO, (), ())
+            for slab, tile in ((64, 64), (32, 128), (128, 32))
+        )
+    plans = [
+        EpiloguePlan(slab, tile, 0, (), (), "wide")
+        for slab in (32, 64, 128, 256)
+        for tile in (THREADS * U16_COLS // slab, TILE_ELEMS // slab)
+    ]
+    lanes = 1
+    while lanes * U16_COLS < min(p, 256):
+        lanes *= 2
+    plans.append(
+        EpiloguePlan(lanes * U16_COLS, THREADS // lanes, 0, (), (), "narrow")
+    )
+    return tuple(plans)
+
+
 def kernel_vs_plain_random(device, kernel, plain) -> list[dict]:
     """Phase 2b: the epilogue kernel against its plain version on the
     random tables of EPILOGUE_CASES in both variants, converged and with
     one entry lowered (uint16: and with entries in [WBIG16, INF16)),
-    under the plan the card's L2 gives and under the 64 x 64, 32 x 128
-    and 128 x 32 (slab x tile) plans of the int32 and uint16 main path."""
-    from openr_tpu_torch.ops.epilogue import HALO, EpiloguePlan
+    under the plan the card's L2 gives and under each of the variant's
+    `check_plans`."""
     from openr_tpu_torch.ops.sssp import INF16, INF32
 
-    plans = (
-        None,
-        EpiloguePlan(64, 64, HALO, (), ()),
-        EpiloguePlan(32, 128, HALO, (), ()),
-        EpiloguePlan(128, 32, HALO, (), ()),
-    )
     records = []
     for seed, ((n, p, n_words, n_resid, bands), small) in enumerate(
         (case, small) for case in EPILOGUE_CASES for small in (True, False)
@@ -638,17 +691,22 @@ def kernel_vs_plain_random(device, kernel, plain) -> list[dict]:
         if small:
             failing.append(("saturated", saturate(d, seed)))
         verdicts = {}
+        plans = (None, *check_plans(small, p))
         for plan in plans:
-            converged = compare(kernel, plain, d, groups, n_words, plan)
-            if not converged["verdict"]:
-                raise AssertionError(f"random {n}x{p}: fixed point judged broken")
-            err = max(err, converged["max_abs_err"])
-            for what, bad in failing:
-                out = compare(kernel, plain, bad, groups, n_words, plan)
-                if out["verdict"]:
-                    raise AssertionError(f"random {n}x{p}: {what} product judged converged")
-                err = max(err, out["max_abs_err"])
-                verdicts[what] = out["verdict"]
+            where = f"random {n}x{p} {'uint16' if small else 'int32'} W {n_words}, plan {plan}"
+            try:
+                converged = compare(kernel, plain, d, groups, n_words, plan)
+                if not converged["verdict"]:
+                    raise AssertionError("fixed point judged broken")
+                err = max(err, converged["max_abs_err"])
+                for what, bad in failing:
+                    out = compare(kernel, plain, bad, groups, n_words, plan)
+                    if out["verdict"]:
+                        raise AssertionError(f"{what} product judged converged")
+                    err = max(err, out["max_abs_err"])
+                    verdicts[what] = out["verdict"]
+            except AssertionError as e:
+                raise AssertionError(f"{where}: {e}") from e
         records.append(
             {
                 "phase": "kernel_vs_plain",
@@ -786,6 +844,32 @@ class Timer:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def kernel_ms(self, fn, reps: int = 10, name: str = "epilogue"):
+        """Device time of one call's kernels whose name holds `name`:
+        each such kernel's mean over the launches torch.profiler recorded
+        in `reps` calls, summed over the kernels (the events around a call
+        also count the wrapper's host work, which a narrow K1 launch is
+        shorter than); None on the CPU or where the profiler records
+        none."""
+        if not self.cuda:
+            return None
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_call = 0.0
+        for e in prof.key_averages():
+            if name in e.key and e.count:
+                t = getattr(e, "device_time_total", None)
+                t = t if t is not None else getattr(e, "cuda_time_total", 0.0)
+                per_call += t / e.count
+        return per_call / 1e3 if per_call else None
+
     def median_ms(self, fn, reps: int = 20) -> float:
         """Median of `reps` calls, each between its own pair of CUDA
         events, so the host's work in the call counts where it holds the
@@ -825,14 +909,20 @@ def l2_bytes(device) -> int:
 
 
 def epilogue_variants(dist, groups, n_words, plan, timer) -> dict:
-    """K1 at the main path's shape, each variant the median of 20 calls:
-    as planned; with no groups at all (the stream alone: d read through
-    the windows, bitmap written); with every slot empty (each group a
-    neutral read of the node's own window row: the stream plus the group
-    work, no gathers); with every gather row moved into the halo (v - 1:
-    the same); with 256-column slabs, whose [N, 256] slab exceeds half
-    the L2; and, as a yardstick, one PyTorch copy of d (the same bytes as
-    the stream, read and written row by row)."""
+    """K1 at the main path's shape with parts of its work removed, each the
+    median of 20 calls (and, uint16, its device time from the profiler).
+    int32 (the tiled design): as planned; with no groups at all (the
+    stream alone: d read through the windows, bitmap written); with every
+    slot empty (each group a neutral read of the node's own window row:
+    the stream plus the group work, no gathers); with every gather row
+    moved into the halo (v - 1: the same); with 256-column slabs, whose
+    [N, 256] slab exceeds half the L2.  uint16 (the packed design): as
+    planned; the stream alone (no groups); the group work without L2
+    gathers (every gather row the node's own, which L1 serves: d + w >= d
+    keeps the product at its fixed point); twice the tile (8 passes of
+    the block's threads against 4); and the narrow path's single launch
+    on the product's first 64 columns.  Both: one PyTorch copy of d, as a yardstick (the same bytes
+    as the read of d, read and written row by row)."""
     import torch
 
     from openr_tpu_torch.ops import epilogue as ep
@@ -840,22 +930,36 @@ def epilogue_variants(dist, groups, n_words, plan, timer) -> dict:
 
     idx, w, ov, slot = groups
     n = dist.shape[0]
-    near = torch.remainder(
-        torch.arange(n, dtype=torch.int32, device=dist.device) - 1, n
-    ).expand_as(idx).contiguous()
-    cases = {
-        "planned": (groups, plan),
-        "no_groups": (tuple(t[:0] for t in groups), plan),
-        "empty_slots": ((idx, torch.full_like(w, WBIG), ov, slot), plan),
-        "halo_only": ((near, w, ov, slot), plan),
-        "slab256": (groups, plan._replace(slab_cols=256, node_tile=16)),
-    }
-    times = {
-        name: timer.median_ms(
-            lambda g=g, pl=pl: ep.fused_epilogue(dist, *g, n_words, plan=pl)
-        )
-        for name, (g, pl) in cases.items()
-    }
+    rows = torch.arange(n, dtype=torch.int32, device=dist.device)
+    if dist.dtype == torch.uint16:
+        own = rows.expand_as(idx).contiguous()
+        d64 = dist.view(torch.int16)[:, :64].contiguous().view(torch.uint16)
+        cases = {
+            "planned": (dist, groups, plan),
+            "stream_alone": (dist, tuple(t[:0] for t in groups), plan),
+            "no_gathers": (dist, (own, w, ov, slot), plan),
+            "double_tile": (dist, groups, plan._replace(node_tile=2 * plan.node_tile)),
+            "narrow_p64": (d64, groups, None),
+        }
+    else:
+        near = torch.remainder(rows - 1, n).expand_as(idx).contiguous()
+        cases = {
+            "planned": (dist, groups, plan),
+            "no_groups": (dist, tuple(t[:0] for t in groups), plan),
+            "empty_slots": (dist, (idx, torch.full_like(w, WBIG), ov, slot), plan),
+            "halo_only": (dist, (near, w, ov, slot), plan),
+            "slab256": (dist, groups, plan._replace(slab_cols=256, node_tile=16)),
+        }
+    times = {}
+    for name, (d, g, pl) in cases.items():
+        kw = {"plan": pl} if pl is not None else {}
+
+        def call(d=d, g=g, kw=kw):
+            return ep.fused_epilogue(d, *g, n_words, **kw)
+
+        times[name] = timer.median_ms(call)
+        if dist.dtype == torch.uint16:
+            times[f"{name}_kernel"] = timer.kernel_ms(call)
     # a uint16 product is copied through its int16 view
     src = dist.view(torch.int16) if dist.dtype == torch.uint16 else dist
     copy = torch.empty_like(src)
@@ -1345,12 +1449,7 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
         traffic = ep.epilogue_traffic(
             tables[0].cpu().numpy(), tables[1].cpu().numpy(), p, plan, small
         )
-        bytes_moved = n * p * d.element_size() + n * p * n_words * 4 + 16 * g * n
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = (
-            traffic["active_pairs"] * p * EPILOGUE_OPS
-            / int32_ops_per_s(timer.cuda) * 1e3
-        )
+        bound = k1_bound(n, p, n_words, g, small, traffic["active_pairs"], timer.cuda)
         kernel_records[variant] = {
             **VARIANT_KERNELS[variant],
             # the uint16 variant's launches are the main path's; the
@@ -1360,12 +1459,16 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
             "parity": True,
             "max_abs_err": check["max_abs_err"],
             "ms": times[f"{prefix}_kernel_ms"],
+            "kernel_ms": timer.kernel_ms(
+                lambda d=d, tables=tables: ep.fused_epilogue(d, *tables, n_words)
+            ),
             "plain_ms": times[f"{prefix}_plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
             "library_ms": None,
             "library_note": NO_LIBRARY,
             "shape": {"N": n, "P": p, "W": n_words, "G": g, "dtype": variant},
+            "path": plan.path,
             "slab_cols": plan.slab_cols,
             "node_tile": plan.node_tile,
             "halo": plan.halo,
@@ -1374,8 +1477,8 @@ def main_path(device, n_nodes, n_advertisers, n_routers, n_checked, timer):
             "l2_bytes": l2_bytes(d.device),
             "active_pairs": traffic["active_pairs"],
             "gather_bytes": traffic["gather_bytes"],
-            "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms,
+            "bytes_ms": bound["bytes_ms"],
+            "ops_ms": bound["ops_ms"],
             "variants_ms": epilogue_variants(d, tables, n_words, plan, timer),
         }
     record = {
@@ -1466,19 +1569,24 @@ def mesh_fleet_product_wan100k(device, inp, solver, timer):
     traffic = ep.epilogue_traffic(
         groups[0].cpu().numpy(), groups[1].cpu().numpy(), p, plan, True
     )
-    bytes_ms = (n * p * 2 + n * p * out.n_words * 4 + 16 * g * n) / HBM_BYTES_PER_S * 1e3
-    ops_ms = traffic["active_pairs"] * p * EPILOGUE_OPS / int32_ops_per_s(timer.cuda) * 1e3
+    bound = k1_bound(n, p, out.n_words, g, True, traffic["active_pairs"], timer.cuda)
+
+    def call():
+        return ep.fused_epilogue(d0, *groups, out.n_words)
+
     k1 = {
         "path": "mesh_fleet_product_wan100k",
         "launches": launches[u16],
         "max_abs_err": parity["max_abs_err"],
-        "ms": timer.median_ms(lambda: ep.fused_epilogue(d0, *groups, out.n_words), reps=20),
+        "ms": timer.median_ms(call, reps=20),
+        "kernel_ms": timer.kernel_ms(call),
         "plain_ms": timer.ms(
             lambda: ep.fused_epilogue_reference(d0, *groups, out.n_words), reps=2
         ),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
         "shape": {"N": n, "P": p, "W": out.n_words, "G": g, "dtype": "uint16"},
+        "kernel_path": plan.path,
     }
     record = {
         "phase": "mesh_fleet_product_wan100k",
@@ -1709,8 +1817,9 @@ def with_adjacency(db, other: str, metric=None, drop: bool = False):
 
 def slab_record(d, groups, n_words, runner, timer, variant: str, check) -> dict:
     """K1 on one delta slab [N, Pb] against its plain version: times (the
-    kernel the median of 20 calls, the plain version of 3) and the bound
-    of the slab's work."""
+    kernel the median of 20 calls between CUDA events, its device time
+    from the profiler, the plain version of 3) and the bound of the
+    slab's work."""
     from openr_tpu_torch.ops import epilogue as ep
 
     n, pb = d.shape
@@ -1722,25 +1831,23 @@ def slab_record(d, groups, n_words, runner, timer, variant: str, check) -> dict:
     traffic = ep.epilogue_traffic(
         groups[0].cpu().numpy(), groups[1].cpu().numpy(), pb, plan, small
     )
-    bytes_moved = n * pb * d.element_size() + n * pb * n_words * 4 + 16 * g * n
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = (
-        traffic["active_pairs"] * pb * EPILOGUE_OPS
-        / int32_ops_per_s(timer.cuda) * 1e3
-    )
+    bound = k1_bound(n, pb, n_words, g, small, traffic["active_pairs"], timer.cuda)
+
+    def call():
+        return ep.fused_epilogue(d, *groups, n_words)
+
     return {
         "variant": variant,
         "shape": {"N": n, "Pb": pb, "W": n_words, "G": g},
         "parity": True,
         "max_abs_err": check["max_abs_err"],
-        "ms": timer.median_ms(lambda: ep.fused_epilogue(d, *groups, n_words), reps=20),
+        "ms": timer.median_ms(call, reps=20),
+        "kernel_ms": timer.kernel_ms(call),
         "plain_ms": timer.ms(
             lambda: ep.fused_epilogue_reference(d, *groups, n_words), reps=3
         ),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes_ms": bytes_ms,
-        "ops_ms": ops_ms,
+        **bound,
+        "path": plan.path,
         "slab_cols": plan.slab_cols,
         "node_tile": plan.node_tile,
     }

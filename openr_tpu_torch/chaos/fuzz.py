@@ -25,7 +25,12 @@ this mapping of the reference-only names:
 Where the reference swallows an injected fault (its Pallas-to-XLA
 demotion, its delta rung's full-product fallback), the port's engine
 lets it propagate, so such a fault reaches `_retry_injected` here: the
-run logs one more `fuzz:fault:fired:` step and retries.
+run logs one more `fuzz:fault:fired:` step and retries.  A fault that
+fires inside a fleet replica's query is answered on the host by the
+reference's replica; the port's replica fails the query and its router
+marks it dead and backs it off on the wall clock, so a fleet burst
+probes the replicas before each routed query, and which replica serves
+it stays a function of the timeline.
 
 The repo's five seeded chaos families (OCS rewires, delta-rung flap
 chunks, KvStore TTL storms, replica-fleet kills/partitions, armed
@@ -850,6 +855,10 @@ class _FuzzWorld:
         names = f["truth"].node_names
         for k in range(q):
             src = names[(self.fleet_seq + k) % len(names)]
+            # revive every healthy replica before routing (module doc):
+            # otherwise the router's wall-clock backoff after a served
+            # fault decides which mirrors the shared engine stages
+            f["router"].probe_replicas()
             acct["submitted"] += 1
             fut = f["router"].submit("paths", sources=(src,))
             try:

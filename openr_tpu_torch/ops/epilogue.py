@@ -18,16 +18,22 @@ saturation guard (`ops.sssp.u16_saturation_verdict`), which the
 reference applies beside its kernel: the kernel reads every distance
 anyway, so the guard costs one compare per element.
 
-`fused_epilogue` launches the hand-written CUDA kernel
+`fused_epilogue` launches the hand-written CUDA kernels
 (`csrc/fused_epilogue.cu`) for tensors on a CUDA device and runs the
 plain PyTorch version `fused_epilogue_reference` for tensors on the CPU.
-The kernel's tiling (column slabs sized to the L2 cache, node tiles with
-a halo of neighbouring rows in shared memory) is chosen by the plain
-function `epilogue_plan`, which the CPU tests reach.
+Each variant has a kernel of its own, tiled by the plain function
+`epilogue_plan`, which the CPU tests reach: int32 takes the tiled design
+(column slabs sized to the L2 cache, node tiles with a halo of
+neighbouring rows in shared memory, derived table entries); uint16 the
+packed design (two columns per 32-bit register, each block's table
+entries staged in shared memory, every gathered row read into
+registers), on its wide path for P > NARROW_P (L2-sized slabs) and on
+its narrow path otherwise (one slab, one launch).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -43,16 +49,26 @@ MAX_WORDS = 8
 # rows staged on each side of a node tile: band groups whose offset c has
 # c <= HALO or N - c <= HALO read their gather rows from shared memory
 HALO = 8
-# slab widths the kernel takes, widest first; a block covers
+# slab widths the kernels take, widest first; an int32 block covers
 # TILE_ELEMS // slab nodes of one slab
 SLAB_WIDTHS = (256, 128, 64, 32)
 TILE_ELEMS = 4096
-# the kernel's group chunk, its table entry size, and the shared memory a
-# plan aims to stay under (several blocks per SM)
+# the int32 kernel's group chunk, its table entry size, and the shared
+# memory a plan aims to stay under (several blocks per SM)
 CHUNK = 2
 ENTRY_BYTES = 16
 SMEM_BUDGET = 96 * 1024
 MIN_TILE = 16
+# the uint16 kernel: products of at most NARROW_P columns take the narrow
+# path; threads per block, columns per thread, and the shared memory of a
+# block's table entries (8 bytes per node and group) a plan stays under
+NARROW_P = 64
+THREADS = 256
+U16_COLS = 8
+U16_ENTRY_BYTES = 8
+U16_SMEM_BUDGET = 96 * 1024
+# passes of the block's threads over a wide tile (its node rows)
+U16_WIDE_PASSES = 4
 
 _BITS = np.array([1 << i for i in range(32)], dtype=np.uint32).view(np.int32)
 
@@ -103,44 +119,42 @@ def check_epilogue_groups(groups, n: int, n_words: int) -> None:
 
 
 class EpiloguePlan(NamedTuple):
-    """The kernel's tiling: column slab width, node tile, halo rows, and
-    the band offsets it serves from the halo or gathers from L2."""
+    """A kernel's tiling: column slab width, node tile, halo rows, and the
+    band offsets it serves from the halo or gathers from L2; the path
+    ("tiled" for int32, "wide" or "narrow" for uint16)."""
 
     slab_cols: int
     node_tile: int
     halo: int
     halo_bands: tuple
     far_bands: tuple
+    path: str = "tiled"
 
 
-def plan_smem_bytes(node_tile: int, slab_cols: int, halo: int, n_groups: int,
-                    elem_bytes: int = 4) -> int:
-    """Shared memory of one block: two stages (the next item's copies land
-    while this one computes), each the tile's [G, tile] table entries,
-    groups padded to a chunk, and the [tile + 2 halo, slab] window of d
-    (`elem_bytes` per element: 4 for int32, 2 for uint16)."""
+def plan_smem_bytes(node_tile: int, slab_cols: int, halo: int, n_groups: int) -> int:
+    """Shared memory of one int32 block: two stages (the next item's
+    copies land while this one computes), each the tile's [G, tile] table
+    entries, groups padded to a chunk, and the [tile + 2 halo, slab]
+    window of d."""
     gpad = -(-n_groups // CHUNK) * CHUNK
-    window = (node_tile + 2 * halo) * slab_cols * elem_bytes
+    window = (node_tile + 2 * halo) * slab_cols * 4
     return 2 * (gpad * node_tile * ENTRY_BYTES + window)
 
 
-def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
-                  n_groups: int = 0, elem_bytes: int = 4) -> EpiloguePlan:
-    """The tiling of the epilogue kernel for an [n, p] product of
-    `elem_bytes` per distance (4 for int32, 2 for uint16, whose 16-byte
-    copies carry 8 columns).
+def u16_smem_bytes(node_tile: int, n_groups: int) -> int:
+    """Shared memory of one uint16 block: the table entries of its node
+    tile, U16_ENTRY_BYTES per node and group."""
+    return n_groups * node_tile * U16_ENTRY_BYTES
 
-    The slab is the widest power of two from 32 to 256 whose column slab
-    (n x slab elements) fills at most half of `l2_bytes`, and no wider than
-    p needs; 32 when none fits.  The node tile covers TILE_ELEMS elements
-    of the slab, halved (down to MIN_TILE, then the slab too) while a
-    block with `n_groups` groups would need more than SMEM_BUDGET of
-    shared memory.  A band of offset c is served from the halo when
-    c <= HALO or n - c <= HALO."""
+
+def _slab(n: int, p: int, l2_bytes: int, elem_bytes: int) -> int:
+    """The widest slab of SLAB_WIDTHS no wider than p needs (a power of
+    two from 32) whose n x slab elements fill at most half of
+    `l2_bytes`; the narrowest when none fits."""
     need = 32
     while need < min(p, SLAB_WIDTHS[0]):
         need *= 2
-    slab = next(
+    return next(
         (
             c
             for c in SLAB_WIDTHS
@@ -149,32 +163,87 @@ def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
         SLAB_WIDTHS[-1],
     )
 
+
+def _bands(n: int, band_offsets, halo: int) -> tuple:
+    """(halo bands, far bands): a band of offset c is served from a halo
+    of `halo` rows when c <= halo or n - c <= halo."""
+    near = tuple(c for c in band_offsets if c <= halo or n - c <= halo)
+    return near, tuple(c for c in band_offsets if c not in near)
+
+
+def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
+                  n_groups: int = 0, elem_bytes: int = 4) -> EpiloguePlan:
+    """The tiling of the epilogue kernel for an [n, p] product of
+    `elem_bytes` per distance: 4 for int32 (`tiled_plan`), 2 for uint16
+    (`u16_plan`)."""
+    if elem_bytes == 2:
+        return u16_plan(n, p, band_offsets, l2_bytes, n_groups)
+    return tiled_plan(n, p, band_offsets, l2_bytes, n_groups)
+
+
+def tiled_plan(n: int, p: int, band_offsets, l2_bytes: int,
+               n_groups: int = 0) -> EpiloguePlan:
+    """The int32 kernel's tiling.  The slab is the widest power of two
+    from 32 to 256 whose column slab (n x slab int32) fills at most half
+    of `l2_bytes`, and no wider than p needs; 32 when none fits.  The node
+    tile covers TILE_ELEMS elements of the slab, halved (down to
+    MIN_TILE, then the slab too) while a block with `n_groups` groups
+    would need more than SMEM_BUDGET of shared memory."""
+    slab = _slab(n, p, l2_bytes, 4)
+
     def smem(tile, slab):
-        return plan_smem_bytes(tile, slab, HALO, n_groups, elem_bytes)
+        return plan_smem_bytes(tile, slab, HALO, n_groups)
 
     tile = TILE_ELEMS // slab
     while tile > MIN_TILE and smem(tile, slab) > SMEM_BUDGET:
         tile //= 2
     while slab > SLAB_WIDTHS[-1] and smem(tile, slab) > SMEM_BUDGET:
         slab //= 2
-    near = tuple(c for c in band_offsets if c <= HALO or n - c <= HALO)
-    far = tuple(c for c in band_offsets if c not in near)
-    return EpiloguePlan(slab, tile, HALO, near, far)
+    return EpiloguePlan(slab, tile, HALO, *_bands(n, band_offsets, HALO))
+
+
+def u16_plan(n: int, p: int, band_offsets, l2_bytes: int,
+             n_groups: int = 0) -> EpiloguePlan:
+    """The uint16 kernel's path and tiling.  Each thread owns U16_COLS
+    columns of a node row, `lanes` = slab / U16_COLS threads a row.
+
+    Narrow (p <= NARROW_P): one slab of the least power of two of lanes
+    that covers p, one pass of THREADS threads per block (THREADS // lanes
+    nodes).  Wide (p > NARROW_P): the slab of the int32 rule at 2 bytes
+    per element (for wan100k 128 columns, 25.6 MB), U16_WIDE_PASSES passes
+    per block (64 nodes at 128 columns).  Either tile is halved while the
+    block's table entries of `n_groups` groups would need more than
+    U16_SMEM_BUDGET.  No window: every gather row, bands included, comes
+    from L1 or L2."""
+    if p <= NARROW_P:
+        lanes = 1
+        while lanes * U16_COLS < p:
+            lanes *= 2
+        slab, tile, path = lanes * U16_COLS, THREADS // lanes, "narrow"
+    else:
+        slab = _slab(n, p, l2_bytes, 2)
+        tile = U16_WIDE_PASSES * THREADS * U16_COLS // slab
+        path = "wide"
+    while tile > 1 and u16_smem_bytes(tile, n_groups) > U16_SMEM_BUDGET:
+        tile //= 2
+    return EpiloguePlan(slab, tile, 0, (), tuple(band_offsets), path)
 
 
 def epilogue_traffic(idx: np.ndarray, w: np.ndarray, p: int, plan: EpiloguePlan,
                      small_dist: bool = False) -> dict:
     """What the kernel's data needs, from host copies of the [G, N]
-    tables: the active (node, group) pairs (w below the variant's WBIG,
-    each 4 integer operations per column), and the gathers whose row
-    falls outside the block's window, which the kernel reads from global
+    tables: the active (node, group) pairs (w below the variant's WBIG),
+    and the gathers whose row falls outside the block's window (every
+    gather on a plan without one), which the kernel reads from global
     memory (L2 or device memory) on top of the compulsory bytes."""
     g, n = idx.shape
     v = np.arange(n, dtype=np.int64)
     v0 = v // plan.node_tile * plan.node_tile
     r = (idx.astype(np.int64) - v0 + plan.halo) % n
     active = w < domain(small_dist)[1]
-    far = active & (r >= plan.node_tile + 2 * plan.halo)
+    far = active
+    if plan.halo:
+        far = active & (r >= plan.node_tile + 2 * plan.halo)
     return {
         "active_pairs": int(active.sum()),
         "gather_bytes": int(far.sum()) * p * (2 if small_dist else 4),
@@ -220,9 +289,13 @@ def fused_epilogue_reference(d, idx, w, ov, slot, n_words: int):
 def _library() -> ctypes.CDLL:
     lib = load("fused_epilogue")
     lib.fused_epilogue_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
     )
     lib.fused_epilogue_launch.restype = ctypes.c_int
+    lib.fused_epilogue_u16_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    )
+    lib.fused_epilogue_u16_launch.restype = ctypes.c_int
     lib.fused_epilogue_scratch_bytes.argtypes = [ctypes.c_int] * 3
     lib.fused_epilogue_scratch_bytes.restype = ctypes.c_longlong
     lib.fused_epilogue_l2_bytes.argtypes = [ctypes.c_int]
@@ -247,7 +320,7 @@ def _check_args(d, tables, n_words: int) -> None:
     the tables int32), device, shape, contiguity and n_words; the
     tables' value ranges are checked where they are built
     (check_epilogue_groups).  Any P is taken: a ragged row (P not a
-    multiple of 8) runs the kernel's scalar path, which reads no column
+    multiple of 8) runs the kernels' scalar paths, which read no column
     past P."""
     if d.dtype not in (torch.int32, torch.uint16):
         raise ValueError(f"fused_epilogue takes an int32 or uint16 d; got {d.dtype}")
@@ -277,11 +350,12 @@ def fused_epilogue(d, idx, w, ov, slot, n_words: int, plan=None):
     on).  `d` is int32 on the domain [0, INF32], or torch.uint16 on
     [0, INF16] (the uint16 variant, whose verdict holds the saturation
     guard); weights are >= 0.  Every product of the relax lies in its
-    domain.  Runs the CUDA kernel for CUDA tensors, tiled by `plan`
-    (default: `epilogue_plan` for the card's L2 and d's element size),
-    with no host sync, and the plain version for CPU tensors.  Each
-    launch counts in `launches` and in `variant_launches` under d's
-    dtype name."""
+    domain.  Runs the variant's CUDA kernel for CUDA tensors, tiled by
+    `plan` (default: `epilogue_plan` for the card's L2 and d's element
+    size; a uint16 product takes a "wide" or "narrow" plan, int32 a
+    "tiled" one), with no host sync, and the plain version for CPU
+    tensors.  Each launch counts in `launches` and in `variant_launches`
+    under d's dtype name."""
     if d.device.type == "cpu":
         return fused_epilogue_reference(d, idx, w, ov, slot, n_words)
     if d.device.type != "cuda":
@@ -291,41 +365,44 @@ def fused_epilogue(d, idx, w, ov, slot, n_words: int, plan=None):
     lib = _library()
     n, p = d.shape
     g = idx.shape[0]
+    small = d.dtype == torch.uint16
     if plan is None:
         plan = epilogue_plan(
             n, p, (), l2_bytes(d.device.index), g, d.element_size()
         )
+    if (plan.path != "tiled") != small:
+        raise ValueError(f"a {plan.path} plan does not tile a {d.dtype} product")
     bitmap = torch.empty((n, p, n_words), dtype=torch.int32, device=d.device)
     verdict = torch.ones(1, dtype=torch.int32, device=d.device)
-    # the derived table entries of every node tile, written by the launch
-    scratch = torch.empty(
-        lib.fused_epilogue_scratch_bytes(n, g, plan.node_tile) // 4,
-        dtype=torch.int32,
-        device=d.device,
-    )
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fused_epilogue_launch(
-            *(t.data_ptr() for t in (d, *tables)),
-            n,
-            p,
-            g,
-            n_words,
-            plan.slab_cols,
-            plan.node_tile,
-            plan.halo,
-            d.element_size(),
-            bitmap.data_ptr(),
-            verdict.data_ptr(),
-            scratch.data_ptr(),
-            stream,
-        )
+    pointers = [t.data_ptr() for t in (d, *tables)]
+    # the launch goes to the current device: switch only when d lies elsewhere
+    current = d.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        if small:
+            rc = lib.fused_epilogue_u16_launch(
+                *pointers, n, p, g, n_words, plan.slab_cols, plan.node_tile,
+                bitmap.data_ptr(), verdict.data_ptr(), stream,
+            )
+        else:
+            # the derived table entries of every node tile, written by the launch
+            scratch = torch.empty(
+                lib.fused_epilogue_scratch_bytes(n, g, plan.node_tile) // 4,
+                dtype=torch.int32,
+                device=d.device,
+            )
+            rc = lib.fused_epilogue_launch(
+                *pointers, n, p, g, n_words, plan.slab_cols, plan.node_tile,
+                plan.halo, bitmap.data_ptr(), verdict.data_ptr(),
+                scratch.data_ptr(), stream,
+            )
     if rc != 0:
         msg = lib.fused_epilogue_error_string(rc).decode()
         raise RuntimeError(f"fused_epilogue kernel launch failed: {msg}")
     fused_epilogue.launches += 1
     fused_epilogue.variant_launches[variant_name(d.dtype)] += 1
-    return bitmap, verdict[0] != 0
+    # the verdict's low byte as a 0-d bool view: no kernel to compare it
+    return bitmap, verdict.view(torch.bool)[0]
 
 
 def variant_name(dtype: torch.dtype) -> str:

@@ -24,6 +24,7 @@ from openr_tpu.decision.link_state import LinkState as JLinkState
 from openr_tpu.decision.fleet import _row_i32
 from openr_tpu.ops import allsources as jasrc
 from openr_tpu.ops import pallas_kernels as pk
+from openr_tpu.ops import sssp as jsssp
 from openr_tpu.ops.banded import _RelaxOps as JRelaxOps
 from openr_tpu_torch.decision.fleet import FleetViewCache, _reverse_runner
 from openr_tpu_torch.decision.spf_solver import SpfSolver
@@ -257,14 +258,43 @@ def test_wrapper_refuses_non_cuda_accelerator_tensors():
         ep.fused_epilogue(d, t, t, t, t, 1)
 
 
+# the hub's product in both variants, and random uint16 tables at the P the
+# kernel's paths split on (as RANDOM_CASES), each converged, with one
+# tight entry lowered and with saturated entries
+CARD_CASES = [
+    pytest.param(small, None, 0, id="uint16" if small else "int32")
+    for small in (True, False)
+] + [
+    pytest.param(True, p, n_words, id=f"uint16-p{p}-w{n_words}")
+    for p in (1, 3, 4, 8, 33, 64, 65, 256)
+    for n_words in (1, 2)
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("small", [True, False], ids=["uint16", "int32"])
-def test_kernel_matches_reference_on_card(small):
+@pytest.mark.parametrize("small, p, n_words", CARD_CASES)
+def test_kernel_matches_reference_on_card(small, p, n_words):
     """The CUDA kernel against the plain version on the card, bit for
     bit, in both variants (runs with `-m cuda` on a machine with an sm_90
     card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    if p is not None:
+        n = 1031
+        d, idx, w, ov, slot = _random_tables(
+            n, p, n_words, 4, (1, 2, 8, 9, 515, n - 1, n - 9), seed=p, small=True
+        )
+        d = _relaxed(d, idx, w, ov, small=True)
+        products = [d, break_fixed_point(d, idx, w, ov, INF16, WBIG16), _saturated(d, p)]
+        groups = tuple(torch.from_numpy(a).cuda() for a in (idx, w, ov, slot))
+        for k, dd in enumerate(products):
+            dist = torch.from_numpy(dd.astype(np.uint16)).cuda()
+            want = ep.fused_epilogue_reference(dist, *groups, n_words)
+            got = ep.fused_epilogue(dist, *groups, n_words)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            assert bool(got[1]) == bool(want[1]) == (k == 0)
+        return
     csr, _ = mirrors(FAMILIES["hub_w2"]())
     runner = _reverse_runner(csr)
     runner.small_allowed = small
@@ -328,11 +358,87 @@ def test_epilogue_plan(n, p, offsets, l2, groups, slab, tile, near):
     assert smem <= ep.SMEM_BUDGET
 
 
-def _random_tables(n, p, n_words, n_resid, offsets, seed):
+# every uint16 launch of the smoke: (N, P, G) -> (path, slab, tile) under
+# a 50 MiB L2
+SMOKE_U16_SHAPES = [
+    # wan100k: main path, the KvStore flood slab, a mesh shard
+    ((100_000, 1024, 8), ("wide", 128, 64)),
+    ((100_000, 512, 8), ("wide", 128, 64)),
+    ((100_000, 256, 8), ("wide", 128, 64)),
+    # the OCS view, the delta slabs, the exact evaluation
+    ((100_000, 64, 6), ("narrow", 64, 32)),
+    ((100_000, 32, 8), ("narrow", 32, 64)),
+    ((100_000, 8, 8), ("narrow", 8, 256)),
+    ((100_000, 4, 8), ("narrow", 8, 256)),
+    # the small banded graphs, the saturating ring's first run, the hub
+    ((65, 4, 4), ("narrow", 8, 256)),
+    ((256, 7, 8), ("narrow", 8, 256)),
+    ((65, 3, 4), ("narrow", 8, 256)),
+    ((64, 5, 40), ("narrow", 8, 256)),
+    # random tables: ragged wide products, both sides of NARROW_P
+    ((4099, 1001, 13), ("wide", 256, 32)),
+    ((4099, 1020, 13), ("wide", 256, 32)),
+    ((1031, 65, 13), ("wide", 128, 64)),
+    ((777, 64, 13), ("narrow", 64, 32)),
+    ((4099, 37, 13), ("narrow", 64, 32)),
+    ((4099, 1, 13), ("narrow", 8, 256)),
+    # 100 groups: the tile halves to the shared-memory budget
+    ((1000, 4, 100), ("narrow", 8, 64)),
+]
+
+
+@pytest.mark.parametrize("shape, want", SMOKE_U16_SHAPES)
+def test_u16_plan_paths(shape, want):
+    """The uint16 plan's path and tiling at every shape the smoke
+    launches: narrow up to NARROW_P columns (one slab covering P), wide
+    past it (L2-sized slabs), a power-of-two tile of whole passes whose
+    table entries fit the shared-memory budget."""
+    n, p, g = shape
+    plan = ep.epilogue_plan(n, p, (1, 2, n - 1, n - 2), 50 * MIB, g, elem_bytes=2)
+    assert (plan.path, plan.slab_cols, plan.node_tile) == want
+    assert plan.halo == 0 and plan.halo_bands == ()
+    lanes = plan.slab_cols // ep.U16_COLS
+    assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+    assert plan.node_tile & (plan.node_tile - 1) == 0
+    if plan.path == "narrow":
+        assert p <= ep.NARROW_P and plan.slab_cols >= p
+        assert plan.slab_cols < 2 * max(p, ep.U16_COLS)
+    else:
+        assert p > ep.NARROW_P
+        assert n * plan.slab_cols * 2 <= 50 * MIB // 2 or plan.slab_cols == 32
+    assert ep.u16_smem_bytes(plan.node_tile, g) <= ep.U16_SMEM_BUDGET
+    # a block is whole passes of its threads unless the budget cut it
+    if g * ep.THREADS // lanes * ep.U16_ENTRY_BYTES <= ep.U16_SMEM_BUDGET:
+        assert plan.node_tile * lanes % ep.THREADS == 0
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_uint16_candidates_are_carry_free(name):
+    """The packed kernel adds two columns in one 32-bit word: INF16 plus
+    the largest weight a slot relaxes with (WBIG16 - 1) stays below 2^16,
+    and the tables a uint16 relax binding builds hold weights in
+    [0, WBIG16], an empty slot exactly at WBIG16."""
+    assert INF16 + WBIG16 - 1 < 1 << 16
+    csr, _ = mirrors(FAMILIES[name]())
+    runner = _reverse_runner(csr)
+    out = asrc.build_out_ell(
+        csr.edge_src, csr.edge_dst, csr.n_edges, csr.n_nodes, csr.out_slot
+    )
+    maps = asrc.build_epilogue_maps(runner.bg, out)
+    _, w, _, _ = _port_groups(runner, maps, out.n_words, small=True)
+    w = w.numpy()
+    active = w < WBIG16
+    assert active.any() and (w >= 0).all() and (w <= WBIG16).all()
+    assert int(w[active].max()) + INF16 < 1 << 16
+
+
+def _random_tables(n, p, n_words, n_resid, offsets, seed, small=False):
     """Random [G, N] group tables (bands at `offsets`, `n_resid` random
     rows; empty slots, weight 0, overloaded rows, slot -1) and a random
-    product in [0, INF32] with INF entries, zeros and INF columns (which
-    stay INF at the fixed point), numpy int32."""
+    product in [0, INF] with INF entries, zeros and INF columns (which
+    stay INF at the fixed point), numpy int32, in the int32 domain or,
+    with `small`, the uint16 one (INF16, empty slots at WBIG16)."""
+    inf, wbig = (INF16, WBIG16) if small else (INF32, WBIG)
     rng = np.random.default_rng(seed)
     v = np.arange(n)
     rows = [(v - c) % n for c in offsets]
@@ -340,28 +446,29 @@ def _random_tables(n, p, n_words, n_resid, offsets, seed):
     g = len(rows)
     idx = np.asarray(rows).reshape(g, n)
     w = rng.integers(0, 20, (g, n))
-    w[rng.random((g, n)) < 0.15] = WBIG
+    w[rng.random((g, n)) < 0.15] = wbig
     ov = (rng.random((g, n)) < 0.15).astype(np.int64)
     slot = rng.integers(0, 32 * n_words, (g, n))
     slot[rng.random((g, n)) < 0.1] = -1
     d = rng.integers(0, 1 << 12, (n, p))
-    d[rng.random((n, p)) < 0.1] = INF32
+    d[rng.random((n, p)) < 0.1] = inf
     d[rng.random((n, p)) < 0.05] = 0
-    d[:, rng.choice(p, max(1, p // 10), replace=False)] = INF32
+    d[:, rng.choice(p, p // 10, replace=False)] = inf
     return tuple(a.astype(np.int32) for a in (d, idx, w, ov, slot))
 
 
-def _relaxed(d, idx, w, ov):
+def _relaxed(d, idx, w, ov, small=False):
     """`d` relaxed to its fixed point under the epilogue's own candidate
-    rule (plain numpy)."""
+    rule (plain numpy) in the int32 or the uint16 (`small`) domain."""
+    inf, wbig = (INF16, WBIG16) if small else (INF32, WBIG)
     d = d.copy()
     while True:
         vmin = d
         for g in range(idx.shape[0]):
             du = d[idx[g]]
             wg = w[g][:, None]
-            allow = (wg < WBIG) & ((ov[g] == 0)[:, None] | (du == 0)) & (du < INF32)
-            vmin = np.minimum(vmin, np.where(allow, du + wg, INF32))
+            allow = (wg < wbig) & ((ov[g] == 0)[:, None] | (du == 0)) & (du < inf)
+            vmin = np.minimum(vmin, np.where(allow, du + wg, inf))
         if np.array_equal(vmin, d):
             return d
         d = vmin
@@ -369,9 +476,13 @@ def _relaxed(d, idx, w, ov):
 
 def _pallas_random(d, idx, w, ov, slot, n_words):
     """The reference Pallas kernel (interpret mode) over numpy tables,
-    padded as openr_tpu.ops.pallas_kernels.fused_epilogue pads them."""
+    padded as openr_tpu.ops.pallas_kernels.fused_epilogue pads them, in
+    the distance domain of d's dtype; a uint16 verdict also holds the
+    reference's saturation guard, which it applies beside the kernel."""
     n, p = d.shape
     g = idx.shape[0]
+    small = d.dtype == np.uint16
+    inf = INF16 if small else INF32
     gp, np_pad, pp = -(-g // 8) * 8, -(-n // 128) * 128, -(-p // 128) * 128
 
     def pad(a, fill):
@@ -379,11 +490,11 @@ def _pallas_random(d, idx, w, ov, slot, n_words):
             a, ((0, gp - g), (0, np_pad - n)), constant_values=fill
         )
 
-    dpad = np.pad(d, ((0, np_pad - n), (0, pp - p)), constant_values=INF32)
+    dpad = np.pad(d, ((0, np_pad - n), (0, pp - p)), constant_values=inf)
     bitmap, vmin = pk.fused_epilogue_pallas(
         jnp.asarray(dpad),
         jnp.asarray(pad(idx, 0)),
-        jnp.asarray(pad(w, WBIG)),
+        jnp.asarray(pad(w, WBIG16 if small else WBIG)),
         jnp.asarray(pad(ov, 0)),
         jnp.asarray(pad(slot, -1)),
         n_groups=g,
@@ -391,30 +502,73 @@ def _pallas_random(d, idx, w, ov, slot, n_words):
         interpret=True,
     )
     bitmap = np.asarray(bitmap)[:, :n, :p].transpose(1, 2, 0)
-    return bitmap, bool(np.all(np.asarray(vmin) == dpad))
+    ok = bool(np.all(np.asarray(vmin) == dpad))
+    if small:
+        ok = bool(jsssp.u16_saturation_verdict(jnp.asarray(d), jnp.bool_(ok)))
+    return bitmap, ok
 
 
-@pytest.mark.parametrize("n_words", [1, 3])
-@pytest.mark.parametrize("state", ["converged", "random"])
-def test_random_tables_match_pallas_interpret(n_words, state):
-    """Random tables whose edges the CUDA kernel's tiling meets (bands
+def _saturated(d, seed):
+    """A copy of the uint16-domain product `d` with about 5% of its finite
+    entries moved into [WBIG16, INF16): the saturation guard must fail."""
+    rng = np.random.default_rng(seed)
+    out = d.copy()
+    hot = (d < INF16) & (rng.random(d.shape) < 0.05)
+    hot.flat[np.flatnonzero(d < INF16)[0]] = True
+    out[hot] = rng.integers(WBIG16, INF16, int(hot.sum()))
+    return out
+
+
+# (n_words, state) of the int32 variant at P = 37, and (P, n_words) of the
+# uint16 variant at the P its kernel's paths split on: the narrow path's
+# 1, 3 (ragged), 4, 8, 33 and its limit 64, the wide path's 65 (ragged)
+# and 256
+RANDOM_CASES = [
+    pytest.param(False, 37, n_words, state, id=f"{state}-{n_words}")
+    for state in ("converged", "random")
+    for n_words in (1, 3)
+] + [
+    pytest.param(True, p, n_words, "uint16", id=f"uint16-p{p}-w{n_words}")
+    for p in (1, 3, 4, 8, 33, 64, 65, 256)
+    for n_words in (1, 2)
+]
+
+
+@pytest.mark.parametrize("small, p, n_words, state", RANDOM_CASES)
+def test_random_tables_match_pallas_interpret(small, p, n_words, state):
+    """Random tables whose edges the CUDA kernels' tilings meet (bands
     inside and outside the halo, both wraps, empty slots, weight 0,
     overloaded rows meeting d = 0, slot -1, INF entries): the plain
-    version equals the reference kernel bit for bit, verdict included."""
+    version equals the reference kernel bit for bit, verdict included.
+    The uint16 cases hold the converged product, the same product with
+    one tight entry lowered (a broken fixed point) and with entries in
+    [WBIG16, INF16) (saturated)."""
     n = 150
     d, idx, w, ov, slot = _random_tables(
-        n, 37, n_words, 4, (1, 2, 8, 9, 75, n - 1, n - 9), seed=n_words
+        n, p, n_words, 4, (1, 2, 8, 9, 75, n - 1, n - 9), seed=n_words + p,
+        small=small,
     )
-    if state == "converged":
-        d = _relaxed(d, idx, w, ov)
-    assert (d == INF32).any() and (d == 0).any()
-    want_bitmap, want_ok = _pallas_random(d, idx, w, ov, slot, n_words)
-    bitmap, ok = ep.fused_epilogue_reference(
-        *(torch.from_numpy(a) for a in (d, idx, w, ov, slot)), n_words
-    )
-    assert bool(ok) == want_ok == (state == "converged")
-    assert np.array_equal(bitmap.numpy().view(np.uint32), want_bitmap)
-    assert want_bitmap.any()
+    if state != "random":
+        d = _relaxed(d, idx, w, ov, small)
+    inf = INF16 if small else INF32
+    # a product of fewer than 10 columns has no INF column
+    assert (d == 0).any() and ((d == inf).any() or p < 10)
+    products = {state: d}
+    if small:
+        products = {
+            "converged": d,
+            "broken": break_fixed_point(d, idx, w, ov, INF16, WBIG16),
+            "saturated": _saturated(d, seed=p),
+        }
+    for what, dd in products.items():
+        dd = dd.astype(np.uint16 if small else np.int32)
+        want_bitmap, want_ok = _pallas_random(dd, idx, w, ov, slot, n_words)
+        bitmap, ok = ep.fused_epilogue_reference(
+            *(torch.from_numpy(a) for a in (dd, idx, w, ov, slot)), n_words
+        )
+        assert bool(ok) == want_ok == (what == "converged"), what
+        assert np.array_equal(bitmap.numpy().view(np.uint32), want_bitmap), what
+        assert want_bitmap.any()
 
 
 def test_epilogue_traffic_counts_gathers_outside_the_window():

@@ -181,6 +181,58 @@ def test_smoke_oracles_coverage_and_same_seed_replay():
         assert a.counters == b.counters
 
 
+# a session's run whose armed `spf` fault fires inside a replica's query
+# during the fleet burst: the router marks that replica dead and backs it
+# off, and whether the burst's later queries reach it decided, by the wall
+# clock, whether its mirror was staged on the shared engine
+SERVED_FAULT_TIMELINE = {
+    "seed": 443996183,
+    "version": 2,
+    "events": [
+        {"family": "kv", "kind": "heal", "params": {}},
+        {"family": "ocs", "kind": "swap", "params": {"fresh": [3, 11], "victim": [1, 9]}},
+        {"family": "flap", "kind": "chunk", "params": {}},
+        {"family": "snapshot", "kind": "restore", "params": {}},
+        {"family": "engine", "kind": "arm", "params": {"op": "spf"}},
+        {"family": "flap", "kind": "chunk", "params": {}},
+        {"family": "fleet", "kind": "burst", "params": {"q": 3}},
+        {"family": "fleet", "kind": "flap", "params": {"node": 1}},
+        {"family": "engine", "kind": "pallas_mode", "params": {"mode": "interpret"}},
+        {"family": "kv", "kind": "partition", "params": {}},
+        {"family": "ocs", "kind": "swap", "params": {"fresh": [0, 4], "victim": [10, 2]}},
+        {"family": "flap", "kind": "chunk", "params": {}},
+        {"family": "engine", "kind": "spf", "params": {"off": 14}},
+    ],
+}
+
+
+def test_served_fault_replay_does_not_depend_on_the_wall_clock(monkeypatch):
+    """Same timeline, two extremes of host speed: every router backoff
+    window still open at the next query (a fast host) and every one
+    already expired (a loaded one).  The log, the counters and the
+    fingerprint are the same: the world revives a healthy replica after
+    each routed query instead of leaving it to the backoff's clock."""
+    from openr_tpu_torch.utils.backoff import ExponentialBackoff
+
+    t = fz.FuzzTimeline.from_json(SERVED_FAULT_TIMELINE)
+    runs = []
+    for expired in (False, True):
+        with monkeypatch.context() as m:
+            m.setattr(
+                ExponentialBackoff, "get_time_remaining_until_retry",
+                lambda self, expired=expired: (
+                    0.0 if expired or self._current == 0.0 else float("inf")
+                ),
+            )
+            runs.append(fz.run_timeline(t, device=CPU))
+    fast, loaded = runs
+    assert fast.ok and loaded.ok, (fast.failures, loaded.failures)
+    assert fast.faults_fired == loaded.faults_fired >= 1
+    assert fast.log.matches(loaded.log)
+    assert fast.counters == loaded.counters
+    assert fast.fingerprint == loaded.fingerprint
+
+
 def test_corpus_json_round_trips():
     t = fz.seed_timeline(9)
     assert fz.FuzzTimeline.loads(t.dumps()).to_json() == t.to_json()

@@ -548,16 +548,17 @@ def test_u16_helpers_equal_reference():
 
 
 def test_epilogue_plan_and_traffic_of_uint16():
-    """A uint16 product: 16-byte copies carry 8 columns, so at wan100k's
-    shape the slab that fills half a 50 MiB L2 doubles to 128 columns,
-    the tile halves, and the far gathers move half the bytes."""
+    """A uint16 product: at wan100k's shape the slab that fills half a
+    50 MiB L2 doubles to 128 columns (the packed kernel's wide path), a
+    block takes 64 nodes, whose table entries fit its shared memory, and
+    the far gathers move half the bytes."""
     mib = 1 << 20
     bands = (1, 2, 99_998, 99_999)
     p32 = ep.epilogue_plan(100_000, 1024, bands, 50 * mib, 8)
     p16 = ep.epilogue_plan(100_000, 1024, bands, 50 * mib, 8, elem_bytes=2)
     assert (p32.slab_cols, p32.node_tile) == (64, 64)
-    assert (p16.slab_cols, p16.node_tile) == (128, 32)
-    assert ep.plan_smem_bytes(32, 128, ep.HALO, 8, 2) <= ep.SMEM_BUDGET
+    assert (p16.path, p16.slab_cols, p16.node_tile) == ("wide", 128, 64)
+    assert ep.u16_smem_bytes(p16.node_tile, 8) <= ep.U16_SMEM_BUDGET
     n = 1000
     v = np.arange(n)
     idx = np.stack([(v + 500) % n, (v + 500) % n])
