@@ -1619,11 +1619,17 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
     as an improvement, the route build of `checked`, and the routes of
     the first of them against the host Dijkstra.  A worsening change
     whose affected set is not certified
-    cold-starts by design; its record says so (`cold_fallback`)."""
+    cold-starts by design; its record says so (`cold_fallback`).  Both
+    views run under the engine's sanitizer (`EngineSanitizer.sanitized`:
+    every upload staged, every device read at a declared fetch point, no
+    new ladder key); per view the record keeps the fetch points passed,
+    the aten ops the guard saw and the guarded wall, beside the wall of
+    the same cold view built again unguarded."""
     import dataclasses
 
     import torch
 
+    from openr_tpu_torch.device import EngineSanitizer
     from openr_tpu_torch.decision.fleet import (
         AFFECTED_MAX_ITERS,
         FleetViewCache,
@@ -1651,12 +1657,15 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
         ("node_drained", dataclasses.replace(db_y, is_overloaded=True)),
     )
 
-    def counted(fn):
+    san = EngineSanitizer(solver.engine)
+
+    def counted(fn, guarded=True):
         zero_launch_counts()
         t0 = time.perf_counter()
-        view = fn()
-        if timer.cuda:
-            torch.cuda.synchronize()
+        with san.sanitized() if guarded else contextlib.nullcontext():
+            view = fn()
+            if timer.cuda:
+                torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if launch_counts()[KERNEL_U16["name"]] != ep.fused_epilogue.launches:
             raise AssertionError(f"a warm-rebuild view left the uint16 mode: {launch_counts()}")
@@ -1678,11 +1687,23 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
         warm, warm_ms, k1_warm = counted(
             lambda: solver.fleet.view(ls, dests, csr=csr, engine=solver.engine)
         )
+        guard = {"warm": dict(san.last, view_ms=warm_ms)}
         cold, cold_ms, k1_cold = counted(
             lambda: FleetViewCache().view(
                 ls, dests, csr=csr, engine=solver.engine
             )
         )
+        guard["cold"] = dict(san.last, view_ms=cold_ms)
+        # the same cold view unguarded: the guard's cost on this view
+        twin, guard["cold_unguarded_ms"], _ = counted(
+            lambda: FleetViewCache().view(
+                ls, dests, csr=csr, engine=solver.engine
+            ),
+            guarded=False,
+        )
+        if not same(twin._dist_dev, cold._dist_dev):
+            raise AssertionError(f"{name}: the unguarded cold view differs")
+        del twin
         if k1_warm != 1 or k1_cold != 1 or warm.node_sharded:
             raise AssertionError(
                 f"{name}: K1 launched {k1_warm} / {k1_cold} times"
@@ -1720,6 +1741,7 @@ def warm_rebuild(inp, solver, checked, timer) -> dict:
             "rewire_seq": csr.rewire_seq,
             "warm_view_ms": warm_ms,
             "cold_view_ms": cold_ms,
+            "sanitizer": guard,
             "route_build_checked_s": routes_s,
             "oracle_checked_routers": checked[:1],
             "oracle_check_s": oracle_s,
@@ -2279,6 +2301,88 @@ def chord_swap_dbs(ls, csr, a: str):
     return new, (b, c)
 
 
+def sanitizer_seeded(device) -> dict:
+    """The runtime sanitizer on the device, each seeded violation caught
+    and nothing let through: a 16-node grid's engine warmed on the 1- and
+    8-source buckets with an attribute flap pending, then (a) the
+    engine's staging bypassed (`_put` hands the host array to
+    `Tensor.to` itself): the query's upload must raise
+    SanitizerViolation; (b) an `.item()` on a resident outside a fetch
+    point must raise; (c) the same query with the staging restored runs
+    clean under `sanitized()` and equals the host Dijkstra's.  Which of
+    `.item()`, `bool()`, `.tolist()` and `.cpu()` of a device tensor the
+    guard sees on this device is recorded (`d2h_probes`)."""
+    import torch
+
+    import openr_tpu_torch.device.engine as engine_mod
+    from openr_tpu_torch.decision.csr import CsrTopology
+    from openr_tpu_torch.decision.link_state import LinkState
+    from openr_tpu_torch.device import EngineSanitizer, SanitizerViolation
+    from openr_tpu_torch.utils import topo
+
+    t_phase = time.perf_counter()
+    dbs = topo.grid_topology(4)
+    ls = LinkState()
+    for db in dbs:
+        ls.update_adjacency_database(db)
+    csr = CsrTopology.from_link_state(ls)
+    engine = engine_mod.DeviceResidencyEngine(device)
+    names = ls.node_names
+    engine.spf_results(csr, names[:1])
+    engine.spf_results(csr, names[:3])
+    dbs[0].adjacencies[0].metric = 37
+    ls.update_adjacency_database(dbs[0])
+    if csr.refresh(ls) is not True:
+        raise AssertionError("the seeded flap must stay in place")
+    san = EngineSanitizer(engine)
+
+    def caught(fn) -> str:
+        """The violation `fn` raises under the guard; none fails the run."""
+        try:
+            with san.transfer_guard():
+                fn()
+        except SanitizerViolation as e:
+            return str(e)[:160]
+        raise AssertionError("a seeded violation passed the sanitizer")
+
+    put = engine_mod._put
+    engine_mod._put = lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    try:
+        h2d = caught(lambda: engine.spf_results(csr, names[:1]))
+    finally:
+        engine_mod._put = put
+    res = engine.sync(csr)
+    d2h = caught(lambda: res.edge_metric.max().item())
+    probes = {}
+    for name, fn in (
+        ("item", lambda: res.edge_metric.max().item()),
+        ("bool", lambda: bool(res.edge_metric.max() > 0)),
+        ("tolist", lambda: res.edge_metric[:4].tolist()),
+        ("cpu", lambda: res.edge_metric[:4].cpu()),
+    ):
+        try:
+            with san.transfer_guard():
+                fn()
+            probes[name] = "not seen"
+        except SanitizerViolation:
+            probes[name] = "caught"
+    with san.sanitized():
+        got = engine.spf_results(csr, names[:3])
+    for src in names[:3]:
+        want = {k: v.metric for k, v in ls.run_spf(src).items()}
+        if {k: v.metric for k, v in got[src].items()} != want:
+            raise AssertionError(f"sanitized query of {src} differs from Dijkstra")
+    return {
+        "phase": "sanitizer_seeded",
+        "device": str(engine.device),
+        "h2d_bypass": h2d,
+        "d2h_item": d2h,
+        "d2h_probes": probes,
+        "clean_query": {**san.last, "equal_to_dijkstra": True},
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
 def default_solver(router: str, device):
     """`SpfSolver(router)`, the entry point Decision calls: its default
     DeviceSpfBackend on the CUDA card.  A CPU rehearsal names its device."""
@@ -2298,11 +2402,18 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
     main path's routers on the same refreshed mirror, held against a cold
     view on a fresh mirror; (f) the single-source query against the host
     Dijkstra.  Every route DB equals the host backend's.  The per-sweep
-    times are taken at S = 1 and S = `n_sweep`."""
+    times are taken at S = 1 and S = `n_sweep`.  The warm queries of (b),
+    (c) and (d) run under the engine's sanitizer (`sanitized`): every
+    upload staged, every device read at a declared fetch point; the
+    undrain, whose graph is the cold one, may run no ladder key it has
+    not run before, a drain or a swap one (a doubled sweep hint), the
+    prefetch two (its first 8-source key, and one doubling).  Each record
+    keeps the fetch points, aten ops and new keys of its block."""
     import dataclasses
 
     import torch
 
+    from openr_tpu_torch.device import EngineSanitizer
     from openr_tpu_torch.decision import csr as csr_module
     from openr_tpu_torch.decision.fleet import FleetViewCache, fleet_destinations
     from openr_tpu_torch.decision.spf_solver import HostSpfBackend, SpfSolver
@@ -2323,14 +2434,38 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
             torch.cuda.synchronize()
         return time.perf_counter()
 
-    def build(what):
+    san = EngineSanitizer(engine)
+
+    @contextlib.contextmanager
+    def sanitized(allowed):
+        """The block under the sanitizer; its record: fetch points, aten
+        ops, the ladder keys it ran first."""
+        keys0 = len(engine.cached_program_keys())
+        rec = {"allowed_new_keys": allowed}
+        try:
+            with san.sanitized(allowed):
+                yield rec
+        finally:
+            rec.update(
+                san.last,
+                new_ladder_keys=len(engine.cached_program_keys()) - keys0,
+            )
+
+    def build(what, allowed=None):
         """One per-source build and the host backend's, held equal.  The
-        engine's query time excludes the decode (`last_query_us`)."""
+        engine's query time excludes the decode (`last_query_us`).  With
+        `allowed`, the device build runs under the sanitizer."""
         c0 = engine.get_counters()
         decode.take()
         gc_clock.take()
+        guard = None
         t0 = synced()
-        got = solver.build_route_db(area, ps)
+        if allowed is None:
+            got = solver.build_route_db(area, ps)
+        else:
+            with sanitized(allowed) as guard:
+                got = solver.build_route_db(area, ps)
+                synced()
         t_dev = synced() - t0
         gc_dev = gc_clock.take()
         t0 = time.perf_counter()
@@ -2344,6 +2479,7 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
         # the builds' results live on: frozen (`run` unfreezes them)
         gc.freeze()
         return got, {
+            **({"sanitizer": guard} if guard is not None else {}),
             "build_s": t_dev,
             "spf_results_ms": query_ms,
             "to_spf_results_ms": decode_ms,
@@ -2388,16 +2524,16 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
         )
         db_t = ls.get_adjacency_databases()[transit]
         flaps = {}
-        for name, db in (
-            ("drain", dataclasses.replace(db_t, is_overloaded=True)),
-            ("undrain", db_t),
+        for name, db, allowed in (
+            ("drain", dataclasses.replace(db_t, is_overloaded=True), 1),
+            ("undrain", db_t, 0),
         ):
             before = counter("incremental_updates")
             ls.update_adjacency_database(db)
             t0 = time.perf_counter()
             kept = csr.refresh(ls)
             refresh_ms = (time.perf_counter() - t0) * 1e3
-            _, step = build(name)
+            _, step = build(name, allowed)
             if not kept or counter("incremental_updates") != before + 1 or counter(
                 "full_restages"
             ) != 1:
@@ -2412,7 +2548,7 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
         t0 = time.perf_counter()
         kept = csr.refresh(ls)
         refresh_ms = (time.perf_counter() - t0) * 1e3
-        db_swap, swap = build("chord swap")
+        db_swap, swap = build("chord swap", 1)
         if (
             not kept
             or counter("rewires") != rewires0 + 1
@@ -2434,7 +2570,9 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
         decode.take()
         gc_clock.take()
         t0 = synced()
-        backend.prefetch(ls, sources)
+        with sanitized(2) as prefetch_guard:
+            backend.prefetch(ls, sources)
+            synced()
         prefetch_s = synced() - t0
         prefetch_gc_ms = gc_clock.take()
         if counter("queries") != q0 + 1 or _s_bucket(len(missing)) != _s_bucket(
@@ -2449,6 +2587,7 @@ def spf_main_path(device, inp, timer, n_prefetch=8, n_checked=4,
                 if spf_view(backend.get_spf_result(ls, src)) != spf_view(ls.get_spf_result(src)):
                     raise AssertionError(f"prefetch: SPF of {src} differs from Dijkstra")
         prefetch = {
+            "sanitizer": prefetch_guard,
             "sources": len(sources),
             "queried": len(missing),
             "bucket": _s_bucket(len(missing)),
@@ -8137,6 +8276,8 @@ def run(device, n_nodes=N_NODES, n_advertisers=N_ADVERTISERS,
     record = spf_main_path(device, inp, timer)
     record["undrained_first"] = restored
     emit(record)
+    # the runtime sanitizer's seeded violations on the device
+    emit(sanitizer_seeded(device))
     # TE and serving on that LinkState and the main path's first
     # solver's DeviceSpfBackend (mirror and engine); K1 on each path's
     # first exact evaluation goes into its records as "te_exact"

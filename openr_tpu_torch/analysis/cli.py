@@ -1,25 +1,32 @@
 """Command line front end: ``python -m openr_tpu_torch.analysis [paths...]``.
 
-Port of `openr_tpu.analysis.cli`, less its ``--programs`` and
-``--write-budgets`` flags (the jaxpr audit has no counterpart).  Exit
-codes gate CI precisely:
+Port of `openr_tpu.analysis.cli`.  Exit codes gate CI precisely:
 
 - ``0`` — clean tree (no unsuppressed findings)
 - ``1`` — findings: the tree is dirty, the analyzer worked
-- ``2`` — the ANALYZER is broken or misused: bad paths, an unreadable
-  config file, git unavailable for ``--changed-only``.  CI must treat 2
-  as infra failure, not as "findings".
+- ``2`` — the ANALYZER is broken or misused: bad paths, unreadable
+  config or budget files, a program-auditor driver that failed, git
+  unavailable for ``--changed-only``.  CI must treat 2 as infra failure,
+  not as "findings" — a broken analyzer silently passing as rc=1 would
+  hide the difference between "bugs found" and "nothing was checked".
 
-``--changed-only`` restricts *reported* findings to files touched in the
-working tree (staged, unstaged or untracked, per ``git status``).
-Analysis still runs over the full target set — counter cross-referencing
-and the suppression audit are whole-tree properties, and scoping the
-*analysis* would fabricate false positives (a counter seeded in a
-changed file but bumped in an unchanged one).  The lock-discipline
-families (``lock-order``, ``guarded-by``, ``thread-shutdown-order``)
-always survive the filter: a cycle through the whole-tree lock graph or
-a shutdown-order hole can anchor to an unchanged file that an edit
-elsewhere just made reachable.
+``--programs`` adds the program-level rule family (imports torch, runs
+every device root under a recording dispatch mode on the CPU; see
+analysis/programs.py) on top of the AST rules.  ``--write-budgets``
+regenerates the op-count budget file instead of reporting program-budget
+findings.
+
+``--changed-only`` restricts *reported* AST findings to files touched in
+the working tree (staged, unstaged or untracked, per ``git status``).
+Analysis still runs over the full target set — the dispatch fixpoint,
+counter cross-referencing and the suppression audit are whole-tree
+properties, and scoping the *analysis* would fabricate false positives
+(a counter seeded in a changed file but bumped in an unchanged one).
+Program rules are whole-program by construction, so their findings
+always survive the filter; so do the lock-discipline families
+(``lock-order``, ``guarded-by``, ``thread-shutdown-order``) — a cycle
+through the whole-tree lock graph or a shutdown-order hole can anchor to
+an unchanged file that an edit elsewhere just made reachable.
 
 ``--races <pytest expr...>`` runs pytest over the given expressions in a
 subprocess with the port's OPENR_TSAN detector (analysis/race.py) armed
@@ -115,8 +122,9 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m openr_tpu_torch.analysis",
         description=(
-            "openr_tpu_torch static invariant checker: thread "
-            "discipline and counter hygiene"
+            "openr_tpu_torch static invariant checker: dispatch "
+            "hygiene, thread discipline, counter hygiene, and (with "
+            "--programs) op-level program contracts"
         ),
     )
     parser.add_argument(
@@ -137,11 +145,29 @@ def main(argv: list[str] | None = None) -> int:
         "--list-rules", action="store_true", help="list rule ids and exit"
     )
     parser.add_argument(
+        "--programs",
+        action="store_true",
+        help=(
+            "also run the program auditor (imports torch; runs every "
+            "device root under a recording dispatch mode on the CPU)"
+        ),
+    )
+    parser.add_argument(
+        "--write-budgets",
+        action="store_true",
+        help=(
+            "regenerate openr_tpu_torch/analysis/program_budgets.json from "
+            "the measured op counts instead of reporting program-budget "
+            "findings (implies --programs)"
+        ),
+    )
+    parser.add_argument(
         "--changed-only",
         action="store_true",
         help=(
-            "report findings only for files touched in the git working "
-            "tree; lock-discipline findings are always whole-tree"
+            "report AST findings only for files touched in the git working "
+            "tree; program-* and lock-discipline findings are always "
+            "whole-tree"
         ),
     )
     parser.add_argument(
@@ -215,10 +241,17 @@ def main(argv: list[str] | None = None) -> int:
         )
         return 2
 
+    programs = args.programs or args.write_budgets
     try:
         config, root = load_config(targets[0])
         changed = _changed_files(root) if args.changed_only else None
-        reporter = run_analysis(targets, config, root)
+        reporter = run_analysis(
+            targets,
+            config,
+            root,
+            programs=programs,
+            write_budgets=args.write_budgets,
+        )
     except AnalysisError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -234,7 +267,8 @@ def main(argv: list[str] | None = None) -> int:
         findings = [
             f
             for f in findings
-            if f.rule in _WHOLE_TREE_RULES
+            if f.rule.startswith("program-")
+            or f.rule in _WHOLE_TREE_RULES
             or f.path in changed
             or (f.rule.startswith("counter-") and "serving." in f.message)
         ]

@@ -2,12 +2,12 @@
 
 Port of `openr_tpu.analysis.core`.  Pure stdlib (``ast`` + ``tokenize``):
 ``python -m openr_tpu_torch.analysis`` runs as a lint step anywhere,
-without torch's device stack.  The reference's jaxpr and XLA-program
-families (``jit-*``, ``program-*``) audit JAX programs and have no
-counterpart here.
+without torch's device stack.  Only the program auditor
+(``--programs``, analysis/programs.py) imports torch: it runs the device
+roots under a recording dispatch mode.
 
-The pieces here are shared by both checker families (thread discipline,
-counter hygiene):
+The pieces here are shared by the checker families (dispatch hygiene,
+thread discipline, counter hygiene, program contracts):
 
 - :class:`Finding` / :class:`Severity` — one diagnostic, pointing at a
   rule id, file, line and column.
@@ -47,9 +47,9 @@ class Severity(enum.Enum):
 
 
 class AnalysisError(Exception):
-    """The analyzer itself could not run (bad config, git failure) —
-    distinct from findings, so the CLI can exit 2 ("broken analyzer")
-    instead of 1 ("dirty tree")."""
+    """The analyzer itself could not run (bad config, git failure, a
+    program-auditor driver that failed) — distinct from findings, so the
+    CLI can exit 2 ("broken analyzer") instead of 1 ("dirty tree")."""
 
 
 @dataclass(frozen=True)
@@ -167,6 +167,15 @@ def collect_suppressions(source: str) -> Suppressions:
 # ---------------------------------------------------------------------------
 
 ALL_RULES: dict[str, str] = {
+    # dispatch hygiene (openr_tpu_torch/analysis/dispatch.py; the
+    # reference's jit-* family less jit-static-hygiene)
+    "device-host-sync": "host read of a device value inside a device root",
+    "device-tensor-branch": "Python control flow on a tensor value",
+    "device-dispatch-sync": "implicit device->host sync in dispatch code",
+    "device-unbucketed-dispatch": (
+        "daemon code calls a device root directly, bypassing the device "
+        "engine front-end (no residency, staging or accounting)"
+    ),
     # thread discipline (openr_tpu_torch/analysis/threads.py)
     "thread-cross-module-write": (
         "attribute write into another module, bypassing queue/ctrl seams"
@@ -204,7 +213,33 @@ ALL_RULES: dict[str, str] = {
     "suppression-unused": (
         "'# openr: disable=' marker whose rule never fires on that line"
     ),
+    # program-level invariants (openr_tpu_torch/analysis/programs.py; these
+    # run the device roots, so they only run under --programs /
+    # run_analysis(programs=True))
+    "program-donation": (
+        "a root that writes a resident in place moved its storage or "
+        "allocated a copy of its size (the indexed write is the port's "
+        "donation)"
+    ),
+    "program-dtype": "float64, or a float op outside the float allowlist, in a root",
+    "program-callback": (
+        "host sync or data-dependent-shape op inside a root, outside its "
+        "declared fetch points"
+    ),
+    "program-constants": (
+        "host data above the size limit made a tensor inside a root "
+        "(uploaded again on every call)"
+    ),
+    "program-budget": "aten op count of a root exceeds the checked-in budget",
+    "program-coverage": (
+        "device root discovered by the AST pass but reached by none of the "
+        "program auditor's drivers"
+    ),
 }
+
+#: rules that run the device roots (torch import); they are executed only
+#: under run_analysis(..., programs=True) / the CLI --programs flag
+PROGRAM_RULES = frozenset(r for r in ALL_RULES if r.startswith("program-"))
 
 #: the port's configuration file, shipped inside the package
 CONFIG_PATH = Path(__file__).with_name("analysis.toml")
@@ -217,6 +252,9 @@ _CONFIG_LISTS = (
     "module_attrs",
     "tsan_tracked_paths",
     "lock_order_exclude",
+    "device_paths",
+    "engine_dispatch_paths",
+    "program_float_allowed",
 )
 
 
@@ -230,6 +268,21 @@ class AnalysisConfig:
     disable: list[str] = field(default_factory=list)
     #: path prefixes (relative to the package root's parent) skipped entirely
     exclude: list[str] = field(default_factory=list)
+    #: files/dirs whose public functions are device roots (the dispatch
+    #: rules' call graphs and the program auditor's root set)
+    device_paths: list[str] = field(default_factory=list)
+    #: files/dirs allowed to call device roots directly (the sanctioned
+    #: device-engine front-ends); everything else outside device_paths is
+    #: daemon code and must route dispatch through the engine
+    engine_dispatch_paths: list[str] = field(
+        default_factory=lambda: ["openr_tpu_torch/device"]
+    )
+    #: program-constants threshold: host data above this many bytes made a
+    #: tensor inside a root is flagged (uploaded again on every call)
+    program_const_max_bytes: int = 4096
+    #: device roots (bare function names) allowed float ops (the TE soft
+    #: kernels); everything else is integer min-plus arithmetic
+    program_float_allowed: list[str] = field(default_factory=list)
     #: extra top-level counter prefixes treated as exported (beyond the ones
     #: discovered by parsing OpenrCtrlHandler._all_counters)
     counter_extra_prefixes: list[str] = field(default_factory=list)
@@ -322,6 +375,9 @@ def read_config(path: Path = CONFIG_PATH) -> AnalysisConfig:
             val = raw.get(key)
             if isinstance(val, list):
                 setattr(cfg, key, [str(v) for v in val])
+        val = raw.get("program_const_max_bytes")
+        if isinstance(val, int) and not isinstance(val, bool):
+            cfg.program_const_max_bytes = val
     return cfg
 
 
@@ -442,8 +498,20 @@ def run_analysis(
     targets: Sequence[Path],
     config: AnalysisConfig | None = None,
     root: Path | None = None,
+    *,
+    programs: bool = False,
+    write_budgets: bool = False,
 ) -> Reporter:
-    """Run every enabled checker family over `targets`; return the Reporter."""
+    """Run every enabled checker family over `targets`; return the Reporter.
+
+    ``programs=True`` additionally runs the program auditor
+    (openr_tpu_torch/analysis/programs.py) — the only family that imports
+    torch: it drives the device roots on the CPU under a recording
+    dispatch mode.  It always audits the whole tree (the roots of
+    ``device_paths``), regardless of `targets`.  ``write_budgets=True``
+    regenerates the op-count budget file instead of reporting
+    program-budget findings.
+    """
     if config is None or root is None:
         cfg, found_root = load_config(targets[0] if targets else Path.cwd())
         config = config or cfg
@@ -460,9 +528,15 @@ def run_analysis(
     reporter = Reporter(config)
     active = config.active_rules()
     # Rules whose checker actually executed this run: a suppression for a
-    # rule that never ran (the reference's jit-* / program-* families, which
-    # have no counterpart here) must not be reported unused.
+    # rule that never ran (program-* in an AST-only pass, the reference's
+    # jit-* family) must not be reported unused.
     executed: set[str] = set()
+
+    from . import dispatch
+
+    if active & dispatch.DISPATCH_RULES:
+        dispatch.check(files, reporter, config, root)
+        executed |= active & dispatch.DISPATCH_RULES
 
     thread_rules = {
         "thread-cross-module-write",
@@ -488,6 +562,14 @@ def run_analysis(
 
         counters.check(files, reporter, config, root)
         executed |= active & counter_rules
+
+    if programs and active & PROGRAM_RULES:
+        from . import programs as programs_mod
+
+        programs_mod.check(
+            files, reporter, config, root, write_budgets=write_budgets
+        )
+        executed |= active & PROGRAM_RULES
 
     if "suppression-unused" in active:
         executed.add("suppression-unused")

@@ -46,6 +46,7 @@ from ..decision.fleet import FleetViewCache, fleet_destinations
 from ..decision.link_state import LinkState
 from ..decision.prefix_state import PrefixState
 from ..device.engine import DeviceResidencyEngine
+from ..device.sanitizer import fetch
 from ..types import Adjacency, AdjacencyDatabase, PrefixEntry
 from .chaos import SCENARIO_STREAM, ChaosEventLog
 
@@ -61,7 +62,7 @@ def _host(t) -> "np.ndarray":
 
     if t.dtype == torch.uint16:
         t = t.view(torch.int16)
-    return t.cpu().numpy()
+    return fetch(t, "storm check")
 
 
 def _base_metric(i: int, j: int) -> int:

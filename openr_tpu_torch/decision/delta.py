@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..device.engine import DeviceResidencyEngine, EpochMismatchError
+from ..device.sanitizer import fetch, fetch_point, stage
 from ..ops import allsources as asrc
 from ..ops import delta as dops
 from .fleet import FleetRouteView, _in_sorted, _reverse_runner, _worsened_masks
@@ -214,8 +215,8 @@ class DeltaProductUpdater:
                 prev._dist_dev,
                 prev._runner.bg,
                 prev._runner.call_arrays(),
-                torch.from_numpy(worsened_resid).to(device),
-                torch.from_numpy(worsened_band).to(device),
+                stage(worsened_resid, device),
+                stage(worsened_band, device),
                 runner.bg,
                 runner.call_arrays(),
                 improved_resid,
@@ -231,7 +232,7 @@ class DeltaProductUpdater:
         if not done:
             # an under-propagated frontier is silently wrong
             return self._fallback()
-        col_idx = np.flatnonzero(col_mask.cpu().numpy()).astype(np.int32)
+        col_idx = np.flatnonzero(fetch(col_mask, "delta columns")).astype(np.int32)
         n_cols = len(col_idx)
         self.last_cols = n_cols
         if n_cols == 0 and len(changed_rows) == 0:
@@ -299,7 +300,7 @@ class DeltaProductUpdater:
             row_pad[: len(changed_rows)] = changed_rows
 
             def forward(a, dtype):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+                return stage(a, device, dtype)
 
             try:
                 new_bm = engine.delta_dispatch(
@@ -372,11 +373,12 @@ class DeltaProductUpdater:
         n = oracle._runner.bg.n_nodes if oracle._runner.bg is not None else d_o.shape[0]
         if d_a.dtype == torch.uint16 and d_o.dtype == torch.uint16:
             d_a, d_o = d_a.view(torch.int16), d_o.view(torch.int16)
-        if (
-            view._dist_dev.dtype != oracle._dist_dev.dtype
-            or not torch.equal(d_a[:n], d_o[:n])
-            or not torch.equal(view._bitmap_dev, oracle._bitmap_dev)
-        ):
+        with fetch_point("delta parity check"):
+            same = view._dist_dev.dtype == oracle._dist_dev.dtype and (
+                torch.equal(d_a[:n], d_o[:n])
+                and torch.equal(view._bitmap_dev, oracle._bitmap_dev)
+            )
+        if not same:
             self._bump("decision.delta.parity_failures")
             view._dist_dev = oracle._dist_dev
             view._bitmap_dev = oracle._bitmap_dev

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from ..device.engine import DeviceResidencyEngine
+from ..device.sanitizer import fetch, stage
 from ..ops import allsources as asrc
 from ..ops.banded import SpfRunner, affected_mask, build_banded
 from ..ops.sssp import (
@@ -76,6 +77,7 @@ from ..ops.sssp import (
 )
 from .csr import CsrTopology
 from .link_state import LinkState
+from .prefix_state import PrefixState
 
 # passes the affected-set propagation may take before a worsening
 # rebuild gives up its warm start (the reference's bound)
@@ -94,8 +96,8 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     """A device tensor of distances as numpy, dtype kept (a uint16 tensor
     travels as its int16 view, which every device copies)."""
     if t.dtype == torch.uint16:
-        return t.view(torch.int16).cpu().numpy().view(np.uint16)
-    return t.cpu().numpy()
+        return fetch(t.view(torch.int16), "fleet rows").view(np.uint16)
+    return fetch(t, "fleet rows")
 
 
 def _usable_edge_table(csr: CsrTopology):
@@ -205,13 +207,15 @@ def _affected_init(prev: "FleetRouteView", new: "FleetRouteView"):
         prev._dist_dev,
         runner.bg,
         runner.call_arrays(),
-        torch.from_numpy(worsened_resid).to(device),
-        torch.from_numpy(worsened_band).to(device),
+        stage(worsened_resid, device),
+        stage(worsened_band, device),
         max_iters=AFFECTED_MAX_ITERS,
     )
     new._engine.counters["device.engine.affected_passes"] += passes
     new.affected_passes = passes
-    new.affected_share = int(aff.count_nonzero()) / aff.numel()
+    new.affected_share = int(fetch(aff.count_nonzero(), "affected share")) / aff.numel()
+    # `done` is affected_mask's host verdict, read at its fetch point
+    # openr: disable=device-dispatch-sync
     if not done:
         return None
     kept = prev._dist_dev[: runner.bg.n_nodes]
@@ -445,7 +449,7 @@ class FleetRouteView:
         if not missing:
             return
         d = self._dist_dev
-        index = torch.as_tensor(missing, device=d.device)
+        index = stage(np.asarray(missing, dtype=np.int64), d.device)
         if d.dtype == torch.uint16:
             rows = u16_index_select(d, 0, index)
         else:
@@ -468,7 +472,7 @@ class FleetRouteView:
         """Decode the device bitmap: slot-named ECMP next-hop neighbors of
         `node` toward `dest` (parallel links share a slot)."""
         i = self._node_id[node]
-        words = self._bitmap_dev[i, self.p_index[dest]].cpu().numpy()
+        words = fetch(self._bitmap_dev[i, self.p_index[dest]], "fleet bitmap words")
         has = self._out.eid[i] >= 0
         slot_names = dict(
             zip(self._out.slot[i][has].tolist(), self._out.nbr[i][has].tolist())
@@ -483,7 +487,7 @@ class FleetRouteView:
         return out
 
 
-def fleet_destinations(ls: LinkState, prefix_state) -> list[str]:
+def fleet_destinations(ls: LinkState, prefix_state: PrefixState) -> list[str]:
     """The destination set route construction reads distances to, for one
     area: prefix-advertising nodes (reachability filter + unicast ECMP,
     Decision.cpp:445-613) + labeled nodes (MPLS node-label routes,

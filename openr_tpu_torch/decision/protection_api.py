@@ -114,6 +114,10 @@ def what_if(
         resolved.append({"links": known, "unknown_links": unknown})
 
     runner = csr.runner(engine or DeviceResidencyEngine(device))
+    # offline what-if over one fixed scenario batch, on the mirror's
+    # forward runner, which the engine staged on its resident and whose
+    # masked batches it counts; not the SPF hot path
+    # openr: disable=device-unbucketed-dispatch
     all_dist = prot.srlg_what_if(
         src_ids,
         csr.edge_src,
@@ -126,6 +130,8 @@ def what_if(
     )
     # impact counted over real nodes only
     real = np.arange(csr.n_nodes)
+    # host arithmetic over the batch above, as the reference's
+    # openr: disable=device-unbucketed-dispatch
     unreachable, degraded = prot.srlg_reachability_loss(
         all_dist[0][:, real], all_dist[1:][:, :, real]
     )
@@ -175,6 +181,9 @@ def ti_lfa(
     # the last row (-1) fails nothing: the pre-failure baseline, from the
     # same batch
     runner = csr.runner(engine or DeviceResidencyEngine(device))
+    # one masked batch on the mirror's engine-staged forward runner, as
+    # for what-if above
+    # openr: disable=device-unbucketed-dispatch
     dist, dag = prot.ti_lfa_backups(
         np.int32(src_id),
         np.asarray(out_edges + [-1], dtype=np.int32),

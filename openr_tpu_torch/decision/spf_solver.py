@@ -40,6 +40,7 @@ from typing import Optional, Protocol
 import numpy as np
 
 from ..device.engine import DeviceResidencyEngine
+from ..device.sanitizer import fetch
 from ..types import (
     MplsAction,
     MplsActionCode,
@@ -291,8 +292,8 @@ class DeviceSpfBackend:
         cache.update(
             csr.to_spf_results(
                 missing,
-                dist[: len(missing)].cpu().numpy(),
-                dag[: len(missing)].cpu().numpy(),
+                fetch(dist[: len(missing)], "prefetch results"),
+                fetch(dag[: len(missing)], "prefetch results"),
             )
         )
 

@@ -81,6 +81,7 @@ from ..ops import blocked_outer as _outer
 from ..ops import epilogue as _epilogue
 from ..ops import sssp as ops
 from ..parallel.blocked import BlockedApspEngine
+from . import sanitizer as _san
 
 log = logging.getLogger(__name__)
 
@@ -202,8 +203,9 @@ def _s_bucket(s: int) -> int:
 
 def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A device copy of a host array (a copy on the CPU too, so the
-    resident never aliases the mirror's arrays)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+    resident never aliases the mirror's arrays): the engine's explicit
+    staging (sanitizer.stage), the one upload its transfer guard allows."""
+    return _san.stage(a, device)
 
 
 def ell_leaves(ell) -> list:
@@ -213,9 +215,10 @@ def ell_leaves(ell) -> list:
     return [a for bk in ell.buckets for a in bk] + [ell.new_of_old, ell.old_of_new]
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of a tensor that never aliases it."""
-    return t.to("cpu", copy=True).numpy()
+def _host(t: torch.Tensor, why: str = "resident image") -> np.ndarray:
+    """A host copy of a tensor that never aliases it, read at a declared
+    fetch point (sanitizer.fetch) named `why`."""
+    return _san.fetch(t, why)
 
 
 @dataclass
@@ -544,8 +547,8 @@ class DeviceResidencyEngine:
     def _write(self, target: torch.Tensor, idx: np.ndarray, vals: np.ndarray) -> int:
         """target[idx] = vals on the device (rows when `vals` is 2-D);
         returns the bytes uploaded."""
-        i = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        target[i] = torch.from_numpy(np.ascontiguousarray(vals)).to(self.device)
+        i = _put(idx.astype(np.int64), self.device)
+        target[i] = _put(vals, self.device)
         return i.nbytes + vals.nbytes
 
     def _incremental(self, res: _Resident, csr) -> None:
@@ -760,7 +763,7 @@ class DeviceResidencyEngine:
                 n_sweeps,
                 use_link_metric=use_link_metric,
             )
-            bool(ok)  # waits for the run
+            _host(ok, "prewarm run")  # waits for the run
             self._program_keys[key] = None
             self._bump("device.engine.prewarm_runs")
             ran += 1
@@ -813,7 +816,7 @@ class DeviceResidencyEngine:
         # topology-wide word count: unset high words decode to no bits
         n_words = max(1, -(-csr.max_out_slots // 32))
         t0 = time.perf_counter()
-        src_dev = torch.from_numpy(src_ids).to(self.device)
+        src_dev = _put(src_ids, self.device)
         self._bump("device.engine.bytes_staged", src_ids.nbytes)
         while True:
             n_sweeps = res.sweep_hint
@@ -833,12 +836,12 @@ class DeviceResidencyEngine:
                 n_sweeps,
                 use_link_metric=use_link_metric,
             )
-            if bool(ok):
+            if _host(ok, "forward verdict"):
                 break
             res.sweep_hint = n_sweeps * 2
             # share the learned relax depth with the mirror
             csr._sweep_hint = res.sweep_hint
-        dist, dag, nh = (t[:s].cpu().numpy() for t in (dist, dag, nh))
+        dist, dag, nh = (_host(t[:s], "forward result") for t in (dist, dag, nh))
         self._bump(
             "device.engine.dispatch_us", int((time.perf_counter() - t0) * 1e6)
         )

@@ -56,7 +56,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
-def build(names) -> dict[str, float]:
+def build(names: list[str]) -> dict[str, float]:
     """Compile every named kernel whose library is missing, one nvcc per
     source, all started together.  Returns seconds per built library;
     the compiler's report (registers, spills) is kept beside it as

@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device.sanitizer import fetch, fetch_point, stage
 from .banded import BandedGraph, SpfRunner, _RelaxOps, make_dist0_orig
 from .epilogue import _BITS, build_epilogue_groups, fused_epilogue
 from .sssp import (
@@ -130,29 +131,26 @@ def ecmp_bitmap_from_reverse_dist(
     small = drev.dtype == torch.uint16
     inf = INF16 if small else INF32
 
-    def tensor(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
-
     def rows_of(index):
         if small:
             return u16_to_i32(u16_index_select(drev, 0, index))
         return drev.index_select(0, index)
 
-    metric = tensor(edge_metric, torch.int32)
+    metric = stage(edge_metric, device, torch.int32)
     if small:
         metric = clamp_metric_u16(metric)
-    up = tensor(edge_up, torch.bool)
-    overloaded = tensor(node_overloaded, torch.bool)
-    bits = torch.from_numpy(_BITS).to(device)
+    up = stage(edge_up, device, torch.bool)
+    overloaded = stage(node_overloaded, device, torch.bool)
+    bits = stage(_BITS, device)
     bitmap = torch.zeros((n, p, n_words), dtype=torch.int32, device=device)
     for k in range(k_pad):
         rows = np.flatnonzero(out.eid[:, k] >= 0)
         if rows.size == 0:
             continue
-        r = torch.from_numpy(rows).to(device)
-        eid = tensor(out.eid[rows, k], torch.int64)
-        nbr = tensor(out.nbr[rows, k], torch.int64)
-        slot = tensor(out.slot[rows, k], torch.int64)
+        r = stage(rows, device)
+        eid = stage(out.eid[rows, k], device, torch.int64)
+        nbr = stage(out.nbr[rows, k], device, torch.int64)
+        slot = stage(out.slot[rows, k], device, torch.int64)
         d_nbr = rows_of(nbr)  # [R, P]
         on = (
             up[eid][:, None]
@@ -257,7 +255,8 @@ def _fused_progressive_banded(
         for _ in range(check_every - 1):
             d = ops.supersweep(d)
         v = ops.supersweep(d)
-        converged = torch.equal(v, d)
+        with fetch_point("block convergence"):
+            converged = torch.equal(v, d)
         d = v
         blocks += 1
     if small_dist:
@@ -265,16 +264,16 @@ def _fused_progressive_banded(
     device = d.device
     groups = build_epilogue_groups(
         ops,
-        torch.from_numpy(maps.resid_slot).to(device),
-        torch.from_numpy(maps.band_slot).to(device),
+        stage(maps.resid_slot, device),
+        stage(maps.band_slot, device),
         n_words,
     )
     bitmap, ok = epilogue(d, *groups, n_words)
-    return d, bitmap, bool(ok), blocks
+    return d, bitmap, bool(fetch(ok, "epilogue verdict")), blocks
 
 
 def reduced_all_sources(
-    dest_ids,
+    dest_ids: np.ndarray,
     reverse_runner: SpfRunner,
     out: OutEll,
     edge_metric,
@@ -319,9 +318,7 @@ def reduced_all_sources(
     attempt never pays a bitmap pass.  It always cold-starts:
     `init_dist` is refused there."""
     st = reverse_runner.call_arrays()
-    dest = torch.as_tensor(
-        np.asarray(dest_ids, dtype=np.int32), device=st.edge_metric.device
-    )
+    dest = stage(np.asarray(dest_ids, dtype=np.int32), st.edge_metric.device)
     if reverse_runner.bg is None:
         if init_dist is not None:
             raise ValueError("the ELL fallback does not warm-start")

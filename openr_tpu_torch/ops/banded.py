@@ -43,6 +43,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device.sanitizer import fetch, fetch_point, stage
 from .sssp import (
     WBIG16,
     EllGraph,
@@ -432,7 +433,8 @@ def affected_mask(
             new = new | (tight & (seed | new.index_select(0, nbr)))
         for tight, c, seed in bands:
             new = new | (tight & (seed | torch.roll(new, c, 0)))
-        done = torch.equal(new, aff)
+        with fetch_point("affected fixed point"):
+            done = torch.equal(new, aff)
         aff = new
         passes += 1
     return aff, done, passes
@@ -526,7 +528,7 @@ def spf_forward_banded(
     )
 
 
-def pick_small_dist(edge_metric, n_edges: int) -> bool:
+def pick_small_dist(edge_metric: np.ndarray, n_edges: int) -> bool:
     """True when every metric of the first `n_edges` edges (a numpy
     array) is below WBIG16 // 4 = 5000 (reference: ops/banded.py
     pick_small_dist): uint16 distances are then safe up to the
@@ -632,7 +634,7 @@ class SpfRunner:
         src, dst, metric, up, overloaded = self.arrays
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            return stage(a, device)
 
         runtime = [put(a) for a in (metric, up, overloaded)]
         ends = [put(a) for a in (src, dst)]
@@ -671,7 +673,7 @@ class SpfRunner:
             tables, staged = (old.band_eid, old.resid_nbr, old.resid_eid), 0
         else:
             tables = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                stage(a, device)
                 for a in (self.bg.band_eid, self.bg.resid_nbr, self.bg.resid_eid)
             )
             staged = sum(t.numel() * t.element_size() for t in tables)
@@ -752,13 +754,13 @@ class SpfRunner:
         otherwise); without, the learned hint through `adapt`."""
         st = self.call_arrays()
         device = st.edge_up.device
-        src = torch.as_tensor(np.asarray(sources, dtype=np.int32), device=device)
+        src = stage(np.asarray(sources, dtype=np.int32), device)
         mask = None
         if extra_edge_mask is not None:
-            mask = torch.as_tensor(np.asarray(extra_edge_mask, dtype=bool), device=device)
+            mask = stage(np.asarray(extra_edge_mask, dtype=bool), device)
         plane = None
         if metric_plane is not None:
-            plane = torch.as_tensor(np.asarray(metric_plane, dtype=np.int32), device=device)
+            plane = stage(np.asarray(metric_plane, dtype=np.int32), device)
 
         def run(sweeps: int, dag: bool):
             return self.run_once(
@@ -783,8 +785,8 @@ class SpfRunner:
                 eff_small=lambda: self._small_for(metric_plane),
             )
         return (
-            dist.T.cpu().numpy(),
-            None if dag is None else dag.cpu().numpy(),
+            fetch(dist.T, "forward result"),
+            None if dag is None else fetch(dag, "forward result"),
         )
 
     def run_once(
@@ -834,7 +836,7 @@ class SpfRunner:
                 chord_mode=self.chord_mode,
                 raw_u16=raw_u16,
             )
-            return dist, dag, bool(ok)
+            return dist, dag, bool(fetch(ok, "fixed-sweep verdict"))
         n_sweeps = max(n_sweeps, 2)
         self.sweeps += n_sweeps + 1
         return spf_forward_ell_sweeps(

@@ -48,6 +48,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device.sanitizer import fetch, fetch_point, stage
 from .allsources import EpilogueMaps, OutEll, _fused_progressive_banded
 from .banded import BandedGraph, SpfRunner, StagedArrays, _RelaxOps
 from .epilogue import _BITS
@@ -111,8 +112,8 @@ def delta_frontier(
     old_ops = _RelaxOps(old_bg, old_st, 0, 1, False, small)
     d_old = _widened(dist, n)
     fin = d_old < old_ops.inf
-    worsened_k = worsened_resid.any(dim=0).tolist()
-    worsened_b = worsened_band.any(dim=1).tolist()
+    worsened_k = fetch(worsened_resid.any(dim=0), "worsened slots").tolist()
+    worsened_b = fetch(worsened_band.any(dim=1), "worsened slots").tolist()
 
     # per slot: the tight supports that are not worsened ([N, P] bool),
     # with the neighbour rows they lean on; and the bitmap-only seeds, a
@@ -149,7 +150,8 @@ def delta_frontier(
     passes = 0
     while not settled and passes < max_iters:
         new = sweep(aff)
-        settled = torch.equal(new, aff)
+        with fetch_point("support-loss fixed point"):
+            settled = torch.equal(new, aff)
         aff = new
         passes += 1
     del supports  # K + B [N, P] masks: free them before the firing pass
@@ -164,11 +166,11 @@ def delta_frontier(
     fire = torch.zeros(d.shape, dtype=torch.bool, device=device)
     for k in np.flatnonzero(improved_resid.any(axis=0)).tolist():
         cand = new_ops.resid_cand(d, k)
-        at = torch.from_numpy(improved_resid[:, k]).to(device)[:, None]
+        at = stage(improved_resid[:, k], device)[:, None]
         fire |= at & (cand < new_ops.inf) & (cand <= d)
     for b in np.flatnonzero(improved_band.any(axis=1)).tolist():
         cand = new_ops.band0_cand(d, b)
-        at = torch.from_numpy(improved_band[b]).to(device)[:, None]
+        at = stage(improved_band[b], device)[:, None]
         fire |= at & (cand < new_ops.inf) & (cand <= d)
     col_mask = aff.any(dim=0) | bit_off.any(dim=0) | fire.any(dim=0)
     return aff, col_mask, settled, passes
@@ -216,20 +218,20 @@ def delta_relax(
     small = dist.dtype == torch.uint16
     inf, _ = domain(small)
     device = dist.device
-    cols = torch.from_numpy(np.asarray(col_idx, dtype=np.int64)).to(device)
+    cols = stage(np.asarray(col_idx, dtype=np.int64), device)
     if small:
         d_cols = u16_to_i32(u16_index_select(dist[:n], 1, cols))
     else:
         d_cols = dist[:n].index_select(1, cols)
     init = torch.where(aff.index_select(1, cols), inf, d_cols)
-    sub_dest = torch.from_numpy(
-        np.asarray(dest_ids, dtype=np.int32)[np.asarray(col_idx)]
-    ).to(device)
+    sub_dest = stage(np.asarray(dest_ids, dtype=np.int32)[np.asarray(col_idx)], device)
     d, slab_bits, ok, blocks = _fused_progressive_banded(
         sub_dest, runner, maps, init, n_words, check_every, max_blocks,
         epilogue, small,
     )
     runner.sweeps += blocks * check_every
+    # `ok` is the slab's verdict, read on the host at its fetch point
+    # openr: disable=device-tensor-branch
     if ok:
         real = cols[:n_cols]
         if small:
@@ -269,7 +271,7 @@ def delta_rows_bitmap(
     inf = INF16 if small else INF32
     device = bitmap.device
     rows = np.asarray(row_idx, dtype=np.int64)
-    r = torch.from_numpy(rows).to(device)
+    r = stage(rows, device)
 
     def rows_of(index: torch.Tensor) -> torch.Tensor:
         if small:
@@ -277,14 +279,14 @@ def delta_rows_bitmap(
         return dist[:n].index_select(0, index)
 
     d_self = rows_of(r)  # [Rb, P]
-    bits = torch.from_numpy(_BITS).to(device)
+    bits = stage(_BITS, device)
     rb, p = d_self.shape
     rows_bm = torch.zeros((rb, p, n_words), dtype=torch.int32, device=device)
     lanes = torch.arange(rb, device=device)
     for k in range(out.nbr.shape[1]):
-        eid = torch.from_numpy(out.eid[rows, k].astype(np.int64)).to(device)
-        nbr = torch.from_numpy(out.nbr[rows, k].astype(np.int64)).to(device)
-        slot = torch.from_numpy(out.slot[rows, k].astype(np.int64)).to(device)
+        eid = stage(out.eid[rows, k].astype(np.int64), device)
+        nbr = stage(out.nbr[rows, k].astype(np.int64), device)
+        slot = stage(out.slot[rows, k].astype(np.int64), device)
         e0 = eid.clamp(min=0)
         ok = (eid >= 0) & f_edge_up[e0]
         w = f_edge_metric[e0].to(torch.int32)

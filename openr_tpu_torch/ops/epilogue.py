@@ -41,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device.sanitizer import fetch, stage
 from ._build import load
 from .sssp import domain, u16_saturation_verdict, u16_to_i32
 
@@ -110,7 +111,9 @@ def check_epilogue_groups(groups, n: int, n_words: int) -> None:
     idx, _, _, slot = groups
     if not idx.numel():
         return
-    lo, hi, top = torch.stack([idx.min(), idx.max(), slot.max()]).tolist()
+    lo, hi, top = fetch(
+        torch.stack([idx.min(), idx.max(), slot.max()]), "table ranges"
+    ).tolist()
     if lo < 0 or hi >= n or top >= 32 * n_words:
         raise ValueError(
             f"gather index range [{lo}, {hi}] or slot {top} outside "
@@ -164,14 +167,14 @@ def _slab(n: int, p: int, l2_bytes: int, elem_bytes: int) -> int:
     )
 
 
-def _bands(n: int, band_offsets, halo: int) -> tuple:
+def _bands(n: int, band_offsets: tuple, halo: int) -> tuple:
     """(halo bands, far bands): a band of offset c is served from a halo
     of `halo` rows when c <= halo or n - c <= halo."""
     near = tuple(c for c in band_offsets if c <= halo or n - c <= halo)
     return near, tuple(c for c in band_offsets if c not in near)
 
 
-def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
+def epilogue_plan(n: int, p: int, band_offsets: tuple, l2_bytes: int,
                   n_groups: int = 0, elem_bytes: int = 4) -> EpiloguePlan:
     """The tiling of the epilogue kernel for an [n, p] product of
     `elem_bytes` per distance: 4 for int32 (`tiled_plan`), 2 for uint16
@@ -181,7 +184,7 @@ def epilogue_plan(n: int, p: int, band_offsets, l2_bytes: int,
     return tiled_plan(n, p, band_offsets, l2_bytes, n_groups)
 
 
-def tiled_plan(n: int, p: int, band_offsets, l2_bytes: int,
+def tiled_plan(n: int, p: int, band_offsets: tuple, l2_bytes: int,
                n_groups: int = 0) -> EpiloguePlan:
     """The int32 kernel's tiling.  The slab is the widest power of two
     from 32 to 256 whose column slab (n x slab int32) fills at most half
@@ -202,7 +205,7 @@ def tiled_plan(n: int, p: int, band_offsets, l2_bytes: int,
     return EpiloguePlan(slab, tile, HALO, *_bands(n, band_offsets, HALO))
 
 
-def u16_plan(n: int, p: int, band_offsets, l2_bytes: int,
+def u16_plan(n: int, p: int, band_offsets: tuple, l2_bytes: int,
              n_groups: int = 0) -> EpiloguePlan:
     """The uint16 kernel's path and tiling.  Each thread owns U16_COLS
     columns of a node row, `lanes` = slab / U16_COLS threads a row.
@@ -260,7 +263,7 @@ def fused_epilogue_reference(d, idx, w, ov, slot, n_words: int):
         d = u16_to_i32(d)
     inf, wbig = domain(small)
     n, p = d.shape
-    bits = torch.from_numpy(_BITS).to(d.device)
+    bits = stage(_BITS, d.device)
     fin = d < inf
     vmin = d
     bitmap = torch.zeros((n, p, n_words), dtype=torch.int32, device=d.device)

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device.sanitizer import fetch, fetch_point, stage
 from .banded import pick_small_dist, spf_forward_banded
 from .sssp import INF32
 
@@ -171,14 +172,14 @@ class FusedKsp2Runner:
         self.runner = runner
         self.n_edges = n_edges
         self.planes_np = [np.asarray(m, dtype=np.int32) for m in metric_planes]
-        self.planes = torch.from_numpy(np.stack(self.planes_np)).to(device)
+        self.planes = stage(np.stack(self.planes_np), device)
         self.planes_small = all(pick_small_dist(m, n_edges) for m in self.planes_np)
         in_start_np = build_in_start(np.asarray(topo_edge_dst), n_edges, n_nodes)
-        self.in_start = torch.from_numpy(in_start_np).to(device)
+        self.in_start = stage(in_start_np, device)
         rev_full = np.full(e_cap, -1, dtype=np.int32)
         rev_full[: len(rev_eid)] = rev_eid
         self.rev_eid_np = rev_full
-        self.rev_eid = torch.from_numpy(rev_full).to(device)
+        self.rev_eid = stage(rev_full, device)
         self.k_in = max(1, int(np.diff(in_start_np).max()))
         # hop bound of the trace; grows when a converged base leaves
         # walkers short, and later calls reuse the learned bound
@@ -214,7 +215,7 @@ class FusedKsp2Runner:
         e_cap = int(self.runner.arrays[0].shape[0])
         masks = []
         for r in res:
-            excl = r.excl.cpu().numpy()
+            excl = fetch(r.excl, "ksp excluded edges")
             mask = np.ones((d, e_cap), dtype=bool)
             for i in range(d):
                 ee = excl[i]
@@ -245,8 +246,8 @@ class FusedKsp2Runner:
         device = self.planes.device
         src_np = np.asarray([src], dtype=np.int32)
         dest_np = np.asarray(dest_ids, dtype=np.int32)
-        src_t = torch.from_numpy(src_np).to(device)
-        dest_t = torch.from_numpy(dest_np).to(device)
+        src_t = stage(src_np, device)
+        dest_t = stage(dest_np, device)
         if adaptive:
             for m in self.planes_np:
                 r.forward(src_np, want_dag=False, metric_plane=m)
@@ -254,16 +255,14 @@ class FusedKsp2Runner:
         if not adaptive:
             return res
         n_nodes = int(self.in_start.shape[0]) - 1
-        while all(bool(x.ok_base) for x in res) and not all(
-            bool(x.trace_ok) for x in res
-        ):
+        while self._verdict(res, "ok_base") and not self._verdict(res, "trace_ok"):
             # a shortest path has fewer than N hops: the growth ends
             if max_hops >= n_nodes:
                 raise RuntimeError(f"path trace did not end in {max_hops} hops")
             max_hops = min(max_hops * 4, n_nodes)
             self.learned_max_hops = max_hops
             res = self._fused_call(src_t, dest_t, max_hops)
-        if not all(bool(x.ok_masked) for x in res):
+        if not self._verdict(res, "ok_masked"):
             srcs = np.full(len(dest_np), src, dtype=np.int32)
             for p, mask in enumerate(self._host_masks(res, len(dest_np))):
                 r.forward(
@@ -273,7 +272,14 @@ class FusedKsp2Runner:
                     metric_plane=self.planes_np[p],
                 )
             res = self._fused_call(src_t, dest_t, max_hops)
-        for x in res:
-            if not (bool(x.ok_base) and bool(x.ok_masked) and bool(x.trace_ok)):
-                raise RuntimeError("fused KSP2 warm-up did not converge")
+        if not all(
+            self._verdict(res, k) for k in ("ok_base", "ok_masked", "trace_ok")
+        ):
+            raise RuntimeError("fused KSP2 warm-up did not converge")
         return res
+
+    @staticmethod
+    def _verdict(res, name: str) -> bool:
+        """All planes' `name` verdict, read on the host."""
+        with fetch_point("ksp verdicts"):
+            return all(bool(getattr(x, name)) for x in res)

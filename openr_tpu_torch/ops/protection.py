@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device.engine import resolve_device
+from ..device.sanitizer import fetch_point, stage
 from .sssp import (
     INF32,
     batched_sssp,
@@ -39,7 +40,7 @@ from .sssp import (
 
 def _tensors(device, *arrays):
     """Each array (numpy or tensor) as a tensor on `device`."""
-    return [torch.as_tensor(a, device=device) for a in arrays]
+    return [stage(a, device) for a in arrays]
 
 
 def _device_of(ell, first, device) -> torch.device:
@@ -79,8 +80,12 @@ def srlg_what_if(
         _check_runner_arrays(
             runner, edge_src, edge_dst, edge_metric, edge_up, node_overloaded
         )
-        flat_sources = np.tile(np.asarray(sources, dtype=np.int32), f_dim)
-        flat_masks = np.repeat(np.asarray(scenario_masks, dtype=bool), s_dim, axis=0)
+        # the runner path takes host arrays: a tensor is read here
+        with fetch_point("runner inputs"):
+            flat_sources = np.tile(np.asarray(sources, dtype=np.int32), f_dim)
+            flat_masks = np.repeat(
+                np.asarray(scenario_masks, dtype=bool), s_dim, axis=0
+            )
         dist, _ = runner.forward(
             flat_sources, extra_edge_mask=flat_masks, want_dag=False
         )
@@ -121,8 +126,10 @@ def srlg_reachability_loss(baseline_dist, scenario_dist):
     (reference: ops/protection.py srlg_reachability_loss): baseline
     [S, N] and scenario [F, S, N] distances, numpy or tensors; returns
     two int64 tensors [F]."""
-    base = torch.as_tensor(baseline_dist)
-    scen = torch.as_tensor(scenario_dist, device=base.device)
+    base = baseline_dist
+    if not isinstance(base, torch.Tensor):
+        base = stage(base, torch.device("cpu"))
+    scen = stage(scenario_dist, base.device)
     was_reachable = base < INF32
     now_unreachable = was_reachable[None] & (scen >= INF32)
     degraded = was_reachable[None] & (scen < INF32) & (scen > base[None])
@@ -131,13 +138,13 @@ def srlg_reachability_loss(baseline_dist, scenario_dist):
 
 def ti_lfa_backups(
     source,  # scalar int32 — the protected source node
-    out_edge_ids,  # [D] int32 — the source's out-edge ids (-1 pad)
+    out_edge_ids: np.ndarray,  # [D] int32 — the source's out-edge ids (-1 pad)
     edge_src,
     edge_dst,
     edge_metric,
     edge_up,
     node_overloaded,
-    reverse_edge_ids,  # [E] int32 — id of each edge's reverse, -1 none
+    reverse_edge_ids: np.ndarray,  # [E] int32 — id of each edge's reverse, -1 none
     max_degree: int,
     ell=None,
     runner=None,
@@ -153,6 +160,8 @@ def ti_lfa_backups(
     CUDA card.  `max_degree` is D, kept for the reference's signature."""
     del max_degree  # D is out_edge_ids' length
     d_dim = int(np.shape(out_edge_ids)[0])
+    with fetch_point("source id"):
+        src_id = int(source)
     if runner is not None:
         _check_runner_arrays(
             runner, edge_src, edge_dst, edge_metric, edge_up, node_overloaded
@@ -160,19 +169,20 @@ def ti_lfa_backups(
         survives = build_edge_failure_masks(
             out_edge_ids, reverse_edge_ids, int(np.shape(edge_src)[0])
         )
-        sources = np.full(d_dim, int(source), dtype=np.int32)
+        sources = np.full(d_dim, src_id, dtype=np.int32)
         return runner.forward(sources, extra_edge_mask=survives)
     device = _device_of(ell, source, device)
-    survives = torch.from_numpy(
+    survives = stage(
         build_edge_failure_masks(
             np.asarray(out_edge_ids), np.asarray(reverse_edge_ids),
             int(np.shape(edge_src)[0]),
-        )
-    ).to(device)
+        ),
+        device,
+    )
     e_src, e_dst, metric, up, ov = _tensors(
         device, edge_src, edge_dst, edge_metric, edge_up, node_overloaded
     )
-    sources = torch.full((d_dim,), int(source), dtype=torch.int32, device=device)
+    sources = torch.full((d_dim,), src_id, dtype=torch.int32, device=device)
     if ell is not None:
         return spf_forward_ell_masked(
             sources, ell, e_src, e_dst, metric, up, ov, survives
@@ -204,7 +214,9 @@ def _check_runner_arrays(
             )
 
 
-def build_edge_failure_masks(out_edge_ids, reverse_edge_ids, edge_capacity: int):
+def build_edge_failure_masks(
+    out_edge_ids: np.ndarray, reverse_edge_ids: np.ndarray, edge_capacity: int
+) -> np.ndarray:
     """[D, E_cap] survives-mask of per-edge failure rows: row d excludes
     out_edge_ids[d] and its reverse; a -1 entry (padding) excludes
     nothing (reference: ops/protection.py build_edge_failure_masks)."""
@@ -220,7 +232,7 @@ def build_edge_failure_masks(out_edge_ids, reverse_edge_ids, edge_capacity: int)
     )
 
 
-def build_reverse_edge_ids(edge_src, edge_dst) -> np.ndarray:
+def build_reverse_edge_ids(edge_src: np.ndarray, edge_dst: np.ndarray) -> np.ndarray:
     """For each directed edge (u, v), the id of (v, u), -1 if absent
     (reference: ops/protection.py build_reverse_edge_ids).  Parallel
     links pair one to one: the k-th (u, v) edge, in edge-id order,

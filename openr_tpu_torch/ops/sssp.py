@@ -52,6 +52,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device.sanitizer import fetch, fetch_point, stage
+
 INF32 = 1 << 30
 WBIG = 1 << 28
 INF16 = 40000
@@ -101,7 +103,8 @@ def u16_saturation_verdict(dist: torch.Tensor, converged):
     saturated = ((dist >= WBIG16) & (dist < INF16)).any()
     if isinstance(converged, torch.Tensor):
         return converged & ~saturated
-    return bool(converged) and not bool(saturated)
+    with fetch_point("saturation verdict"):
+        return bool(converged) and not bool(saturated)
 
 
 def u16_dist_to_i32(dist: torch.Tensor) -> torch.Tensor:
@@ -139,7 +142,7 @@ class EllGraph(NamedTuple):
         too, so it never aliases the host arrays)."""
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+            return stage(a, device)
 
         return EllGraph(
             tuple(EllBucket(*(put(a) for a in bk)) for bk in self.buckets),
@@ -366,11 +369,13 @@ def batched_sssp_ell(
     )
     if n_sweeps is not None:
         verify, ok = _fixed_sweeps(relax, dist0_T, n_sweeps)
-        return verify, bool(ok)
+        return verify, bool(fetch(ok, "fixed-sweep verdict"))
     d = dist0_T
     for _ in range(n_cap):
         new = relax(d)
-        if torch.equal(new, d):
+        with fetch_point("relax fixed point"):
+            done = torch.equal(new, d)
+        if done:
             break
         d = new
     return d
@@ -445,8 +450,8 @@ def spf_forward_ell_sweeps(
 
 
 def forward_tail(
-    dist, converged, small_dist, raw_u16, want_dag, edge_src, edge_dst,
-    metric, allowed_T,
+    dist, converged, small_dist: bool, raw_u16: bool, want_dag: bool,
+    edge_src, edge_dst, metric, allowed_T,
 ):
     """The common end of the fixed-sweep forwards (ELL here, banded in
     ops.banded): the uint16 verdict and domain mapping, then the SP-DAG.
@@ -639,7 +644,7 @@ def first_hops_ell(
     n_cap = int(ell.new_of_old.shape[0])
     s = int(sources.shape[0])
     device = dag_T.device
-    bits = torch.from_numpy(WORD_BITS).to(device)
+    bits = stage(WORD_BITS, device)
     words = torch.arange(n_words, device=device)
     is_src_edge = edge_src[:, None] == sources[None, :]  # [E, S]
     tables = []
@@ -779,7 +784,9 @@ def batched_sssp(
         cand = torch.where(relax_allowed & (d_u < INF32), d_u + edge_metric, INF32)
         best = torch.full_like(dist, INF32).scatter_reduce_(1, heads, cand, "amin")
         new = torch.minimum(dist, best)
-        if torch.equal(new, dist):
+        with fetch_point("relax fixed point"):
+            done = torch.equal(new, dist)
+        if done:
             break
         dist = new
     return dist

@@ -62,11 +62,12 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..device.sanitizer import stage
 from ..obs import trace as _trace
 from ..ops import allsources as asrc
 from ..ops import blocked_outer as _outer
@@ -98,7 +99,7 @@ _CHUNK_ELEMS = 1 << 25
 
 
 def make_blocked_mesh(
-    devices=None,
+    devices: Optional[Sequence] = None,
     batch: int = 1,
     rows: Optional[int] = None,
     cols: Optional[int] = None,
@@ -283,7 +284,7 @@ class TileShards:
         first = self.mesh.first
         if self.mesh.size == 1:
             return blocked_extract(
-                self.shards.flat[0], torch.as_tensor(dest, device=first), n
+                self.shards.flat[0], stage(dest, first), n
             )
         t, b, br, bc = self.t, self.b, self.br, self.bc
         nr, nc = self.shards.shape[1], self.shards.shape[2]
@@ -298,9 +299,9 @@ class TileShards:
             for r in range(nr):
                 shard = self.shards[0, r, c]
                 sub = shard[0].reshape(t * br, t * bc).index_select(
-                    1, torch.as_tensor(local[cols], device=shard.device)
+                    1, stage(local[cols], shard.device)
                 )
-                out[:, r, :, torch.as_tensor(cols, device=first)] = sub.to(
+                out[:, r, :, stage(cols, first)] = sub.to(
                     first
                 ).view(t, br, -1)
         return out.view(t * b, -1)[:n]
@@ -473,10 +474,8 @@ class BlockedApspEngine:
             & (dst < n_nodes)
             & (src != dst)
         )
-        flat = torch.from_numpy(src[use] * n_pad + dst[use]).to(device)
-        val = torch.from_numpy(
-            np.minimum(met[use], INF32).astype(np.int32)
-        ).to(device)
+        flat = stage(src[use] * n_pad + dst[use], device)
+        val = stage(np.minimum(met[use], INF32).astype(np.int32), device)
         d0 = torch.full((n_pad, n_pad), INF32, dtype=torch.int32, device=device)
         d0.diagonal().zero_()
         d0.view(-1).scatter_reduce_(0, flat, val, reduce="amin")
@@ -521,7 +520,7 @@ class BlockedApspEngine:
         # the drain mask, replicated on every shard's device
         devices = list(mesh.devices.flat)
         ov = dict(zip(devices, mesh.replicate(
-            torch.as_tensor(np.asarray(node_overloaded, dtype=bool), device=mesh.first),
+            stage(np.asarray(node_overloaded, dtype=bool), mesh.first),
             devices,
         )))
         # modeled exchange per round: each panel's [S, B, Np] lane dim

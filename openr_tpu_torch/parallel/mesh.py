@@ -45,6 +45,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device.sanitizer import fetch, fetch_point, stage
 from ..ops import sssp as ops
 
 
@@ -169,7 +170,7 @@ def _put(x, device: torch.device, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         t = _to(x, device)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        t = stage(x, device)
     return t if dtype is None else t.to(dtype)
 
 
@@ -214,8 +215,10 @@ class ShardedSpfStep:
             )
         mesh = self.mesh
         n_batch = mesh.devices.shape[0]
-        src = np.asarray(
-            sources.cpu() if isinstance(sources, torch.Tensor) else sources
+        src = (
+            fetch(sources, "mesh sources")
+            if isinstance(sources, torch.Tensor)
+            else np.asarray(sources)
         ).astype(np.int64)
         parts = np.array_split(np.arange(len(src)), n_batch)
         arrays: dict = {}
@@ -254,7 +257,7 @@ class ShardedSpfStep:
         mesh = self.mesh
         home = devs[0]
         ell, e_src, e_dst, metric, up, ov = on(home)
-        sources = torch.from_numpy(src).to(home, torch.int32)
+        sources = stage(src, home, torch.int32)
         extra = None if mask_T is None else _put(mask_T, home, torch.bool)
         allowed_T = ops.make_relax_allowed_T(sources, e_src, up, ov, extra)
         n_cap = int(ov.shape[0])
@@ -281,7 +284,9 @@ class ShardedSpfStep:
             full = mesh.all_gather(pieces, devs)
             new = [relax(f) for relax, f in zip(relaxes, full)]
             sweeps += 1
-            if all(torch.equal(x, y) for x, y in zip(new, pieces)) or sweeps > n_cap:
+            with fetch_point("mesh relax fixed point"):
+                done = all(torch.equal(x, y) for x, y in zip(new, pieces))
+            if done or sweeps > n_cap:
                 break
             pieces = new
         self.sweeps.append(sweeps)
@@ -360,8 +365,10 @@ def fleet_product_sharded(
     def step(dest_ids, bg, r_edge_src, r_edge_dst, r_edge_metric, r_edge_up,
              node_overloaded, out, f_edge_metric=None, f_edge_up=None):
         maps = asrc.build_epilogue_maps(bg, out)
-        dest = np.asarray(
-            dest_ids.cpu() if isinstance(dest_ids, torch.Tensor) else dest_ids
+        dest = (
+            fetch(dest_ids, "mesh destinations")
+            if isinstance(dest_ids, torch.Tensor)
+            else np.asarray(dest_ids)
         ).astype(np.int32)
         staged: dict = {}
 
@@ -394,7 +401,7 @@ def fleet_product_sharded(
             dev = mesh.devices[bi, 0]
             st, groups = on(dev)
             d, _, relaxed = spf_forward_banded(
-                torch.from_numpy(part).to(dev),
+                stage(part, dev),
                 bg,
                 st,
                 n_sweeps,

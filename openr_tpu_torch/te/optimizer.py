@@ -33,7 +33,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..device.engine import EpochMismatchError, resolve_device
+from ..device.engine import DeviceResidencyEngine, EpochMismatchError, resolve_device
+from ..device import sanitizer as _san
 from . import soft
 from .exact import ExactEvaluator
 
@@ -131,7 +132,7 @@ def _clip_int(metric_f, problem: TeProblem) -> np.ndarray:
     """Round (half to even) and project a float metric vector into the
     integer box; padding edges keep metric 1 (the mirror convention)."""
     if isinstance(metric_f, torch.Tensor):
-        metric_f = metric_f.cpu().numpy()
+        metric_f = _san.fetch(metric_f, "te candidate metrics")
     cand = np.clip(
         np.rint(np.asarray(metric_f)), problem.metric_lo, problem.metric_hi
     ).astype(np.int32)
@@ -219,7 +220,7 @@ class TeOptimizer:
         dev = self.device
 
         def put(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+            return _san.stage(a, dev, dtype)
 
         e_src = put(problem.edge_src, torch.int64)
         e_dst = put(problem.edge_dst, torch.int64)
@@ -319,8 +320,8 @@ def hill_climb(
     *,
     rounds: int = 32,
     seed: int = 0,
-    engine=None,
-    device=None,
+    engine: Optional[DeviceResidencyEngine] = None,
+    device: Optional[torch.device] = None,
 ) -> tuple[np.ndarray, float, int]:
     """Host search baseline: random single-metric moves through the same
     exact evaluator, keep-if-improves.  Returns (metrics, exact

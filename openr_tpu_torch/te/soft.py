@@ -41,6 +41,8 @@ import functools
 
 import torch
 
+from ..device.sanitizer import stage
+
 # float INF sentinel: far above any reachable distance (metrics are
 # bounded by the integer box, paths by the sweep count) yet small enough
 # that INF / tau never overflows exp's argument range in float32
@@ -55,14 +57,14 @@ _TINY = 1e-20
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
     """A float32 0-dim tensor of `x` on `like`'s device."""
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    return stage(x, like.device, torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
 def _const(value: float, device: torch.device) -> torch.Tensor:
     """A float32 0-dim constant on `device`, made once (each sweep reads
     the clip bounds; a fresh tensor would be a host-to-device copy)."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    return stage(value, device, torch.float32)
 
 
 def _clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:

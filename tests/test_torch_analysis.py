@@ -1,13 +1,17 @@
 """The port's static invariant checker (`openr_tpu_torch.analysis`)
 against the reference's (`openr_tpu.analysis`), on the CPU.
 
-Oracles: tests/test_analysis.py (less `TestJitRules` and
-`TestUnbucketedDispatchRule`, whose `jit-*` family has no counterpart)
-and the static half of tests/test_race.py.  Both checkers parse the same
+Oracles: tests/test_analysis.py and the static half of
+tests/test_race.py.  Both checkers parse the same
 `tests/analysis_fixtures/*.py` files and must report equal sorted
 `(rule, line)` pairs, findings and suppressed ones, for every rule the
 port has; each family's seeded pairs are also pinned exactly, as the
-reference's tests pin them.  The port's own tree must be clean, its
+reference's tests pin them.  The reference's `jit-*` family becomes the
+port's `device-*` dispatch rules (`TestJitRules` and
+`TestUnbucketedDispatchRule` here): their fixtures are JAX programs, so
+the port's counterparts, tests/torch_analysis_fixtures/, mirror them
+construct for construct, and `JIT_TO_DEVICE` maps each reference pair to
+the port's.  The port's own tree must be clean, its
 config is its package's `analysis.toml` (never pyproject.toml's
 `[tool.openr-analysis]`), and its CLI keeps the exit-code contract.
 
@@ -162,10 +166,178 @@ def test_shutdown_order_messages():
 
 
 def test_rules_are_the_references_less_jit_and_program():
+    """The reference's rules, the jit-* family renamed to the port's
+    device-* rules (jit-static-hygiene has no counterpart) and the
+    program-* ids kept; the descriptions of the shared families are the
+    reference's."""
     from openr_tpu.analysis import ALL_RULES as J_ALL_RULES
 
-    want = {r: d for r, d in J_ALL_RULES.items() if not r.startswith(("jit-", "program-"))}
-    assert ALL_RULES == want
+    renamed = {
+        "jit-host-sync": "device-host-sync",
+        "jit-tracer-branch": "device-tensor-branch",
+        "jit-dispatch-sync": "device-dispatch-sync",
+        "jit-unbucketed-dispatch": "device-unbucketed-dispatch",
+        "jit-static-hygiene": None,
+    }
+    assert set(renamed) == {r for r in J_ALL_RULES if r.startswith("jit-")}
+    want = {r for r in J_ALL_RULES if not r.startswith("jit-")}
+    want |= {r for r in renamed.values() if r}
+    assert set(ALL_RULES) == want
+    shared = [r for r in J_ALL_RULES if not r.startswith(("jit-", "program-"))]
+    assert {r: ALL_RULES[r] for r in shared} == {r: J_ALL_RULES[r] for r in shared}
+
+
+PORT_FIXTURES = REPO_ROOT / "tests" / "torch_analysis_fixtures"
+
+# tests/test_analysis.py's pinned (rule, line) pairs of jit_violations.py
+# and the unbucketed_* fixtures, each beside its counterpart in the
+# port's fixtures (None: jit-static-hygiene, no counterpart)
+JIT_TO_DEVICE = {
+    "jit_violations.py": {
+        ("jit-host-sync", 18): ("device-host-sync", 18),
+        ("jit-host-sync", 19): ("device-host-sync", 19),
+        ("jit-host-sync", 20): ("device-host-sync", 20),
+        ("jit-host-sync", 21): ("device-host-sync", 21),
+        ("jit-tracer-branch", 28): ("device-tensor-branch", 27),
+        ("jit-tracer-branch", 30): ("device-tensor-branch", 29),
+        ("jit-tracer-branch", 55): ("device-tensor-branch", 43),
+        ("jit-dispatch-sync", 73): ("device-dispatch-sync", 59),
+        ("jit-dispatch-sync", 74): ("device-dispatch-sync", 60),
+        ("jit-static-hygiene", 43): None,
+        ("jit-static-hygiene", 49): None,
+        ("jit-static-hygiene", 87): None,
+    },
+    "unbucketed": {
+        ("jit-unbucketed-dispatch", 22): ("device-unbucketed-dispatch", 19),
+        ("jit-unbucketed-dispatch", 23): ("device-unbucketed-dispatch", 20),
+        ("jit-unbucketed-dispatch", 27): ("device-unbucketed-dispatch", 24),
+    },
+}
+# the suppressed pairs, likewise
+JIT_TO_DEVICE_SUPPRESSED = {
+    "jit_violations.py": {("jit-host-sync", 68): ("device-host-sync", 54)},
+    "unbucketed": {("jit-unbucketed-dispatch", 38): ("device-unbucketed-dispatch", 35)},
+}
+
+
+def _dispatch_findings():
+    config = AnalysisConfig(device_paths=["tests/torch_analysis_fixtures"])
+    return run_analysis([PORT_FIXTURES / "dispatch_violations.py"], config, REPO_ROOT)
+
+
+def _unbucketed_findings(port: bool):
+    names = ("unbucketed_ops.py", "unbucketed_daemon.py", "unbucketed_engine.py")
+    if port:
+        config = AnalysisConfig(
+            device_paths=["tests/torch_analysis_fixtures/unbucketed_ops.py"],
+            engine_dispatch_paths=["tests/torch_analysis_fixtures/unbucketed_engine.py"],
+        )
+        return run_analysis([PORT_FIXTURES / n for n in names], config, REPO_ROOT)
+    config = JAnalysisConfig(
+        jit_paths=["tests/analysis_fixtures/unbucketed_ops.py"],
+        engine_dispatch_paths=["tests/analysis_fixtures/unbucketed_engine.py"],
+    )
+    return j_run_analysis([FIXTURES / n for n in names], config, REPO_ROOT)
+
+
+def _mapped(table: dict, pairs) -> list:
+    return sorted(table[p] for p in pairs if table[p] is not None)
+
+
+class TestJitRules:
+    """The dispatch rules (analysis/dispatch.py) on the mirror of the
+    reference's jit_violations.py."""
+
+    def test_seeded_violations_by_rule_and_line(self):
+        assert _pairs(_dispatch_findings().findings) == [
+            ("device-dispatch-sync", 59),
+            ("device-dispatch-sync", 60),
+            ("device-host-sync", 18),
+            ("device-host-sync", 19),
+            ("device-host-sync", 20),
+            ("device-host-sync", 21),
+            ("device-tensor-branch", 27),
+            ("device-tensor-branch", 29),
+            ("device-tensor-branch", 43),
+        ]
+
+    def test_pairs_map_onto_the_references(self):
+        """Every reference pair maps onto exactly the port's pair (the
+        static-argument ones onto none)."""
+        ref = _ref("jit_violations.py")
+        table = JIT_TO_DEVICE["jit_violations.py"]
+        jit_pairs = [p for p in _pairs(ref.findings) if p[0].startswith("jit-")]
+        assert sorted(jit_pairs) == sorted(table)
+        assert _mapped(table, jit_pairs) == _pairs(_dispatch_findings().findings)
+        sup = JIT_TO_DEVICE_SUPPRESSED["jit_violations.py"]
+        assert [(s.rule, s.line) for s in ref.suppressed] == list(sup)
+        assert [(s.rule, s.line) for s in _dispatch_findings().suppressed] == list(
+            sup.values()
+        )
+
+    def test_interprocedural_propagation(self):
+        # line 43 lives in a private function only reached from a device
+        # root; flagging it proves call-graph propagation
+        assert ("device-tensor-branch", 43) in _pairs(_dispatch_findings().findings)
+
+    def test_clean_constructs_not_flagged(self):
+        # host-argument branches, is-None checks, shape/dtype reads,
+        # torch.where, a declared fetch point and fetch-based dispatch
+        # must all be silent: host_arg_branch (34-38),
+        # dispatch_explicit_fetch (64-69), clean_kernel (72-84)
+        flagged = {line for _, line in _pairs(_dispatch_findings().findings)}
+        for line in [*range(34, 39), *range(64, 70), *range(72, 85)]:
+            assert line not in flagged
+
+    def test_static_hygiene_has_no_counterpart(self):
+        assert "jit-static-hygiene" not in ALL_RULES
+        assert all(not r.startswith("jit-") for r in ALL_RULES)
+
+
+class TestUnbucketedDispatchRule:
+    """device-unbucketed-dispatch over three fixture layers: kernels
+    (device_paths), the sanctioned front-end (engine_dispatch_paths), and
+    a daemon module whose direct root calls are the seeded violations."""
+
+    def test_seeded_violations_by_rule_and_line(self):
+        # 19: a root by `from` import, 20: a root by module alias,
+        # 24: a module-level partial over a root, made in the daemon
+        assert _pairs(_unbucketed_findings(True).findings) == [
+            ("device-unbucketed-dispatch", 19),
+            ("device-unbucketed-dispatch", 20),
+            ("device-unbucketed-dispatch", 24),
+        ]
+
+    def test_pairs_map_onto_the_references(self):
+        ref = _unbucketed_findings(False)
+        table = JIT_TO_DEVICE["unbucketed"]
+        assert _pairs(ref.findings) == sorted(table)
+        assert _mapped(table, _pairs(ref.findings)) == _pairs(
+            _unbucketed_findings(True).findings
+        )
+        sup = JIT_TO_DEVICE_SUPPRESSED["unbucketed"]
+        assert [(s.rule, s.line) for s in ref.suppressed] == list(sup)
+
+    def test_rationale_suppression_is_honored(self):
+        rep = _unbucketed_findings(True)
+        assert [(s.rule, s.line) for s in rep.suppressed] == [
+            ("device-unbucketed-dispatch", 35)
+        ]
+
+    def test_kernel_and_engine_layers_exempt(self):
+        rep = _unbucketed_findings(True)
+        assert all(f.path.endswith("unbucketed_daemon.py") for f in rep.findings)
+
+    def test_the_ports_tree_routes_through_the_engine(self):
+        """The port's own daemon code calls no device root directly
+        outside the protection API's three marked calls."""
+        config, root = load_config(PACKAGE)
+        rep = run_analysis([PACKAGE], config, root)
+        marked = [
+            (s.path, s.rule) for s in rep.suppressed if s.rule == "device-unbucketed-dispatch"
+        ]
+        assert marked == [("openr_tpu_torch/decision/protection_api.py",
+                           "device-unbucketed-dispatch")] * 3
 
 
 class TestChangedOnly:
@@ -253,9 +425,16 @@ class TestTreeIsClean:
         # the same construct, the serving family's wire-parity seed, or
         # the chaos harness's pin-trace seam (the reference's checker
         # skips its chaos/ altogether; the port's checks it)
+        # the dispatch rules' markers are deliberate host reads of values
+        # already fetched (fleet.py, delta.py, te/exact.py) and the
+        # protection API's runner calls, which the reference suppresses too
         assert sorted({(f.rule, f.path) for f in reporter.suppressed}) == [
             ("counter-name", "openr_tpu_torch/fib/fib.py"),
             ("counter-unbumped", "openr_tpu_torch/serving/scheduler.py"),
+            ("device-dispatch-sync", "openr_tpu_torch/decision/fleet.py"),
+            ("device-dispatch-sync", "openr_tpu_torch/te/exact.py"),
+            ("device-tensor-branch", "openr_tpu_torch/ops/delta.py"),
+            ("device-unbucketed-dispatch", "openr_tpu_torch/decision/protection_api.py"),
             ("guarded-by", "openr_tpu_torch/allocators/prefix_allocator.py"),
             ("guarded-by", "openr_tpu_torch/config_store/persistent_store.py"),
             ("thread-cross-module-write", "openr_tpu_torch/chaos/replicafleet.py"),

@@ -71,6 +71,11 @@ DAEMON_MODULES = {
     "openr_tpu_torch.analysis.race",
     "openr_tpu_torch.analysis.sched",
     "openr_tpu_torch.analysis.pytest_tsan",
+    # the device-audit layer: dispatch rules, program auditor, sanitizer
+    "openr_tpu_torch.analysis.dispatch",
+    "openr_tpu_torch.analysis.programs",
+    "openr_tpu_torch.device",
+    "openr_tpu_torch.device.sanitizer",
     # the chaos layer: injectors, scenarios, OCS, load generator, fuzzer
     "openr_tpu_torch.chaos",
     "openr_tpu_torch.chaos.chaos",

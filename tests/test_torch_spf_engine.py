@@ -24,6 +24,7 @@ from openr_tpu.device.engine import DeviceResidencyEngine as JEngine
 from openr_tpu.device.engine import EpochMismatchError as JEpochMismatchError
 from openr_tpu.ops import sssp as jops
 from openr_tpu_torch.decision.csr import CsrTopology
+from openr_tpu_torch.device import EngineSanitizer
 from openr_tpu_torch.device.engine import (
     S_BUCKETS,
     DeviceResidencyEngine,
@@ -227,6 +228,7 @@ def test_twenty_five_flap_sequence():
     e = Engines(dbs)
     names = e.ls.node_names
     e.query([names[0]])
+    san = EngineSanitizer(e.engine)
     for i, (db, kind, lnk, val) in enumerate(_flap_script(dbs)):
         if kind == "metric":
             lnk.metric = val
@@ -237,7 +239,11 @@ def test_twenty_five_flap_sequence():
         assert e.refresh(db) is True, (i, kind)
         size = (1, 5, 25)[i % 3]
         start = i % len(names)
-        e.query((names + names)[start : start + size])
+        # the warm queries run under the transfer guard, as the
+        # reference's (tests/test_device_engine.py): every upload goes
+        # through the engine's staging, every read through a fetch point
+        with san.transfer_guard():
+            e.query((names + names)[start : start + size])
         assert e.engine.last_query_bytes < 1000
     c = e.engine.get_counters()
     assert c["device.engine.full_restages"] == 1
